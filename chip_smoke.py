@@ -1,0 +1,450 @@
+#!/usr/bin/env python3
+"""Prove that the PyTorch/CUDA port (``src/repro_torch``) runs on one card.
+
+Run from the root of a checkout, on a host with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from the sources in the checkout, holds
+each against its plain PyTorch version, learns the Chow-Liu tree at the
+production size (d = 4096 features, n = 2^20 samples, the sign method on
+the int8 wire) and at n = 2^18 for the other wires and methods, and checks
+that the card and the CPU give the same edge lists. Any failed check exits
+non-zero. The last two lines of standard output are one JSON object per
+kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}. Without
+CUDA it exits 1 and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# Published peaks of one H100 SXM (dense, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+
+MAIN_N = 1 << 20          # PRODUCTION samples (sign, int8 wire)
+CUT_N = 1 << 18           # the other strategies, cut to keep the run short
+D = 4096
+CHECK_N = 1 << 16         # kernel checks at the main path's width
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def expect(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def timed(fn):
+    """(result, seconds) of fn() ending in a device synchronize."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def event_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+    import torch
+
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: every kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _signs(gen, shape, dev):
+    import torch
+
+    u = torch.randint(0, 2, shape, generator=gen, device=dev,
+                      dtype=torch.int8)
+    return u.mul_(2).sub_(1)
+
+
+def _packed(gen, shape_bits, dev):
+    """Random sign bits (..., d, n) packed feature-major, bits >= n zero."""
+    import torch
+    from repro_torch.core.quantizers import pack_codes
+
+    bits = torch.randint(0, 2, shape_bits, generator=gen, device=dev,
+                         dtype=torch.uint8)
+    pad = (-shape_bits[-1]) % 8
+    return pack_codes(torch.nn.functional.pad(bits, (0, pad)), 1)
+
+
+def _codes(gen, shape, rate, dev):
+    import torch
+
+    return torch.randint(-1, 1 << rate, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+def code_tolerance(n: int, plain):
+    """|kernel - plain| allowed for code_corr: the kernel sums in f32 (in
+    256-sample partials), the plain version in f64 rounded once."""
+    return 1e-5 * n + 1e-5 * plain.abs()
+
+
+def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
+    """Correctness cases of all four kernels, then the main-path timings.
+
+    Returns the per-kernel records of the JSON line (without launches)."""
+    import torch
+    from repro_torch.core.quantizers import PerSymbolQuantizer, codebook_tensors
+    from repro_torch.kernels import (code_corr, quantize_fused, ref, sign_corr,
+                                     sign_corr_packed)
+
+    cases = {k: 0 for k in ("sign_corr", "sign_corr_packed", "code_corr",
+                            "quantize_fused")}
+
+    def same(name, got, want, what):
+        expect(torch.equal(got, want), f"{name} differs from its plain "
+               f"version: {what}")
+        cases[name] += 1
+
+    # sign_corr: single, batched, rectangular, column slice, main width
+    for shape_l, shape_r in [((1000, 20), None), ((3, 1000, 20), None),
+                             ((1000, 20), (1000, 37)),
+                             ((3, 1000, 20), (3, 1000, 37)),
+                             ((check_n, d), None)]:
+        u = _signs(gen, shape_l, dev)
+        v = None if shape_r is None else _signs(gen, shape_r, dev)
+        same("sign_corr", sign_corr(u, v), ref.sign_corr_ref(u, v),
+             f"{shape_l} x {shape_r}")
+    wide = _signs(gen, (1000, 45), dev)
+    same("sign_corr", sign_corr(wide[:, 5:25], wide[:, 3:40]),
+         ref.sign_corr_ref(wide[:, 5:25], wide[:, 3:40]), "column slices")
+
+    # sign_corr_packed: n not a multiple of 8 or 32, batched, rectangular
+    for n, dl, dr, b in [(1000, 20, None, None), (997, 20, None, None),
+                         (1003, 20, 37, None), (997, 20, None, 3),
+                         (1000, 20, 37, 3), (check_n, d, None, None)]:
+        lead = () if b is None else (b,)
+        p = _packed(gen, (*lead, dl, n), dev)
+        q = None if dr is None else _packed(gen, (*lead, dr, n), dev)
+        same("sign_corr_packed", sign_corr_packed(p, n, q),
+             ref.sign_corr_packed_ref(p, n, q), f"n={n} d={dl}x{dr} b={b}")
+
+    # code_corr: -1 sentinels at R = 2, 4, 7; batched, rectangular
+    for rate in (2, 4, 7):
+        cb = torch.as_tensor(PerSymbolQuantizer(rate).centroids_np,
+                             device=dev)
+        for shape_l, shape_r in [((1000, 20), None), ((3, 1000, 20), None),
+                                 ((1000, 20), (1000, 37)),
+                                 ((3, 1000, 20), (3, 1000, 37))]:
+            c = _codes(gen, shape_l, rate, dev)
+            c2 = None if shape_r is None else _codes(gen, shape_r, rate, dev)
+            got, want = code_corr(c, cb, c2), ref.code_corr_ref(c, cb, c2)
+            err = (got - want).abs()
+            expect(bool((err <= code_tolerance(1000, want)).all()),
+                   f"code_corr R={rate} {shape_l}x{shape_r}: max |err| "
+                   f"{float(err.max())}")
+            cases["code_corr"] += 1
+    cb4 = torch.as_tensor(PerSymbolQuantizer(4).centroids_np, device=dev)
+    c = _codes(gen, (check_n, d), 4, dev)
+    got, want = code_corr(c, cb4), ref.code_corr_ref(c, cb4)
+    err = (got - want).abs()
+    expect(bool((err <= code_tolerance(check_n, want)).all()),
+           f"code_corr at main width: max |err| {float(err.max())}")
+    cases["code_corr"] += 1
+
+    # quantize_fused: +-inf, NaN, +-0.0 and exact boundaries at R = 1..7
+    for rate in range(1, 8):
+        bounds, cents = codebook_tensors(rate, dev)
+        x = torch.randn((257, 64), generator=gen, device=dev)
+        x[0, :5] = torch.tensor([float("inf"), -float("inf"), float("nan"),
+                                 0.0, -0.0])
+        x[1, :bounds.numel()] = bounds[:64]
+        x[2, :bounds.numel()] = torch.nextafter(
+            bounds, torch.tensor(float("inf"), device=dev))[:64]
+        pack = 8 % rate == 0
+        got = quantize_fused(x, rate, values=True, pack=pack)
+        want = ref.quantize_fused_ref(x, bounds, cents, rate, values=True,
+                                      pack=pack)
+        for g_, w_, what in zip(got, want, ("codes", "values", "packed")):
+            same("quantize_fused", g_, w_, f"R={rate} {what}")
+    xm = torch.randn((check_n, d), generator=gen, device=dev)
+    b4, _ = codebook_tensors(4, dev)
+    same("quantize_fused", quantize_fused(xm, 4), ref.encode_ref(xm, b4),
+         "codes at main width")
+    del xm, c, got, want, err
+    log("phase 3 correctness cases:", json.dumps(cases))
+
+    # -- timings at the main path's shapes --------------------------------
+    records = []
+
+    def record(name, source, replaces, shape, ms, plain_ms, library_ms,
+               bytes_moved, ops, op_rate, max_abs_err):
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / op_rate * 1e3
+        records.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "shape": shape, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": max_abs_err})
+        log(f"phase 3 {name} {shape}: ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"library_ms={library_ms} bound_ms={records[-1]['bound_ms']:.3f}")
+
+    # sign_corr at PRODUCTION: n = 2^20, d = 4096, int8
+    u = _signs(gen, (main_n, d), dev)
+    g = sign_corr(u)
+    same("sign_corr", g, ref.sign_corr_ref(u), "main-path shape")
+    ms = event_ms(lambda: sign_corr(u), reps)
+    plain = event_ms(lambda: ref.sign_corr_ref(u), reps)
+    ut = u.t().contiguous()
+    lib = torch._int_mm(ut, u)
+    expect(torch.equal(lib.to(torch.float32), g),
+           "torch._int_mm disagrees with sign_corr")
+    library = event_ms(lambda: torch._int_mm(ut, u), reps)
+    record("sign_corr", "sign_corr.cu",
+           "src/repro/kernels/sign_corr.py:113", f"n={main_n} d={d} int8",
+           ms, plain, library, main_n * d + d * d * 4, 2 * main_n * d * d,
+           INT8_TENSOR_OPS_PER_S, 0.0)
+    del u, ut, g, lib
+
+    # sign_corr_packed at n = 2^18, d = 4096
+    p = _packed(gen, (d, cut_n), dev)
+    g = sign_corr_packed(p, cut_n)
+    same("sign_corr_packed", g, ref.sign_corr_packed_ref(p, cut_n),
+         "main-path shape")
+    ms = event_ms(lambda: sign_corr_packed(p, cut_n), reps)
+    plain = event_ms(lambda: ref.sign_corr_packed_ref(p, cut_n), reps)
+    # one XOR, one POPC and one add per pair of 32-bit words
+    word_pairs = d * d * (cut_n // 32)
+    record("sign_corr_packed", "sign_corr_packed.cu",
+           "src/repro/kernels/sign_corr.py:278",
+           f"n={cut_n} d={d} packed", ms, plain, None,
+           p.numel() + d * d * 4, 3 * word_pairs, F32_OPS_PER_S, 0.0)
+    del p, g
+
+    # code_corr at n = 2^18, d = 4096, R = 4
+    c = _codes(gen, (cut_n, d), 4, dev)
+    g = code_corr(c, cb4)
+    want = ref.code_corr_ref(c, cb4)
+    err = (g - want).abs()
+    expect(bool((err <= code_tolerance(cut_n, want)).all()),
+           f"code_corr at main-path shape: max |err| {float(err.max())}")
+    max_err = float(err.max())
+    del want, err
+    ms = event_ms(lambda: code_corr(c, cb4), reps)
+    plain = event_ms(lambda: ref.code_corr_ref(c, cb4), reps)
+    dec = ref.decode_codes(c, cb4)
+    library = event_ms(lambda: torch.matmul(dec.t(), dec), reps)
+    record("code_corr", "code_corr.cu",
+           "src/repro/kernels/sign_corr.py:190",
+           f"n={cut_n} d={d} R=4 int8 codes", ms, plain, library,
+           c.numel() + 16 * 4 + d * d * 4, 2 * cut_n * d * d,
+           F32_OPS_PER_S, max_err)
+    del c, g, dec
+
+    # quantize_fused at n = 2^18, d = 4096, R = 4, codes only
+    x = torch.randn((cut_n, d), generator=gen, device=dev)
+    same("quantize_fused", quantize_fused(x, 4), ref.encode_ref(x, b4),
+         "main-path shape")
+    ms = event_ms(lambda: quantize_fused(x, 4), reps)
+    plain = event_ms(lambda: ref.encode_ref(x, b4), reps)
+    record("quantize_fused", "quantize.cu",
+           "src/repro/kernels/quantize.py:81",
+           f"n={cut_n} d={d} R=4 codes", ms, plain, None,
+           x.numel() * 5 + (15 + 16) * 4, 15 * x.numel(), F32_OPS_PER_S, 0.0)
+    del x
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-5: the main path
+# ---------------------------------------------------------------------------
+
+#: (strategy fields, kernels it must launch) of the cut-n runs
+CUT_STRATEGIES = (
+    (dict(method="sign", wire="packed"), ("sign_corr_packed",)),
+    (dict(method="persymbol", rate=4), ("quantize_fused", "code_corr")),
+    (dict(method="persymbol", rate=2, wire="packed"),
+     ("quantize_fused", "code_corr")),
+    (dict(method="persymbol", rate=1), ("quantize_fused", "sign_corr")),
+    (dict(method="original"), ()),
+)
+
+
+def run_main_path(dev, d, main_n, cut_n):
+    """learn_structure at PRODUCTION and at the cut n; returns the summed
+    launch counts of these runs (counts reset before each, read after)."""
+    import torch
+    from repro_torch.configs import PRODUCTION
+    from repro_torch.core import estimators
+    from repro_torch.core.chow_liu import (adjacency_to_edges, boruvka_mst,
+                                           learn_structure)
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.core.trees import is_tree, tree_edit_distance
+    from repro_torch.data import GGMDataset
+    from repro_torch.kernels import launches, reset_launches
+
+    total = {k: 0 for k in launches()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    ds = GGMDataset(d=d, seed=PRODUCTION.seed)
+    truth, _ = ds.structure()
+    torch.cuda.reset_peak_memory_stats()
+    x, t_sample = timed(lambda: ds.sample(main_n, device=dev))
+    s = Strategy(method=PRODUCTION.method)
+    reset_launches()
+    est, t_total = timed(lambda: learn_structure(x, strategy=s))
+    counts = launches()
+    add(counts)
+    expect(counts["sign_corr"] > 0, "the PRODUCTION run launched no "
+           "sign_corr")
+    expect(is_tree(d, est), "the PRODUCTION result is not a spanning tree")
+    # the same run stage by stage, for the breakdown
+    payload, t_enc = timed(lambda: estimators.strategy_payload(x, s))
+    del x
+    gram, t_gram = timed(lambda: estimators.payload_gram(payload, s))
+    del payload
+    w, t_w = timed(lambda: estimators.weights_from_gram(gram, main_n, s))
+    adj, t_mst = timed(lambda: boruvka_mst(w))
+    expect(adjacency_to_edges(adj) == est,
+           "the staged PRODUCTION run disagrees with learn_structure")
+    peak = torch.cuda.max_memory_allocated()
+    del gram, w, adj
+    log(f"phase 4 PRODUCTION d={d} n={main_n} sign/int8/boruvka: "
+        f"sample_s={t_sample:.4f} learn_structure_s={t_total:.4f} "
+        f"encode_s={t_enc:.4f} gram_s={t_gram:.4f} weights_s={t_w:.4f} "
+        f"mwst_s={t_mst:.4f} edit_distance={tree_edit_distance(est, truth)} "
+        f"peak_bytes={peak} launches={json.dumps(counts)}")
+
+    torch.cuda.empty_cache()
+    x = ds.sample(cut_n, batch_seed=1, device=dev)
+    for fields, must in CUT_STRATEGIES:
+        s = Strategy(**fields)
+        reset_launches()
+        est, t = timed(lambda: learn_structure(x, strategy=s))
+        counts = launches()
+        add(counts)
+        for k in must:
+            expect(counts[k] > 0, f"{s.label}/{s.wire} launched no {k}")
+        expect(is_tree(d, est), f"{s.label}/{s.wire}: not a spanning tree")
+        log(f"phase 4 d={d} n={cut_n} (cut from 2^20 to keep the run "
+            f"short) {s.label}/{s.wire}: learn_structure_s={t:.4f} "
+            f"edit_distance={tree_edit_distance(est, truth)} "
+            f"launches={json.dumps(counts)}")
+    return total
+
+
+def card_vs_cpu(dev, d, n):
+    """The same samples through the kernels on the card and through their
+    plain versions on the CPU give identical edge lists."""
+    from repro_torch.core.chow_liu import learn_structure
+    from repro_torch.core.gram import GramEngine
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.data import GGMDataset
+
+    x = GGMDataset(d=d, seed=1).sample(n, device=dev)
+    xc = x.cpu()
+    eng = GramEngine(backend="kernel")
+    for fields in ({}, *(f for f, _ in CUT_STRATEGIES)):
+        s = Strategy(**fields)
+        on_card = learn_structure(x, strategy=s, engine=eng)
+        on_cpu = learn_structure(xc, strategy=s, engine=eng)
+        expect(on_card == on_cpu, f"card and CPU edge lists differ for "
+               f"{s.label}/{s.wire} at d={d} n={n}")
+    log(f"phase 5 card == CPU edge lists at d={d} n={n} for "
+        f"{1 + len(CUT_STRATEGIES)} strategies")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    from repro_torch.kernels import _build
+
+    # phase 1: the card, the versions, the f32 matmul precision
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    expect(not torch.backends.cuda.matmul.allow_tf32
+           and not torch.backends.cudnn.allow_tf32, "TF32 is still on")
+    log(f"phase 1 card: {card}")
+    log(f"phase 1 python={sys.version.split()[0]} torch={torch.__version__} "
+        f"cuda={torch.version.cuda} matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+
+    # phase 2: build every kernel from the checkout's sources
+    out = _build.build_all()
+    log(f"phase 2 built {len(_build.KERNELS)} kernels in "
+        f"{_build.last_build_seconds:.1f} s into {out}")
+    for k in _build.KERNELS:
+        usage = [ln.split("info    :")[-1].strip()
+                 for ln in (out / f"lib{k}.log").read_text().splitlines()
+                 if "registers" in ln]
+        log(f"phase 2 {k}: {'; '.join(usage)}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    records = check_kernels("cuda", gen, MAIN_N, CUT_N, CHECK_N, D, reps=3)
+    total = run_main_path("cuda", D, MAIN_N, CUT_N)
+    for r in records:
+        r["launches"] = total[r["name"]]
+        expect(r["launches"] > 0, f"the main path never launched "
+               f"{r['name']}")
+    card_vs_cpu("cuda", 256, 1 << 14)
+
+    print(card)
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,338 @@
+"""Statistic estimators used by the central machine (paper §4.2, §5).
+
+The port of the gather half of ``repro.core.estimators``. Every pairwise
+(d, d) statistic routes its Gram through
+:class:`repro_torch.core.gram.GramEngine`; pass ``engine=`` to pin a
+backend (``None`` = the default engine, which follows the operands'
+device).
+
+The declarative entry points decompose into the three stages every
+pipeline shares:
+
+* :func:`strategy_payload` — **encode**: raw samples -> the strategy's
+  wire payload (±1 int8 signs, int8 bin codes, dense packed bits, or raw
+  f32 for the unquantized baseline), valid-length masked;
+* :func:`payload_gram`    — **central contraction**: payload -> (d, d)
+  Gram, straight off the wire bytes where the format allows it;
+* :func:`weights_from_gram` — **central estimate**: Gram + sample count
+  -> Chow-Liu weights (eqs. 1/4/30).
+
+The fault plane's per-feature row counts (``n_rows``) and bit flips
+(``flip``), and the MAC / bit-budget channels, arrive with the wire
+plane: passing them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .gram import GramEngine, resolve_engine
+from .quantizers import (MASKED_CODE, PerSymbolQuantizer, pack_codes,
+                         sign_codes, unpack_codes_u8, valid_sample_mask)
+from .strategy import Strategy
+
+_WIRE_PLANE = "arrives with the port's wire plane"
+
+
+def _no_wire_plane(**kw) -> None:
+    given = [k for k, v in kw.items() if v is not None]
+    if given:
+        raise NotImplementedError(f"{', '.join(given)} {_WIRE_PLANE}")
+
+
+def __getattr__(name: str):
+    # the channel plane's estimators (mac_*, budget_*) are not ported yet
+    if name.startswith(("mac_", "budget_")):
+        raise NotImplementedError(f"estimators.{name} {_WIRE_PLANE}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _dim(n) -> int:
+    return n.dim() if isinstance(n, torch.Tensor) else np.ndim(n)
+
+
+def theta_hat(u: torch.Tensor, *, engine: GramEngine | None = None):
+    """UMVE of theta_jk = Pr(u_j u_k = 1) from sign data (eq. 8):
+    theta_hat = 1/2 + (U^T U) / (2n)."""
+    n = u.shape[0]
+    return 0.5 + resolve_engine(engine).gram(u) / (2.0 * n)
+
+
+def theta_hat_packed(packed, n: int, *, engine: GramEngine | None = None):
+    """theta_hat (eq. 8) straight from the 1-bit packed wire payload —
+    (d, ceil(n/8)) uint8 — via the XOR + popcount Gram. Exact: equals
+    :func:`theta_hat` on the unpacked u."""
+    gram = resolve_engine(engine).packed_sign_gram(packed, n)
+    return 0.5 + gram / (2.0 * n)
+
+
+def binary_entropy(p: torch.Tensor) -> torch.Tensor:
+    """h(p) in bits (eq. 5), safe at {0, 1}."""
+    # epsilon representable in f32: 1 - 1e-12 rounds to 1.0 in f32
+    p = torch.clamp(p, 1e-7, 1.0 - 1e-7)
+    return -(p * torch.log2(p) + (1.0 - p) * torch.log2(1.0 - p))
+
+
+def mi_sign(theta: torch.Tensor) -> torch.Tensor:
+    """I(u_j; u_k) = 1 - h(theta) in bits (eq. 4)."""
+    return 1.0 - binary_entropy(theta)
+
+
+def mi_gaussian(rho: torch.Tensor) -> torch.Tensor:
+    """I(x_j; x_k) = -1/2 ln(1 - rho^2) (eq. 1); the clip keeps the
+    (MWST-irrelevant) diagonal finite in f32."""
+    r2 = torch.clamp(torch.square(rho), 0.0, 1.0 - 1e-7)
+    return -0.5 * torch.log1p(-r2)
+
+
+def rho_squared_unbiased(rho_bar, n):
+    """Unbiased estimator of rho^2 (eq. 30): n/(n+1) (rho_bar^2 - 1/n)."""
+    return (n / (n + 1.0)) * (torch.square(rho_bar) - 1.0 / n)
+
+
+def effective_counts(n_rows) -> torch.Tensor:
+    """(..., d) per-feature delivered-row counts -> (..., d, d) effective
+    PAIRWISE sample counts: n_eff[j, k] = min(n_rows[j], n_rows[k])."""
+    counts = torch.as_tensor(n_rows, dtype=torch.float32)
+    return torch.minimum(counts[..., :, None], counts[..., None, :])
+
+
+def _as_count(n, like: torch.Tensor):
+    """A sample count as ``weights_from_gram`` divides by it: python
+    numbers stay python (f32 weak scalars), arrays become f32 tensors."""
+    if isinstance(n, (int, float)):
+        return n
+    return torch.as_tensor(n, dtype=torch.float32, device=like.device)
+
+
+def weights_from_gram(gram: torch.Tensor, n, method, *,
+                      normalized: bool = False) -> torch.Tensor:
+    """Central-machine estimate: raw Gram + sample count -> Chow-Liu weights.
+
+    ``gram`` is the (..., d, d) contraction of what the wire delivered,
+    ``n`` the sample count it sums over (a python int, an f32 scalar
+    tensor, or the (..., d, d) per-entry count matrix of
+    :func:`effective_counts`), ``method`` a method string or a Strategy.
+
+    * ``'sign'``      — eq. 8 UMVE theta_hat -> MI of signs (eq. 4);
+    * ``'persymbol'`` — eq. 32 correlation -> unbiased rho^2 (eq. 30) ->
+      Gaussian MI (eq. 1);
+    * ``'original'``  — sample correlation -> Gaussian MI (eq. 1).
+
+    A per-entry ``n`` divides by max(n_eff, 1) and zeroes entries whose
+    effective count is < 2. ``normalized=True`` declares that ``gram`` is
+    already gram / max(n, 1).
+    """
+    method = getattr(method, "method", method)
+    gram = torch.as_tensor(gram)
+    n = _as_count(n, gram)
+    n_eff = None
+    if _dim(n) >= 2:
+        n_eff = n
+        n = torch.clamp(n_eff, min=1.0)
+    if method == "original":
+        w = mi_gaussian(gram if normalized else gram / n)
+    elif method == "sign":
+        w = mi_sign((0.5 + gram / 2.0) if normalized
+                    else (0.5 + gram / (2.0 * n)))
+    elif method == "persymbol":
+        rho_bar = gram if normalized else gram / n
+        r2 = torch.clamp(rho_squared_unbiased(rho_bar, n), 0.0, 1.0 - 1e-7)
+        w = -0.5 * torch.log1p(-r2)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    if n_eff is not None:
+        w = torch.where(n_eff >= 2.0, w, 0.0)
+    return w
+
+
+def nearest_correlation(S: torch.Tensor, *, eps: float = 1e-4) -> torch.Tensor:
+    """Project a symmetric matrix to a nearby valid correlation matrix:
+    eigen-clip to eigenvalues >= ``eps``, then renormalize the diagonal to
+    1 (the port of ``repro.core.glasso.nearest_correlation``)."""
+    S = torch.as_tensor(S, dtype=torch.float32)
+    S = (S + S.transpose(-1, -2)) / 2.0
+    w, v = torch.linalg.eigh(S)
+    w = torch.clamp(w, min=eps)
+    S = torch.einsum("...ij,...j,...kj->...ik", v, w, v)
+    dinv = 1.0 / torch.sqrt(torch.diagonal(S, dim1=-2, dim2=-1))
+    S = S * dinv[..., :, None] * dinv[..., None, :]
+    return (S + S.transpose(-1, -2)) / 2.0
+
+
+def corr_from_gram(gram: torch.Tensor, n, method) -> torch.Tensor:
+    """Central estimate for SPARSE structures: raw Gram + sample count ->
+    the correlation statistic a glasso solve ingests.
+
+    * ``'original'`` / ``'persymbol'`` — gram / n (eqs. 31/32);
+    * ``'sign'`` — rho = sin(pi * gram / (2n)), eigen-clipped back to a
+      valid correlation matrix (:func:`nearest_correlation`).
+
+    A per-entry ``n`` neutralizes degenerate entries (count < 2) to the
+    identity's.
+    """
+    method = getattr(method, "method", method)
+    gram = torch.as_tensor(gram)
+    n = _as_count(n, gram)
+    n_eff = None
+    if _dim(n) >= 2:
+        n_eff = n
+        n = torch.clamp(n_eff, min=1.0)
+    if method in ("original", "persymbol"):
+        rho = gram / n
+    elif method == "sign":
+        rho = torch.sin(math.pi * gram / (2.0 * n))
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    if n_eff is not None:
+        eye = torch.eye(gram.shape[-1], dtype=rho.dtype, device=rho.device)
+        rho = torch.where(n_eff >= 2.0, rho, eye)
+    if method == "sign":
+        return nearest_correlation(rho)
+    return rho
+
+
+def _sample_mask(n_pad: int, n_valid, device) -> torch.Tensor:
+    return valid_sample_mask(n_pad, n_valid, device)[:, None]
+
+
+def strategy_payload(x: torch.Tensor, strategy: Strategy, *, n_valid=None,
+                     n_rows=None, flip=None) -> torch.Tensor:
+    """Encode stage: raw (..., n, d) f32 samples -> the strategy's wire
+    payload — exactly what the paper's machines transmit.
+
+    Layouts (leading batch axes pass through):
+      * values / signs / bin codes — sample-major ``(..., n, d)`` (f32 /
+        int8 ±1 / int8 in [0, 2^R));
+      * packed wires — feature-major ``(..., d, n*R/8)`` uint8. Sign
+        payloads pack whenever ``strategy.packed_gram_ok(n)``; per-symbol
+        payloads pack when ``(8 // rate) | n`` (else int8 codes).
+
+    ``n_valid`` masks pad rows: values/signs to 0, bin codes to
+    ``MASKED_CODE`` (packed wires carry pad symbols as 0 bits;
+    :func:`payload_operand` restores the sentinel at the center).
+    """
+    _no_wire_plane(n_rows=n_rows, flip=flip)
+    n_pad = x.shape[-2]
+    mask = None if n_valid is None else _sample_mask(n_pad, n_valid, x.device)
+
+    if strategy.method == "original":
+        return x if mask is None else torch.where(mask, x, 0.0)
+    if strategy.method == "sign":
+        if strategy.packed_gram_ok(n_pad):
+            bits = x >= 0
+            if mask is not None:
+                bits &= mask
+            return pack_codes(bits.transpose(-2, -1), 1)  # (., d, n/8)
+        u = sign_codes(x)
+        return u if mask is None else u.masked_fill_(~mask, 0)
+    codes = PerSymbolQuantizer(strategy.rate).encode(x)
+    if strategy.wire == "packed" and n_pad % (8 // strategy.rate) == 0:
+        # dense R-bit wire: pad symbols travel as code 0 (the center
+        # re-masks them from n_valid before contracting)
+        if mask is not None:
+            codes = codes.masked_fill_(~mask, 0)
+        return pack_codes(codes.transpose(-2, -1), strategy.rate)
+    if mask is not None:
+        codes = codes.masked_fill_(~mask, MASKED_CODE)
+    return codes
+
+
+def payload_operand(payload: torch.Tensor, strategy: Strategy, *,
+                    n_valid=None, n_rows=None) -> torch.Tensor:
+    """Wire payload -> the Gram operand the engine kernels ingest.
+
+    Identity for every format the engine contracts natively (values, ±1
+    signs, bin codes, 1-bit packed signs). The per-symbol packed wire is
+    unpacked back to sample-major int8 bin codes with ``MASKED_CODE``
+    restored on pad rows — integer-exact.
+    """
+    _no_wire_plane(n_rows=n_rows)
+    if payload.dtype != torch.uint8 or strategy.method != "persymbol":
+        return payload
+    # feature-major bytes -> sample-major int8 codes (a contiguous copy:
+    # the Gram kernels read rows of samples)
+    codes = unpack_codes_u8(payload, strategy.rate).transpose(
+        -2, -1).contiguous().view(torch.int8)
+    if n_valid is not None:
+        mask = _sample_mask(codes.shape[-2], n_valid, codes.device)
+        codes = codes.masked_fill_(~mask, MASKED_CODE)
+    return codes
+
+
+def payload_gram(payload: torch.Tensor, strategy: Strategy, *, n_valid=None,
+                 n_rows=None, payload_rows=None, n_rows_rows=None,
+                 engine: GramEngine | None = None) -> torch.Tensor:
+    """Central contraction: (gathered) wire payload -> (..., d, d) Gram.
+
+    Batched payloads go through the engine's ``*_batch`` entry points.
+    1-bit packed sign payloads are contracted DIRECTLY (XOR + popcount on
+    the wire bytes); everything else goes through :func:`payload_operand`.
+    ``payload_rows`` (a feature-slice payload of the same format) gives
+    the rectangular (..., d_rows, d) block of those rows against the full
+    payload. ``n_valid`` applies the integer-exact masked-count shift to
+    the packed sign identity (G = n_valid - 2*popcount).
+    """
+    _no_wire_plane(n_rows=n_rows, n_rows_rows=n_rows_rows)
+    eng = resolve_engine(engine)
+    batched = payload.ndim == 3
+
+    if strategy.method == "sign" and payload.dtype == torch.uint8:
+        n_pad = payload.shape[-1] * 8
+        fn = eng.packed_sign_gram_batch if batched else eng.packed_sign_gram
+        if payload_rows is not None:
+            gram = fn(payload_rows, n_pad, payload)
+        else:
+            gram = fn(payload, n_pad)
+        if n_valid is not None:
+            # pad bits are 0 in every row, so they xor away and only the
+            # integer-exact shift to the true count remains
+            gram = gram - (n_pad - torch.as_tensor(
+                n_valid, dtype=torch.float32, device=gram.device))
+        return gram
+
+    u = payload_operand(payload, strategy, n_valid=n_valid)
+    rows = None
+    if payload_rows is not None:
+        rows = payload_operand(payload_rows, strategy, n_valid=n_valid)
+    if strategy.method == "persymbol":
+        cb = PerSymbolQuantizer(strategy.rate).centroids_np
+        fn = eng.code_gram_batch if batched else eng.code_gram
+        if rows is not None:
+            return fn(rows, cb, u)
+        return fn(u, cb)
+    fn = eng.gram_batch if batched else eng.gram
+    return fn(u if rows is None else rows, u if rows is not None else None)
+
+
+def strategy_weights(x: torch.Tensor, strategy: Strategy, *,
+                     engine: GramEngine | None = None) -> torch.Tensor:
+    """(n, d) raw samples -> (d, d) Chow-Liu weight matrix for a Strategy:
+    :func:`strategy_payload` -> :func:`payload_gram` ->
+    :func:`weights_from_gram`."""
+    payload = strategy_payload(x, strategy)
+    gram = payload_gram(payload, strategy, engine=engine)
+    return weights_from_gram(gram, x.shape[0], strategy)
+
+
+def strategy_weights_batch(x: torch.Tensor, strategy: Strategy, *,
+                           n_valid=None, n_rows=None, flip=None,
+                           engine: GramEngine | None = None, rates=None,
+                           delivered=None) -> torch.Tensor:
+    """(t, n, d) stacked raw samples -> (t, d, d) Chow-Liu weights, the
+    trial axis through the Gram engine's ``*_batch`` entry points.
+
+    ``n_valid`` enables shape bucketing: rows >= n_valid are padding,
+    masked in :func:`strategy_payload`, and every normalization uses
+    n_valid; integer-exact paths are bit-equal to the unpadded ones.
+    """
+    _no_wire_plane(n_rows=n_rows, flip=flip, rates=rates,
+                   delivered=delivered)
+    n_pad = x.shape[-2]
+    payload = strategy_payload(x, strategy, n_valid=n_valid)
+    gram = payload_gram(payload, strategy, n_valid=n_valid, engine=engine)
+    n = n_pad if n_valid is None else torch.as_tensor(
+        n_valid, dtype=torch.float32, device=gram.device)
+    return weights_from_gram(gram, n, strategy)

@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the port and their plain versions.
+
+* sign_corr        — int8 Gram G = U^T V (int32 sums, dp4a)
+* sign_corr_packed — sign Gram from bit-packed signs, n - 2*popcount(xor)
+* code_corr        — Gram of centroid-decoded int8 bin codes
+* quantize_fused   — R-bit encode (+ optional decode and dense pack)
+
+Each kernel's plain PyTorch version lives in ``ref``; the wrappers use it
+for CPU tensors only. Sources are in ``csrc/`` and build at first use
+(``_build``).
+"""
+from .quantize import quantize_fused  # noqa: F401
+from .sign_corr import code_corr, sign_corr, sign_corr_packed  # noqa: F401
+
+#: every kernel wrapper, by name (each carries a ``launches`` count)
+WRAPPERS = {
+    "sign_corr": sign_corr,
+    "sign_corr_packed": sign_corr_packed,
+    "code_corr": code_corr,
+    "quantize_fused": quantize_fused,
+}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

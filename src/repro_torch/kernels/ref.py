@@ -1,0 +1,117 @@
+"""Plain PyTorch versions of the port's four kernels.
+
+Each computes the same function as its CUDA kernel; the tiling is the
+kernel's own. The wrappers in ``sign_corr.py`` / ``quantize.py`` take
+these for CPU tensors (the tests run them here), and ``chip_smoke.py``
+holds every kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+#: upper bound on the bool block the plain encode materialises at once
+_ENCODE_BLOCK = 1 << 27
+
+
+def sign_corr_ref(u: torch.Tensor, v: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """G = u^T v in f32 (v defaults to u); (n, d) or (b, n, d) operands."""
+    uf = u.to(torch.float32)
+    vf = uf if v is None else v.to(torch.float32)
+    return torch.matmul(uf.transpose(-1, -2), vf)
+
+
+def unpack_signs_pm1(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., d, nb) uint8 little-order sign bits -> (..., d, nb*8) f32 ±1
+    with every bit at position >= n set to 0 (it drops out of a Gram)."""
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=packed.device)
+    bits = (packed.unsqueeze(-1) & weights) > 0
+    u = torch.where(bits, 1.0, -1.0).to(torch.float32)
+    u = u.reshape(*packed.shape[:-1], packed.shape[-1] * 8)
+    valid = torch.arange(u.shape[-1], device=packed.device) < n
+    return torch.where(valid, u, 0.0)
+
+
+def sign_corr_packed_ref(packed: torch.Tensor, n: int,
+                         packed_rhs: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Unpack (..., d, nb) uint8 sign bits to ±1 (pad bits -> 0), then
+    contract in f32: the sign Gram of the first ``n`` samples."""
+    uf = unpack_signs_pm1(packed, n)
+    vf = uf if packed_rhs is None else unpack_signs_pm1(packed_rhs, n)
+    return torch.matmul(uf, vf.transpose(-1, -2))
+
+
+def decode_codes(codes: torch.Tensor, centroids: torch.Tensor
+                 ) -> torch.Tensor:
+    """Centroid decode in f32; codes outside [0, L) — the -1 mask
+    sentinel included — decode to 0."""
+    cb = centroids.to(device=codes.device, dtype=torch.float32)
+    c = codes.to(torch.int64)
+    in_range = (c >= 0) & (c < cb.shape[0])
+    return torch.where(in_range, cb[c.clamp(0, cb.shape[0] - 1)], 0.0)
+
+
+def code_corr_ref(codes: torch.Tensor, centroids: torch.Tensor,
+                  codes_rhs: torch.Tensor | None = None) -> torch.Tensor:
+    """Gram of the centroid-decoded codes, rounded once to f32.
+
+    The decoded values are the f32 centroids; the contraction runs in
+    float64, so the result is the f32 rounding of the exact Gram to
+    within float64 error — the yardstick the kernel's f32 sum is held to.
+    """
+    uf = decode_codes(codes, centroids).to(torch.float64)
+    vf = uf if codes_rhs is None else decode_codes(
+        codes_rhs, centroids).to(torch.float64)
+    return torch.matmul(uf.transpose(-1, -2), vf).to(torch.float32)
+
+
+def encode_ref(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
+    """int8 bin codes: the count of ``boundaries`` strictly below x.
+
+    A compare-and-sum (not ``searchsorted``, which places NaN elsewhere):
+    NaN -> 0, +inf -> len(boundaries), an exact boundary value -> the
+    lower bin. Runs over row blocks so the bool block it materialises
+    stays under ``_ENCODE_BLOCK`` entries.
+    """
+    b = boundaries.to(device=x.device, dtype=torch.float32)
+    flat = x.reshape(-1, x.shape[-1]) if x.dim() else x.reshape(1, 1)
+    rows = max(1, _ENCODE_BLOCK // max(1, flat.shape[-1] * b.numel()))
+    out = torch.empty(flat.shape, dtype=torch.int8, device=x.device)
+    for r0 in range(0, flat.shape[0], rows):
+        blk = flat[r0:r0 + rows]
+        out[r0:r0 + rows] = (blk.unsqueeze(-1) > b).sum(-1, dtype=torch.int8)
+    return out.reshape(x.shape)
+
+
+def pack_codes_ref(codes: torch.Tensor, rate: int) -> torch.Tensor:
+    """Pack R-bit codes densely into uint8 along the last axis, symbol i
+    of a byte at bit i*R (little order). rate | 8; the last axis must be
+    a multiple of 8 // rate."""
+    if 8 % rate != 0:
+        raise ValueError(f"rate {rate} must divide 8")
+    per = 8 // rate
+    n = codes.shape[-1]
+    if n % per != 0:
+        raise ValueError(
+            f"pad to a multiple of {per} symbols before packing")
+    c = codes.to(torch.uint8).reshape(*codes.shape[:-1], n // per, per)
+    out = c[..., 0].clone()
+    for i in range(1, per):
+        out |= c[..., i] << (i * rate)
+    return out
+
+
+def quantize_fused_ref(x: torch.Tensor, boundaries: torch.Tensor,
+                       centroids: torch.Tensor, rate: int, *,
+                       values: bool = False, pack: bool = False):
+    """(codes int8[, values f32][, packed uint8]) of the R-bit quantizer:
+    encode, centroid decode and the dense R-bit pack along the last axis."""
+    codes = encode_ref(x, boundaries)
+    outs = [codes]
+    if values:
+        outs.append(decode_codes(codes, centroids))
+    if pack:
+        outs.append(pack_codes_ref(codes, rate))
+    return outs[0] if len(outs) == 1 else tuple(outs)
