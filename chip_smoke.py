@@ -9,10 +9,14 @@ It builds the port's CUDA kernels from the sources in the checkout, holds
 each against its plain PyTorch version, learns the Chow-Liu tree at the
 production size (d = 4096 features, n = 2^20 samples, the sign method on
 the int8 wire) and at n = 2^18 for the other wires and methods, and checks
-that the card and the CPU give the same edge lists. Any failed check exits
-non-zero. The last two lines of standard output are one JSON object per
-kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}. Without
-CUDA it exits 1 and prints no result.
+that the card and the CPU give the same edge lists. Then it serves
+granite-8b at full width in bf16 (random weights from a seed; batch 8,
+2048-token prompts, 32 greedy tokens) through the flash-prefill and
+flash-decode kernels, and checks a small GQA model's greedy decode on the
+card against the CPU. Any failed check exits non-zero. The last three
+lines of standard output are the card's name and power limit, one JSON
+object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
+Without CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -29,12 +33,22 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # Published peaks of one H100 SXM (dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
+BF16_TENSOR_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 
 MAIN_N = 1 << 20          # PRODUCTION samples (sign, int8 wire)
 CUT_N = 1 << 18           # the other strategies, cut to keep the run short
 D = 4096
 CHECK_N = 1 << 16         # kernel checks at the main path's width
+
+# The LM serving run: granite-8b at full width, uncut.
+SERVE_ARCH = "granite-8b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
+#: f32 kernel against its f32 plain version: sums in another order
+ATTN_F32_ATOL = 3e-5
+#: bf16: the output is rounded once to bf16 (2^-8 relative) after f32 sums
+#: in another order, so one bf16 ulp may differ
+ATTN_BF16_TOL = dict(atol=1e-2, rtol=2 ** -7)
 
 
 class SmokeFailure(Exception):
@@ -81,6 +95,25 @@ def event_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def make_record(phase, name, source, replaces, shape, ms, plain_ms,
+                library_ms, bytes_moved, ops, op_rate, max_abs_err):
+    """One kernel's entry of the JSON line; bound_ms is the larger of its
+    bytes over the HBM rate and its operations over ``op_rate``."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / op_rate * 1e3
+    rec = {"name": name, "ok": True, "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{source}",
+           "replaces": replaces, "shape": shape, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": max_abs_err}
+    log(f"{phase} {name} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms} bound_ms={rec['bound_ms']:.4f} "
+        f"({rec['bound_by']})")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -191,10 +224,14 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
         x[1, :bounds.numel()] = bounds[:64]
         x[2, :bounds.numel()] = torch.nextafter(
             bounds, torch.tensor(float("inf"), device=dev))[:64]
+        # f32 subnormals encode as 0.0 does (repro's XLA flushes them)
+        x[3, :6] = torch.tensor([1e-45, -1e-45, 1e-40, -1e-40, 0.0, -0.0])
         pack = 8 % rate == 0
         got = quantize_fused(x, rate, values=True, pack=pack)
         want = ref.quantize_fused_ref(x, bounds, cents, rate, values=True,
                                       pack=pack)
+        expect(bool((got[0][3, :6] == got[0][3, 4]).all()),
+               f"quantize_fused R={rate}: a subnormal encodes unlike 0.0")
         for g_, w_, what in zip(got, want, ("codes", "values", "packed")):
             same("quantize_fused", g_, w_, f"R={rate} {what}")
     xm = torch.randn((check_n, d), generator=gen, device=dev)
@@ -207,20 +244,8 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
     # -- timings at the main path's shapes --------------------------------
     records = []
 
-    def record(name, source, replaces, shape, ms, plain_ms, library_ms,
-               bytes_moved, ops, op_rate, max_abs_err):
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / op_rate * 1e3
-        records.append({
-            "name": name, "ok": True, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "shape": shape, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err": max_abs_err})
-        log(f"phase 3 {name} {shape}: ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"library_ms={library_ms} bound_ms={records[-1]['bound_ms']:.3f}")
+    def record(*args):
+        records.append(make_record("phase 3", *args))
 
     # sign_corr at PRODUCTION: n = 2^20, d = 4096, int8
     u = _signs(gen, (main_n, d), dev)
@@ -280,9 +305,15 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
          "main-path shape")
     ms = event_ms(lambda: quantize_fused(x, 4), reps)
     plain = event_ms(lambda: ref.encode_ref(x, b4), reps)
+    # torch.bucketize (right=False) counts the boundaries strictly below x:
+    # the same codes, as int64, for every non-NaN, non-subnormal x
+    expect(torch.equal(torch.bucketize(x, b4).to(torch.int8),
+                       quantize_fused(x, 4)),
+           "torch.bucketize disagrees with quantize_fused")
+    library = event_ms(lambda: torch.bucketize(x, b4), reps)
     record("quantize_fused", "quantize.cu",
            "src/repro/kernels/quantize.py:81",
-           f"n={cut_n} d={d} R=4 codes", ms, plain, None,
+           f"n={cut_n} d={d} R=4 codes", ms, plain, library,
            x.numel() * 5 + (15 + 16) * 4, 15 * x.numel(), F32_OPS_PER_S, 0.0)
     del x
     return records
@@ -390,6 +421,295 @@ def card_vs_cpu(dev, d, n):
         f"{1 + len(CUT_STRATEGIES)} strategies")
 
 
+# ---------------------------------------------------------------------------
+# Phases 6-8: the LM serving path (flash_prefill, decode_attention)
+# ---------------------------------------------------------------------------
+
+def _attn_close(got, want, what):
+    """Hold an attention kernel's output to its plain version: f32 within
+    ATTN_F32_ATOL, bf16 within ATTN_BF16_TOL. Returns max |error|."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        ok = bool((err <= ATTN_F32_ATOL).all())
+    else:
+        tol = ATTN_BF16_TOL["atol"] + ATTN_BF16_TOL["rtol"] * want.float().abs()
+        ok = bool((err <= tol).all())
+    expect(ok and bool(torch.isfinite(got).all()),
+           f"{what}: max |kernel - plain| {float(err.max())}")
+    return float(err.max())
+
+
+def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
+    """Both attention kernels against their plain versions (f32 and bf16;
+    groups of 1, 4 and 48; head sizes 64, 80 and 128; ragged lengths,
+    windows, non-causal, pos = 1 and pos = S, strided operands), then
+    timed at the serving shapes of granite-8b. Returns their records
+    (without launches)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, flash_prefill, ref
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    cases = {"flash_prefill": 0, "decode_attention": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        # (B, S, Hq, Hkv, Dh, causal, window, strided)
+        for b, s, hq, hkv, dh, causal, window, strided in [
+                (2, 300, 8, 8, 64, True, 0, False),      # G = 1
+                (2, 300, 32, 8, 128, True, 0, True),     # G = 4, views
+                (1, 257, 48, 1, 128, True, 0, False),    # G = 48 (MQA)
+                (1, 200, 32, 32, 80, True, 100, False),  # Dh 80, window
+                (1, 130, 8, 2, 64, False, 0, False),     # non-causal
+                (1, 130, 8, 2, 80, False, 40, True)]:    # both, views
+            if strided:  # q from a fused projection, k/v head-major
+                qkv = rnd(b, s, hq + 2 * hkv, dh, dtype=dtype)
+                q = qkv[:, :, :hq]
+                k = rnd(b, hkv, s, dh, dtype=dtype).transpose(1, 2)
+                v = qkv[:, :, hq + hkv:]
+            else:
+                q = rnd(b, s, hq, dh, dtype=dtype)
+                k, v = (rnd(b, s, hkv, dh, dtype=dtype) for _ in range(2))
+            _attn_close(flash_prefill(q, k, v, causal=causal, window=window),
+                        ref.flash_prefill_ref(q, k, v, causal=causal,
+                                              window=window),
+                        f"flash_prefill {dtype} B={b} S={s} Hq={hq} "
+                        f"Hkv={hkv} Dh={dh} causal={causal} window={window}")
+            cases["flash_prefill"] += 1
+        # (B, Hq, Hkv, S, Dh, pos, window, model-layout cache)
+        for b, hq, hkv, s, dh, pos, window, model_layout in [
+                (2, 8, 8, 1000, 64, 1, None, False),     # G = 1, pos = 1
+                (2, 32, 8, 1000, 128, 1000, None, True),  # G = 4, pos = S
+                (1, 48, 1, 777, 128, 500, None, True),   # G = 48 (MQA)
+                (1, 32, 32, 300, 80, 300, 100, False),   # Dh 80, window
+                (2, 32, 8, 2080, 128, 2049, None, True),  # serving cache
+                (1, 8, 2, 333, 64, 200, 50, "unaligned")]:  # element loads
+            q = rnd(b, hq, dh, dtype=dtype)
+            if model_layout == "unaligned":  # rows off a 16-byte boundary
+                kv = rnd(b, hkv, s, dh + 1, dtype=dtype)
+                k, v = kv[..., 1:], kv[..., :dh]
+            elif model_layout:  # (B, S, Hkv, Dh) viewed as (B, Hkv, S, Dh)
+                k, v = (rnd(b, s, hkv, dh, dtype=dtype).transpose(1, 2)
+                        for _ in range(2))
+            else:
+                k, v = (rnd(b, hkv, s, dh, dtype=dtype) for _ in range(2))
+            _attn_close(decode_attention(q, k, v, pos, window=window),
+                        ref.decode_attention_ref(q, k, v, pos, window=window),
+                        f"decode_attention {dtype} B={b} Hq={hq} Hkv={hkv} "
+                        f"S={s} Dh={dh} pos={pos} window={window}")
+            cases["decode_attention"] += 1
+    log("phase 6 correctness cases:", json.dumps(cases))
+
+    # -- timings at granite-8b's serving shapes (bf16) ---------------------
+    from repro_torch.models.arch import get_arch
+
+    cfg = get_arch(SERVE_ARCH)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bf = torch.bfloat16
+    records = []
+    s = prompt
+    q = rnd(batch, s, hq, dh, dtype=bf)
+    k, v = (rnd(batch, s, hkv, dh, dtype=bf) for _ in range(2))
+    out = flash_prefill(q, k, v, causal=True)
+    err = _attn_close(out, ref.flash_prefill_ref(q, k, v, causal=True),
+                      "flash_prefill at the serving shape")
+    ms = event_ms(lambda: flash_prefill(q, k, v, causal=True), reps)
+    plain = event_ms(lambda: ref.flash_prefill_ref(q, k, v, causal=True),
+                     reps)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    _attn_close(out, lib.transpose(1, 2), "flash_prefill against "
+                "scaled_dot_product_attention")
+    library = event_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+    flop = 4 * batch * hq * dh * s * (s + 1) // 2    # causal QK^T and PV
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    records.append(make_record(
+        "phase 6", "flash_prefill", "flash_prefill.cu",
+        "src/repro/kernels/flash_prefill.py:92",
+        f"B={batch} S={s} Hq={hq} Hkv={hkv} Dh={dh} bf16 causal",
+        ms, plain, library, nbytes, flop, BF16_TENSOR_OPS_PER_S, err))
+    del q, k, v, out, qt, kt, vt, lib
+
+    # one decode step in the middle of the run: a (B, Sbuf, Hkv, Dh) cache
+    # of prompt + gen slots, n_valid = prompt + gen / 2 entries
+    sbuf, n_valid = prompt + gen_len, prompt + gen_len // 2
+    qd = rnd(batch, hq, dh, dtype=bf)
+    ck, cv = (rnd(batch, sbuf, hkv, dh, dtype=bf) for _ in range(2))
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    out = decode_attention(qd, kt, vt, n_valid)
+    err = _attn_close(out, ref.decode_attention_ref(qd, kt, vt, n_valid),
+                      "decode_attention at the serving shape")
+    dreps = 20 * reps
+    ms = event_ms(lambda: decode_attention(qd, kt, vt, n_valid), dreps)
+    plain = event_ms(lambda: ref.decode_attention_ref(qd, kt, vt, n_valid),
+                     dreps)
+    mask = (torch.arange(sbuf, device=dev) < n_valid).view(1, 1, 1, sbuf)
+    q4 = qd.unsqueeze(2)
+    lib = F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
+                                         enable_gqa=True)
+    _attn_close(out, lib.squeeze(2), "decode_attention against "
+                "scaled_dot_product_attention")
+    library = event_ms(lambda: F.scaled_dot_product_attention(
+        q4, kt, vt, attn_mask=mask, enable_gqa=True), dreps)
+    nbytes = 2 * (2 * batch * hkv * n_valid * dh + 2 * qd.numel())
+    flop = 4 * batch * hq * n_valid * dh
+    records.append(make_record(
+        "phase 6", "decode_attention", "decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:79",
+        f"B={batch} Hq={hq} Hkv={hkv} Sbuf={sbuf} n_valid={n_valid} "
+        f"Dh={dh} bf16", ms, plain, library, nbytes, flop,
+        BF16_TENSOR_OPS_PER_S, err))
+    return records
+
+
+def serve_lm(dev, batch, prompt, gen_len):
+    """granite-8b at full width in bf16: prefill ``batch`` prompts of
+    ``prompt`` tokens, decode ``gen_len`` greedy tokens. Returns the launch
+    counts of the measured run (reset just before it, read just after)."""
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.serve import build, random_prompts, serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, t_init = timed(lambda: build(SERVE_ARCH, seed=0, device=dev,
+                                        dtype=torch.bfloat16))
+    expect(model.dtype == torch.bfloat16, "the serving model is not bf16")
+    n_params = model.param_count()
+    prompts = random_prompts(model, batch, prompt)
+    serve(model, prompts[:, :64], gen=2)   # warm-up: cuBLAS, first launches
+    reset_launches()
+    res = serve(model, prompts, gen=gen_len)
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = model.cfg
+    expect(res.logits_finite, "a serving logit is not finite")
+    expect(tuple(res.ids.shape) == (batch, gen_len), "wrong id shape")
+    expect(int(res.ids.min()) >= 0 and int(res.ids.max()) < cfg.vocab,
+           "a served id is a vocab-padding id")
+    want = {"flash_prefill": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (gen_len - 1)}
+    for k, n in want.items():
+        expect(counts[k] > 0, f"the serving run launched no {k}")
+        expect(counts[k] == n, f"the serving run launched {k} "
+               f"{counts[k]} times, not {n}")
+    log(f"phase 7 serve {cfg.name} (full width: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}) bf16 params={n_params} "
+        f"init_s={t_init:.4f} batch={batch} prompt={prompt} gen={gen_len}: "
+        f"prefill_s={res.prefill_s:.4f} "
+        f"prefill_tok_s={batch * prompt / res.prefill_s:.1f} "
+        f"decode_s={res.decode_s:.4f} "
+        f"decode_tok_s={batch * (gen_len - 1) / res.decode_s:.1f} "
+        f"peak_bytes={peak} launches={json.dumps(counts)}")
+    log(f"phase 7 sample ids: {res.ids[0, :12].tolist()}")
+    profile_serving(model, prompts, res.prefill_s,
+                    res.decode_s / (gen_len - 1))
+    del model, res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _kernel_group(name: str) -> str:
+    for key, group in (("flash_prefill", "flash_prefill"),
+                       ("decode_attention", "decode_attention"),
+                       ("gemm", "matmul"), ("nvjet", "matmul"),
+                       ("xmma", "matmul"), ("cutlass", "matmul")):
+        if key in name:
+            return group
+    return "other"
+
+
+def profile_serving(model, prompts, prefill_s, step_s, steps=4):
+    """Device time of one prefill and of ``steps`` decode steps by kernel
+    group (torch.profiler), against the wall time of the unprofiled run:
+    the device's busy share is device time over that wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s = prompts.shape
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def device_ms(prof):
+        groups: dict = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0) or 0
+            if t and getattr(e, "device_type", None) is not None and \
+                    "CUDA" in str(e.device_type):
+                g = _kernel_group(e.key)
+                groups[g] = groups.get(g, 0.0) + t / 1e3
+        return groups
+
+    with profile(activities=acts) as prof:
+        logits, cache = model.prefill(prompts, max_len=s + steps + 1)
+        sync()
+    pre = device_ms(prof)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    with profile(activities=acts) as prof:
+        for i in range(steps):
+            logits, cache = model.decode_step(cache, tok, s + i)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        sync()
+    dec = {g: t / steps for g, t in device_ms(prof).items()}
+    del logits, cache
+    for what, groups, wall_ms in (("prefill", pre, prefill_s * 1e3),
+                                  ("decode step", dec, step_s * 1e3)):
+        total = sum(groups.values())
+        if total == 0:
+            log(f"phase 7 profile {what}: the profiler saw no device time "
+                f"(not measured)")
+            continue
+        split = " ".join(f"{g}={t:.3f}ms" for g, t in
+                         sorted(groups.items(), key=lambda kv: -kv[1]))
+        log(f"phase 7 profile {what}: device_ms={total:.3f} "
+            f"wall_ms={wall_ms:.3f} busy_share={total / wall_ms:.3f} {split}")
+
+
+def lm_card_vs_cpu(dev):
+    """A small GQA model in f32, the same weights on the card (kernels)
+    and on the CPU (plain versions): equal greedy ids and logits within
+    1e-4 over a prefill and 8 decode steps, without and with a window."""
+    import copy
+
+    import torch
+    from repro_torch.models.arch import ArchConfig, LayerSpec
+    from repro_torch.models.transformer import Transformer
+
+    cfg = ArchConfig(name="gqa-smoke", family="dense", n_layers=2,
+                     d_model=256, n_heads=8, n_kv_heads=2, d_ff=512,
+                     vocab=1024, pattern=(LayerSpec(),), rope_theta=1e4)
+    gen = torch.Generator().manual_seed(0)
+    cpu = Transformer(cfg, device="cpu", dtype=torch.float32, generator=gen)
+    card = copy.deepcopy(cpu).to(dev)
+    b, s, steps = 2, 40, 8
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+    worst = 0.0
+    for window in (0, 48):
+        lc, cc = cpu.prefill(tokens, window=window, max_len=s + steps)
+        lg, cg = card.prefill(tokens.to(dev), window=window,
+                              max_len=s + steps)
+        for i in range(steps + 1):
+            err = float((lg.cpu() - lc).abs().max())
+            worst = max(worst, err)
+            expect(err <= 1e-4, f"LM card vs CPU window={window} step {i}: "
+                   f"max |logit error| {err}")
+            tok = lc[:, -1].argmax(-1, keepdim=True)
+            expect(torch.equal(lg[:, -1].argmax(-1, keepdim=True).cpu(), tok),
+                   f"LM card vs CPU window={window} step {i}: ids differ")
+            if i < steps:
+                lc, cc = cpu.decode_step(cc, tok, s + i, window=window)
+                lg, cg = card.decode_step(cg, tok.to(dev), s + i,
+                                          window=window)
+    log(f"phase 8 LM card == CPU greedy ids over a prefill + {steps} decode "
+        f"steps, window 0 and 48 ({cfg.name}: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"f32); max |logit error| {worst}")
+
+
 def main() -> int:
     import torch
 
@@ -428,11 +748,17 @@ def main() -> int:
     gen.manual_seed(0)
     records = check_kernels("cuda", gen, MAIN_N, CUT_N, CHECK_N, D, reps=3)
     total = run_main_path("cuda", D, MAIN_N, CUT_N)
+    card_vs_cpu("cuda", 256, 1 << 14)
+    records += check_attention_kernels("cuda", gen, 5, SERVE_BATCH,
+                                       SERVE_PROMPT, SERVE_GEN)
+    for k, n in serve_lm("cuda", SERVE_BATCH, SERVE_PROMPT,
+                         SERVE_GEN).items():
+        total[k] += n
+    lm_card_vs_cpu("cuda")
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "
                f"{r['name']}")
-    card_vs_cpu("cuda", 256, 1 << 14)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of ``repro``: tree-structured GGM learning under
 communication constraints, with hand-written Hopper kernels on the
-encode -> Gram path.
+encode -> Gram path, and the dense LM serving path (flash-prefill and
+flash-decode kernels).
 
 The package mirrors ``repro``'s layout module for module and never
 imports it (nor JAX). Entry points run on the device of the tensors they

@@ -30,7 +30,8 @@ import torch
 
 from .gram import GramEngine, resolve_engine
 from .quantizers import (MASKED_CODE, PerSymbolQuantizer, pack_codes,
-                         sign_codes, unpack_codes_u8, valid_sample_mask)
+                         sign_bits, sign_codes, unpack_codes_u8,
+                         valid_sample_mask)
 from .strategy import Strategy
 
 _WIRE_PLANE = "arrives with the port's wire plane"
@@ -222,7 +223,7 @@ def strategy_payload(x: torch.Tensor, strategy: Strategy, *, n_valid=None,
         return x if mask is None else torch.where(mask, x, 0.0)
     if strategy.method == "sign":
         if strategy.packed_gram_ok(n_pad):
-            bits = x >= 0
+            bits = sign_bits(x)
             if mask is not None:
                 bits &= mask
             return pack_codes(bits.transpose(-2, -1), 1)  # (., d, n/8)

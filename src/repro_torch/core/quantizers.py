@@ -26,16 +26,27 @@ from repro_torch.kernels.quantize import quantize_fused
 from repro_torch.kernels.ref import pack_codes_ref
 
 
+def sign_bits(x: torch.Tensor) -> torch.Tensor:
+    """The sign method's bits, x >= 0, with subnormals read as zero as
+    ``repro`` reads them (XLA flushes denormals): x > -tiny, so -1e-45
+    gives True and NaN False."""
+    if not x.is_floating_point():
+        return x >= 0
+    return x > -torch.finfo(x.dtype).tiny
+
+
 def sign_quantize(x: torch.Tensor) -> torch.Tensor:
-    """Sign method: u = sign(x) in {-1, +1} (0 maps to +1), x's dtype."""
-    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+    """Sign method: u = sign(x) in {-1, +1} (0 and subnormals map to +1),
+    x's dtype."""
+    return torch.where(sign_bits(x), 1.0, -1.0).to(x.dtype)
 
 
 def sign_codes(x: torch.Tensor) -> torch.Tensor:
-    """Sign method as int8 wire codes: {-1, +1} with 0 -> +1 — the dtype
-    the Gram kernels ingest directly. Built in place on one int8 buffer,
-    so the transient is x.numel() bytes of bools beside the result."""
-    u = (x >= 0).to(torch.int8)
+    """Sign method as int8 wire codes: {-1, +1} with 0 (and any subnormal)
+    -> +1 — the dtype the Gram kernels ingest directly. Built in place on
+    one int8 buffer, so the transient is x.numel() bytes of bools beside
+    the result."""
+    u = sign_bits(x).to(torch.int8)
     return u.mul_(2).sub_(1)
 
 
@@ -98,7 +109,7 @@ class PerSymbolQuantizer:
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Map f32 samples to bin indices in [0, 2^R) — the R-bit messages —
         as int8 (``repro`` returns the same values as int32): the count of
-        interior boundaries strictly below x."""
+        interior boundaries strictly below x, a subnormal x read as 0."""
         x = torch.as_tensor(x, dtype=torch.float32).contiguous()
         return quantize_fused(x, self.rate)
 

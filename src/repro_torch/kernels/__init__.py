@@ -4,11 +4,15 @@
 * sign_corr_packed — sign Gram from bit-packed signs, n - 2*popcount(xor)
 * code_corr        — Gram of centroid-decoded int8 bin codes
 * quantize_fused   — R-bit encode (+ optional decode and dense pack)
+* flash_prefill    — full-sequence GQA flash attention (LM prefill)
+* decode_attention — one-token GQA flash-decode against a KV cache
 
 Each kernel's plain PyTorch version lives in ``ref``; the wrappers use it
 for CPU tensors only. Sources are in ``csrc/`` and build at first use
 (``_build``).
 """
+from .decode_attention import decode_attention  # noqa: F401
+from .flash_prefill import flash_prefill  # noqa: F401
 from .quantize import quantize_fused  # noqa: F401
 from .sign_corr import code_corr, sign_corr, sign_corr_packed  # noqa: F401
 
@@ -18,6 +22,8 @@ WRAPPERS = {
     "sign_corr_packed": sign_corr_packed,
     "code_corr": code_corr,
     "quantize_fused": quantize_fused,
+    "flash_prefill": flash_prefill,
+    "decode_attention": decode_attention,
 }
 
 

@@ -5,7 +5,9 @@
 // (_quantize_kernel / _quantize_pack_kernel). The code of x is the count
 // of interior boundaries strictly below it, so NaN gives 0, +inf gives
 // L-1 and a value equal to a boundary falls in the lower bin — exactly
-// repro.core.quantizers.PerSymbolQuantizer.encode.
+// repro.core.quantizers.PerSymbolQuantizer.encode. A subnormal x counts as
+// 0.0, as XLA (denormals-are-zero) reads it there; the flush is explicit
+// because this file is not compiled with -ftz.
 //
 // What bounds it on an H100: memory. At the main path's shape (x of
 // 2^18 x 4096 f32, R = 4) it reads 4.3 GB and writes 1.1 GB of codes
@@ -22,6 +24,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_LEVELS = 128;
+constexpr float FLT_MIN_NORMAL = 1.17549435e-38f;  // 2^-126
 
 __global__ void __launch_bounds__(THREADS)
 quantize_kernel(const float* __restrict__ x,
@@ -44,7 +47,8 @@ quantize_kernel(const float* __restrict__ x,
     unsigned int byte = 0;
     for (int s = 0; s < group; ++s) {
       const long long idx = g * group + s;
-      const float xv = x[idx];
+      float xv = x[idx];
+      if (fabsf(xv) < FLT_MIN_NORMAL) xv = 0.0f;
       int c = 0;
       for (int i = 0; i < nb; ++i) c += xv > sb[i];
       codes[idx] = (int8_t)c;

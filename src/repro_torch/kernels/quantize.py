@@ -29,6 +29,7 @@ def quantize_fused(x: torch.Tensor, rate: int, *, values: bool = False,
 
     Boundary convention: at rate 1 an exact 0.0 encodes as 0 (bins are
     ``x > a_i``), unlike ``quantizers.sign_codes``, which maps 0 to +1.
+    A subnormal x encodes as 0.0 does, as in ``repro``.
     """
     from repro_torch.core.quantizers import codebook_tensors
 

@@ -1,11 +1,14 @@
-"""Plain PyTorch versions of the port's four kernels.
+"""Plain PyTorch versions of the port's six kernels.
 
 Each computes the same function as its CUDA kernel; the tiling is the
-kernel's own. The wrappers in ``sign_corr.py`` / ``quantize.py`` take
-these for CPU tensors (the tests run them here), and ``chip_smoke.py``
-holds every kernel against its plain version on the card.
+kernel's own. The wrappers in ``sign_corr.py``, ``quantize.py``,
+``flash_prefill.py`` and ``decode_attention.py`` take these for CPU
+tensors (the tests run them here), and ``chip_smoke.py`` holds every
+kernel against its plain version on the card.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -72,15 +75,18 @@ def encode_ref(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
 
     A compare-and-sum (not ``searchsorted``, which places NaN elsewhere):
     NaN -> 0, +inf -> len(boundaries), an exact boundary value -> the
-    lower bin. Runs over row blocks so the bool block it materialises
-    stays under ``_ENCODE_BLOCK`` entries.
+    lower bin. A subnormal x counts as 0.0 (``repro``'s XLA flushes
+    denormals to zero). Runs over row blocks so the bool block it
+    materialises stays under ``_ENCODE_BLOCK`` entries.
     """
     b = boundaries.to(device=x.device, dtype=torch.float32)
     flat = x.reshape(-1, x.shape[-1]) if x.dim() else x.reshape(1, 1)
     rows = max(1, _ENCODE_BLOCK // max(1, flat.shape[-1] * b.numel()))
     out = torch.empty(flat.shape, dtype=torch.int8, device=x.device)
+    tiny = torch.finfo(torch.float32).tiny
     for r0 in range(0, flat.shape[0], rows):
         blk = flat[r0:r0 + rows]
+        blk = torch.where(blk.abs() < tiny, 0.0, blk)
         out[r0:r0 + rows] = (blk.unsqueeze(-1) > b).sum(-1, dtype=torch.int8)
     return out.reshape(x.shape)
 
@@ -115,3 +121,58 @@ def quantize_fused_ref(x: torch.Tensor, boundaries: torch.Tensor,
     if pack:
         outs.append(pack_codes_ref(codes, rate))
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def _masked_softmax_pv(s: torch.Tensor, valid: torch.Tensor,
+                       v: torch.Tensor, eq: str) -> torch.Tensor:
+    """softmax(s masked to -1e30) @ v in f32; a row with no valid key
+    gives 0 (not the mean of v that a plain softmax over -1e30 gives)."""
+    p = torch.softmax(s.masked_fill(~valid, -1e30), dim=-1)
+    p = p * valid.any(-1, keepdim=True)
+    return torch.einsum(eq, p, v.to(torch.float32))
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Naive masked softmax attention over the full sequence (GQA), math
+    in f32, output in q's dtype.
+
+    q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh), Hkv | Hq. Key k is
+    visible to query i when ``i >= k`` (causal) and ``k > i - window``
+    (window > 0)."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh).to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
+    s = s / math.sqrt(dh)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= qpos >= kpos
+    if window:
+        valid &= kpos > qpos - window
+    out = _masked_softmax_pv(s, valid, v, "bhgqk,bkhd->bqhgd")
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos: int, *, window: int | None = None
+                         ) -> torch.Tensor:
+    """Naive masked softmax attention for one query token per head, math
+    in f32, output in q's dtype.
+
+    q: (B, Hq, Dh); k, v: (B, Hkv, S, Dh). Cache entry i is valid when
+    ``i < pos`` and, with a window, ``i >= pos - window``."""
+    b, hq, dh = q.shape
+    hkv, s_len = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, dh).to(torch.float32)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.to(torch.float32))
+    s = s / math.sqrt(dh)
+    idx = torch.arange(s_len, device=q.device)
+    valid = idx < pos
+    if window is not None:
+        valid &= idx >= pos - window
+    out = _masked_softmax_pv(s, valid, v, "bhgs,bhsd->bhgd")
+    return out.reshape(b, hq, dh).to(q.dtype)

@@ -5,8 +5,8 @@ interpret mode, as ``tests/test_kernels.py`` runs them. Integer paths are
 bit-identical. ``code_corr`` decodes to f32 where the Pallas kernel
 decodes to bf16, so it is held to ``repro``'s f32 ``xla`` reference with
 a reduction-order tolerance and to the Pallas kernel with a bound of
-bf16 rounding (2^-8 of each product's size). Tests marked ``cuda`` launch the CUDA
-kernels and skip without a card.
+bf16 rounding (2^-8 of each product's size). The CUDA kernels themselves
+are tested on the card by ``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -153,44 +153,3 @@ def test_plain_versions_launch_nothing():
     kernels.sign_corr_packed(torch.zeros(4, 2, dtype=torch.uint8), 16)
     PerSymbolQuantizer(2).encode(torch.zeros(4, 4))
     assert kernels.launches() == {k: 0 for k in kernels.WRAPPERS}
-
-
-# ---------------------------------------------------------------------------
-# On the card: each CUDA kernel against its plain version
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the "
-                    "card (python3 chip_smoke.py runs them there)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions(cuda):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    u = torch.randint(0, 2, (3, 1001, 37), generator=gen, device=cuda,
-                      dtype=torch.int8) * 2 - 1
-    before = kernels.launches()
-    torch.testing.assert_close(kernels.sign_corr(u), ref.sign_corr_ref(u),
-                               rtol=0, atol=0)
-    bits = torch.randint(0, 256, (2, 37, 126), generator=gen, device=cuda,
-                         dtype=torch.uint8)
-    torch.testing.assert_close(kernels.sign_corr_packed(bits, 1008),
-                               ref.sign_corr_packed_ref(bits, 1008),
-                               rtol=0, atol=0)
-    codes = torch.randint(-1, 16, (1001, 37), generator=gen, device=cuda,
-                          dtype=torch.int8)
-    cb = torch.as_tensor(PerSymbolQuantizer(4).centroids_np, device=cuda)
-    want = ref.code_corr_ref(codes, cb)
-    torch.testing.assert_close(kernels.code_corr(codes, cb), want,
-                               rtol=1e-5, atol=1e-5 * 1001)
-    x = torch.randn(100, 64, generator=gen, device=cuda)
-    b, c = codebook_tensors(2, cuda)
-    for g, w in zip(kernels.quantize_fused(x, 2, values=True, pack=True),
-                    ref.quantize_fused_ref(x, b, c, 2, values=True,
-                                           pack=True)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-    after = kernels.launches()
-    assert all(after[k] == before[k] + 1 for k in after)

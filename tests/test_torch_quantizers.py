@@ -15,13 +15,17 @@ from repro_torch.core import quantizers as t_q
 from repro_torch.interop import strategy_from_fields
 
 
+#: f32 subnormals on both sides of 0; ``repro`` (XLA) reads them as 0.0
+SUBNORMALS = [1e-45, -1e-45, 1e-40, -1e-40]
+
+
 def _edge_samples(rate: int, n: int = 512, d: int = 24, seed: int = 0):
-    """Normals plus +-inf, NaN, +-0.0, every boundary and the next normal
-    float above it. (Subnormals are left to their own test: ``repro`` on
-    the CPU flushes them to zero.)"""
+    """Normals plus +-inf, NaN, +-0.0, +-subnormals, every boundary and
+    the next normal float above it."""
     x = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
     b = j_q._codebook_np(rate)[0][1:-1].astype(np.float32)
-    special = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0], np.float32)
+    special = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0] + SUBNORMALS,
+                       np.float32)
     above = np.where(b == 0, np.finfo(np.float32).tiny,
                      np.nextafter(b, np.float32(np.inf)))
     edge = np.concatenate([special, b, above.astype(np.float32)])
@@ -122,13 +126,21 @@ def test_strategy_payload_bit_identical(s):
         np.asarray(j_est.payload_operand(jnp.asarray(want), s, n_valid=200)))
 
 
-def test_encode_subnormals_are_ieee():
-    """The port compares subnormals as IEEE numbers on CPU and card alike;
-    ``repro`` on the CPU flushes them to zero (XLA's denormals-are-zero),
-    so there a positive subnormal lands below the boundary at 0."""
-    tiny = np.array([1e-45, -1e-45, 1e-40], np.float32)
-    got = t_q.PerSymbolQuantizer(1).encode(torch.from_numpy(tiny))
-    np.testing.assert_array_equal(got.numpy(), [1, 0, 1])
+@pytest.mark.parametrize("rate", range(1, 8))
+def test_subnormals_match_repro(rate):
+    """``repro`` reads f32 subnormals as 0.0 (XLA's denormals-are-zero):
+    each signs as +1 and encodes as 0.0 does; the port flushes them the
+    same way."""
+    tiny = np.array(SUBNORMALS + [0.0, -0.0], np.float32)
+    xt, xj = torch.from_numpy(tiny), jnp.asarray(tiny)
+    np.testing.assert_array_equal(t_q.sign_codes(xt).numpy(),
+                                  np.asarray(j_q.sign_codes(xj)))
+    np.testing.assert_array_equal(t_q.sign_quantize(xt).numpy(),
+                                  np.asarray(j_q.sign_quantize(xj)))
+    got = t_q.PerSymbolQuantizer(rate).encode(xt)
+    want = np.asarray(j_q.PerSymbolQuantizer(rate).encode(xj))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == want[-1]).all()  # every subnormal encodes as 0.0
 
 
 def test_encode_rejects_rates_beyond_int8():
