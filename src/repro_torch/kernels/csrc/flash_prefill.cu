@@ -25,7 +25,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "attn_common.cuh"
+#include "tc_ops.cuh"
 
 namespace {
 
@@ -192,31 +195,301 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int Hq, int G, Strides qs, Strides ks, Strides vs,
-           int causal, int window, float scale, cudaStream_t stream) {
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Skv, int Hq, int G, Strides qs, Strides ks,
+               Strides vs, int causal, int window, float scale,
+               cudaStream_t stream) {
   const size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, DH>,
+      flash_prefill_kernel<float, DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_prefill_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, Hq, G, qs, ks,
-      vs, causal, window, scale);
+  flash_prefill_kernel<float, DH><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Skv,
+      Hq, G, qs, ks, vs, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int Dh, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int Skv, int Hq, int G, Strides qs, Strides ks,
-             Strides vs, int causal, int window, float scale,
-             cudaStream_t st) {
-#define ATTN_CASE(D)                                                      \
-  case D:                                                                 \
-    return launch<T, D>(q, k, v, out, B, Sq, Skv, Hq, G, qs, ks, vs,      \
-                        causal, window, scale, st);
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int TC_BQ = 64;        // query rows per block, 16 per warp
+constexpr int TC_BK = 64;        // keys per tile
+constexpr int TC_THREADS = 128;  // 4 warps
+constexpr int TC_STAGES = 2;     // K/V tiles in flight
+
+// Row pitch of a staged tile in elements: 16 bytes of padding make the
+// 8 rows an ldmatrix reads fall in 8 distinct 16-byte bank groups.
+template <int DH>
+constexpr int TC_LD = DH + 8;
+
+template <int DH>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(bf16) * (size_t)TC_LD<DH> *
+         (TC_BQ + 2 * TC_STAGES * TC_BK);
+}
+
+// Stages rows [r0, r0 + ROWS) of a (rows, DH) bf16 operand with row stride
+// `ld_src` into `dst` (pitch TC_LD<DH>), rows >= n as zeros. ALIGNED:
+// every row starts on a 16-byte boundary, so 16-byte cp.async copies run
+// behind the compute; else 2-byte loads through registers.
+template <int DH, int ROWS, bool ALIGNED>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long long ld_src, int r0, int n) {
+  constexpr int CHUNKS = DH / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += TC_THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS, row = r0 + r;
+    const bool valid = row < n;
+    const bf16* s = src + (long long)(valid ? row : 0) * ld_src + c * 8;
+    bf16* d = dst + r * TC_LD<DH> + c * 8;
+    if constexpr (ALIGNED) {
+      tc::cp_async16(d, s, valid);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = valid ? __bfloat16_as_ushort(s[2 * e]) |
+                           (uint32_t)__bfloat16_as_ushort(s[2 * e + 1]) << 16
+                     : 0u;
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// One key tile of the online softmax on a warp's 16 x 64 score fragment
+// s[j][e] (rows row0 + 8 (e / 2), keys k0 + 8 j + 2 c + e % 2): scale into
+// log2 units, mask to -inf (when `mask`), update the running max m and
+// this thread's share of the sum l of rows row0 and row0 + 8, rescale the
+// output fragment o, and leave the probabilities in s.
+template <int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4],
+                                             float (&o)[NO][4],
+                                             float (&m)[2], float (&l)[2],
+                                             int row0, int k0, bool mask,
+                                             int Skv, int causal, int window,
+                                             float scale_log2) {
+  const int c = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale_log2;
+      if (mask) {
+        const int row = row0 + 8 * (e / 2), col = k0 + 8 * j + 2 * c + e % 2;
+        bool ok = col < Skv;
+        if (causal) ok = ok && row >= col;
+        if (window > 0) ok = ok && col > row - window;
+        x = ok ? x : -INFINITY;
+      }
+      s[j][e] = x;
+    }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[half], mx);
+    // a row with no visible key yet keeps m = -inf: subtract 0 instead,
+    // so its probabilities and its rescale factor are exact zeros
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = exp2f(m[half] - m_use);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 2 * half; e < 2 * half + 2; ++e) {
+        s[j][e] = exp2f(s[j][e] - m_use);
+        sum += s[j][e];
+      }
+    l[half] = l[half] * alpha + sum;
+    m[half] = m_new;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][2 * half] *= alpha;
+      o[j][2 * half + 1] *= alpha;
+    }
+  }
+}
+
+// Divides a warp's 16 x DH output fragment by the row sums and writes rows
+// row0 and row0 + 8 (those < Sq) of out (B, Sq, Hq, DH) in bf16.
+template <int NO>
+__device__ __forceinline__ void store_rows(const float (&o)[NO][4],
+                                           float (&l)[2], bf16* out_bh,
+                                           long long row_stride, int row0,
+                                           int Sq) {
+  const int c = threadIdx.x % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float sum = l[half];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float lsafe = fmaxf(sum, 1e-30f);
+    const int row = row0 + 8 * half;
+    if (row >= Sq) continue;
+    bf16* o_row = out_bh + (long long)row * row_stride;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<uint32_t*>(o_row + 8 * j + 2 * c) = tc::pack_bf16(
+          o[j][2 * half] / lsafe, o[j][2 * half + 1] / lsafe);
+  }
+}
+
+// One block per (tile of 64 query rows, query head, batch row); warp w
+// owns rows 16 w .. 16 w + 15. Per key tile: S = Q K^T on mma.sync
+// (ldmatrix fragments of Q, kept in registers, and of K), the online
+// softmax in registers, P rounded to bf16 in registers as the A fragment
+// of O += P V (V through ldmatrix.trans). The next tile's K and V copy in
+// while this one is computed.
+template <int DH, bool ALIGNED>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_prefill_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
+                 int Skv, int Hq, int G, Strides qs, Strides ks, Strides vs,
+                 int causal, int window, float scale_log2) {
+  constexpr int LD = TC_LD<DH>;
+  constexpr int KD = DH / 16;  // k-steps of Q K^T
+  constexpr int NO = DH / 8;   // 8-column blocks of the output
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
+  bf16* Ks = Qs + TC_BQ * LD;                  // TC_STAGES x TC_BK x LD
+  bf16* Vs = Ks + TC_STAGES * TC_BK * LD;      // TC_STAGES x TC_BK x LD
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TC_BQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / G;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  int k_lo = 0, k_hi = Skv;
+  if (causal) k_hi = min(Skv, min(q0 + TC_BQ, Sq));
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int k_first = (k_lo / TC_BK) * TC_BK;
+
+  stage_rows<DH, TC_BQ, ALIGNED>(Qs, qb, qs.s, q0, Sq);
+  if (k_first < k_hi) {
+    stage_rows<DH, TC_BK, ALIGNED>(Ks, kb, ks.s, k_first, Skv);
+    stage_rows<DH, TC_BK, ALIGNED>(Vs, vb, vs.s, k_first, Skv);
+  }
+  if constexpr (ALIGNED) tc::cp_async_commit();
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t qf[KD][4];
+  const int row0 = q0 + warp * 16 + lane / 4;
+
+  int stage = 0;
+  for (int k0 = k_first; k0 < k_hi; k0 += TC_BK, stage ^= 1) {
+    if (k0 + TC_BK < k_hi) {  // the next tile copies in behind this one
+      stage_rows<DH, TC_BK, ALIGNED>(Ks + (stage ^ 1) * TC_BK * LD, kb, ks.s,
+                                     k0 + TC_BK, Skv);
+      stage_rows<DH, TC_BK, ALIGNED>(Vs + (stage ^ 1) * TC_BK * LD, vb, vs.s,
+                                     k0 + TC_BK, Skv);
+    }
+    if constexpr (ALIGNED) {
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();  // this tile (and Q) have landed
+    }
+    __syncthreads();
+    if (k0 == k_first) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        tc::ldmatrix_x4(qf[kk], Qs + (warp * 16 + lane % 8 + (lane / 8 % 2) * 8) * LD +
+                                    kk * 16 + (lane / 16) * 8);
+    }
+    const bf16* Kt = Ks + stage * TC_BK * LD;
+    const bf16* Vt = Vs + stage * TC_BK * LD;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        tc::ldmatrix_x4(bk, Kt + (np * 16 + lane % 8 + (lane / 16) * 8) * LD +
+                                kk * 16 + (lane / 8 % 2) * 8);
+        tc::mma_16816(s[2 * np], qf[kk], bk[0], bk[1]);
+        tc::mma_16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    // only tiles that cross the diagonal, the window's edge or the end of
+    // the keys need the per-element mask
+    const bool mask = k0 + TC_BK > Skv ||
+                      (causal && k0 + TC_BK - 1 > q0) ||
+                      (window > 0 && k0 < q0 + TC_BQ - window);
+    softmax_tile(s, o, m, l, row0, k0, mask, Skv, causal, window, scale_log2);
+
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      const uint32_t pa[4] = {
+          tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t bv[4];
+        tc::ldmatrix_x4_trans(
+            bv, Vt + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) * LD + dp * 16 +
+                    (lane / 16) * 8);
+        tc::mma_16816(o[2 * dp], pa, bv[0], bv[1]);
+        tc::mma_16816(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  if constexpr (ALIGNED) tc::cp_async_wait<0>();
+
+  store_rows(o, l, out + ((long long)b * Sq * Hq + h) * DH, (long long)Hq * DH,
+             row0, Sq);
+}
+
+template <int DH>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
+                int Sq, int Skv, int Hq, int G, Strides qs, Strides ks,
+                Strides vs, int causal, int window, float scale, bool aligned,
+                cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<DH>();
+  auto kernel = aligned ? flash_prefill_tc<DH, true> : flash_prefill_tc<DH, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Sq + TC_BQ - 1) / TC_BQ, Hq, B);
+  kernel<<<grid, TC_THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, Sq, Skv, Hq,
+      G, qs, ks, vs, causal, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// Routes f32 to the CUDA-core kernel and bf16 to the tensor-core kernel,
+// each instantiated for every head size.
+int dispatch(int bf16_in, int Dh, const void* q, const void* k, const void* v,
+             void* out, int B, int Sq, int Skv, int Hq, int G, Strides qs,
+             Strides ks, Strides vs, int causal, int window, float scale,
+             bool aligned, cudaStream_t st) {
+#define ATTN_CASE(D)                                                        \
+  case D:                                                                   \
+    return bf16_in ? launch_bf16<D>(q, k, v, out, B, Sq, Skv, Hq, G, qs,    \
+                                    ks, vs, causal, window, scale, aligned, \
+                                    st)                                     \
+                   : launch_f32<D>(q, k, v, out, B, Sq, Skv, Hq, G, qs, ks, \
+                                   vs, causal, window, scale, st);
   switch (Dh) {
     ATTN_CASE(32)
     ATTN_CASE(48)
@@ -248,10 +521,11 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   const int G = Hq / Hkv;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(Dh, q, k, v, out, B, Sq, Skv, Hq, G, qs,
-                                   ks, vs, causal, window, scale, st);
-  return dispatch<float>(Dh, q, k, v, out, B, Sq, Skv, Hq, G, qs, ks, vs,
-                         causal, window, scale, st);
+  // 16-byte cp.async needs every row of q, k and v on a 16-byte boundary
+  bool aligned = true;
+  for (const void* p : {q, k, v}) aligned = aligned && (uintptr_t)p % 16 == 0;
+  for (long long s : {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh})
+    aligned = aligned && s % 8 == 0;
+  return dispatch(bf16, Dh, q, k, v, out, B, Sq, Skv, Hq, G, qs, ks, vs,
+                  causal, window, scale, aligned, (cudaStream_t)stream);
 }
