@@ -441,6 +441,53 @@ def _attn_close(got, want, what):
     return float(err.max())
 
 
+def check_prefill_bf16_edges(dev, rnd):
+    """The bf16 (tensor-core) flash_prefill at its edges, against its plain
+    version within ATTN_BF16_TOL: every head size at lengths that are not
+    multiples of 16 or 64, Sq != Skv, G = 48, a window shorter than a key
+    tile, strided and 16-byte-unaligned operands, and rows that see no key
+    (exactly 0). Returns the number of cases."""
+    import torch
+    from repro_torch.kernels import flash_prefill, ref
+    from repro_torch.kernels.flash_prefill import HEAD_DIMS
+
+    bf = torch.bfloat16
+    n = 0
+
+    def check(q, k, v, causal, window, what):
+        nonlocal n
+        got = flash_prefill(q, k, v, causal=causal, window=window)
+        _attn_close(got, ref.flash_prefill_ref(q, k, v, causal=causal,
+                                               window=window),
+                    f"flash_prefill bf16 {what} causal={causal} "
+                    f"window={window}")
+        n += 1
+        return got
+
+    for dh in HEAD_DIMS:
+        for s in (1, 17, 63, 65, 300):
+            check(rnd(1, s, 4, dh, dtype=bf), rnd(1, s, 2, dh, dtype=bf),
+                  rnd(1, s, 2, dh, dtype=bf), True, 0, f"Dh={dh} S={s}")
+    check(rnd(1, 2049, 8, 128, dtype=bf), rnd(1, 2049, 2, 128, dtype=bf),
+          rnd(1, 2049, 2, 128, dtype=bf), True, 0, "Dh=128 S=2049")
+    for sq, skv in ((200, 130), (130, 200)):   # Sq != Skv, non-causal
+        check(rnd(2, sq, 8, 128, dtype=bf), rnd(2, skv, 2, 128, dtype=bf),
+              rnd(2, skv, 2, 128, dtype=bf), False, 0, f"Sq={sq} Skv={skv}")
+    check(rnd(1, 300, 48, 128, dtype=bf), rnd(1, 300, 1, 128, dtype=bf),
+          rnd(1, 300, 1, 128, dtype=bf), True, 0, "G=48")
+    check(rnd(1, 300, 4, 64, dtype=bf), rnd(1, 300, 2, 64, dtype=bf),
+          rnd(1, 300, 2, 64, dtype=bf), True, 10, "window < a tile")
+    q = rnd(1, 100, 4, 129, dtype=bf)[..., 1:]   # rows off 16-byte bounds
+    check(q, rnd(1, 100, 2, 128, dtype=bf), rnd(1, 100, 2, 128, dtype=bf),
+          True, 30, "unaligned q")
+    # Sq > Skv with a window: rows >= Skv + window - 1 see no key
+    got = check(rnd(1, 260, 4, 80, dtype=bf), rnd(1, 100, 2, 80, dtype=bf),
+                rnd(1, 100, 2, 80, dtype=bf), False, 30, "rows without keys")
+    expect(bool((got[:, 129:] == 0).all()),
+           "flash_prefill bf16: a row that sees no key is not 0")
+    return n
+
+
 def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
     """Both attention kernels against their plain versions (f32 and bf16;
     groups of 1, 4 and 48; head sizes 64, 80 and 128; ragged lengths,
@@ -500,6 +547,7 @@ def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
                         f"decode_attention {dtype} B={b} Hq={hq} Hkv={hkv} "
                         f"S={s} Dh={dh} pos={pos} window={window}")
             cases["decode_attention"] += 1
+    cases["flash_prefill bf16 edges"] = check_prefill_bf16_edges(dev, rnd)
     log("phase 6 correctness cases:", json.dumps(cases))
 
     # -- timings at granite-8b's serving shapes (bf16) ---------------------
@@ -710,6 +758,54 @@ def lm_card_vs_cpu(dev):
         f"f32); max |logit error| {worst}")
 
 
+def _cuobjdump():
+    """cuobjdump from PATH, the CUDA toolkit or Triton's bundle, else None."""
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = ["/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if os.path.exists(c)), None)
+
+
+def log_tensor_core_use(build_dir):
+    """Evidence that flash_prefill's bf16 kernels run on the tensor cores:
+    the HMMA / HGMMA instructions in libflash_prefill.so's SASS, and the
+    spills ptxas reports for them."""
+    import re
+
+    log_lines = (build_dir / "libflash_prefill.log").read_text().splitlines()
+    spills, current = {}, None
+    for ln in log_lines:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and current and "wgmma" in current:
+            spills[current] = int(m.group(1)) + int(m.group(2))
+    log(f"phase 2 flash_prefill bf16 kernels: {len(spills)}, spill bytes "
+        f"{sum(spills.values())}")
+    tool = _cuobjdump()
+    if tool is None:
+        log("phase 2 flash_prefill SASS: cuobjdump not found")
+        return
+    sass = subprocess.run([tool, "-sass", str(build_dir / "libflash_prefill.so")],
+                          capture_output=True, text=True).stdout
+    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    hmma = len(re.findall(r"\bHMMA\.", sass))
+    log(f"phase 2 flash_prefill SASS ({tool}): HGMMA {hgmma}, HMMA {hmma}")
+    expect(hgmma + hmma > 0, "libflash_prefill.so holds no tensor-core "
+           "instruction")
+
+
 def main() -> int:
     import torch
 
@@ -743,6 +839,7 @@ def main() -> int:
                  for ln in (out / f"lib{k}.log").read_text().splitlines()
                  if "registers" in ln]
         log(f"phase 2 {k}: {'; '.join(usage)}")
+    log_tensor_core_use(out)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

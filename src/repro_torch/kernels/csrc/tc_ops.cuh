@@ -1,17 +1,15 @@
 // PTX wrappers for Hopper's tensor cores and asynchronous copies (sm_90a).
 //
-// cp.async       16-byte global -> shared copies that run behind compute
-// ldmatrix       8x8 b16 tiles from shared memory into mma fragments
-// mma.sync       m16n8k16 bf16 x bf16 -> f32, one warp
+// mbarrier       shared-memory barriers that count arrivals and bytes
+// TMA            tensor-map tile copies global -> shared (one thread)
 // wgmma          m64nNk16 bf16 x bf16 -> f32, one warpgroup (128 threads),
 //                operands described by shared-memory matrix descriptors
 //
-// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16" and
-// "wgmma register fragments"): in a warp, lane = 4 g + c holds rows g and
-// g + 8 and columns 2c, 2c + 1 of each 8-column block of an f32
-// accumulator; an A fragment holds (g, 2c..2c+1), (g+8, 2c..), (g, 2c+8..),
-// (g+8, 2c+8..) of a 16 x 16 tile. A warpgroup's warp w owns rows
-// 16 w .. 16 w + 15 of a wgmma's 64 rows, laid out as above.
+// Fragment layouts (PTX ISA, "wgmma register fragments"): warp w of the
+// warpgroup owns rows 16 w .. 16 w + 15 of the 64; in it, lane = 4 g + c
+// holds rows g and g + 8 and columns 2c, 2c + 1 of each 8-column block of
+// the f32 accumulator, and an A fragment in registers holds (g, 2c..2c+1),
+// (g+8, 2c..), (g, 2c+8..), (g+8, 2c+8..) of each 16 x 16 block.
 #pragma once
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -22,66 +20,91 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Copies 16 bytes from src to dst (shared) if valid, else writes 16 zero
-// bytes and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Makes this thread's generic-proxy writes to shared memory (st.shared,
-// cp.async) visible to the async proxy that wgmma reads through.
+// Makes this thread's generic-proxy writes to shared memory (st.shared)
+// visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of
-// matrix i, and r[i] receives (row g, columns 2c, 2c + 1) of matrix i,
-// or with .trans (rows 2c, 2c + 1, column g).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b for a 16 x 16 row-major A and a 16 x 8 column-major B.
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats rounded to bf16 (nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x, one MUFU instruction (subnormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// --- mbarrier --------------------------------------------------------------
+
+// A barrier in shared memory that completes a phase when `count` arrivals
+// have been made on it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes initialised barriers visible to the other threads of the block
+// (before the __syncthreads that follows).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_addr(bar))
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` (0 for the first completion,
+// then 1, 0, ...) of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Arrives on the barrier and raises the bytes its phase waits for by
+// `bytes` (the TMA copies of the phase complete them).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// --- TMA -------------------------------------------------------------------
+
+// Copies the box at coordinates (c0, c1, c2, c3) of the tensor that `map`
+// (a __grid_constant__ kernel parameter) describes into shared memory at
+// dst, in the map's swizzle, elements outside the tensor as zeros, and
+// completes its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // --- wgmma -----------------------------------------------------------------

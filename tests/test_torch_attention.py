@@ -7,6 +7,8 @@ All in f32 at ``atol=3e-5`` (the bound ``tests/test_kernels.py`` holds the
 Pallas prefill kernel to: f32 sums in another order). The CUDA kernels
 themselves are tested on the card by ``tests/test_torch_cuda.py``.
 """
+import math
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -85,6 +87,43 @@ def test_flash_prefill_rows_without_keys_are_zero():
     assert torch.isfinite(out).all()
     assert (out[:, 27:] == 0).all()   # rows i >= 20 + 8 - 1 see no key
     assert (out[:, :27].abs().sum(-1) > 0).all()
+
+
+def _prefill_with_bf16_p(q, k, v, *, causal, window):
+    """The bf16 tensor-core kernel's arithmetic in plain torch: f32 scores
+    of the bf16 operands, the probabilities P rounded to bf16 before P V,
+    f32 sums, the output rounded to bf16."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, hkv, hq // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(dh)
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    valid = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        valid &= qpos >= kpos
+    if window:
+        valid &= kpos > qpos - window
+    p = torch.exp(s.masked_fill(~valid, -math.inf)
+                  - s.masked_fill(~valid, -math.inf).amax(-1, keepdim=True))
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.bfloat16().float(), v.float())
+    o = o / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(b, sq, hq, dh).bfloat16()
+
+
+@pytest.mark.parametrize("window", [0, 300])
+def test_flash_prefill_bf16_p_rounding_within_card_tolerance(window):
+    """Rounding P to bf16 before P V (which the plain version, all f32,
+    does not do) keeps a 2048-token causal prefill, with and without a
+    window, within the bound ``chip_smoke.py`` holds the bf16 kernel to on
+    the card: atol 1e-2, rtol 2^-7."""
+    rng = np.random.default_rng(11 + window)
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 2048, h, 128)).bfloat16()
+               for h in (4, 1, 1))
+    want = kernels.flash_prefill(q, k, v, causal=True, window=window)
+    got = _prefill_with_bf16_p(q, k, v, causal=True, window=window)
+    assert want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=2 ** -7)
 
 
 # ---------------------------------------------------------------------------
