@@ -610,8 +610,8 @@ flash_prefill_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      (long long)Hq * DH, row0, Sq);
 }
 
-// The driver's tensor-map encoder, found through the runtime (so the
-// library links against no driver library).
+// cuTensorMapEncodeTiled's type: the encoder is looked up through the
+// CUDA runtime at first use, so the library links against nothing more.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
                                  const cuuint32_t*, const cuuint32_t*,
