@@ -2,8 +2,11 @@
 //
 // mbarrier       shared-memory barriers that count arrivals and bytes
 // TMA            tensor-map tile copies global -> shared (one thread)
-// wgmma          m64nNk16 bf16 x bf16 -> f32, one warpgroup (128 threads),
-//                operands described by shared-memory matrix descriptors
+// wgmma          m64nNk16 bf16 x bf16 -> f32 and m64nNk8 tf32 x tf32 -> f32,
+//                one warpgroup (128 threads), operands described by
+//                shared-memory matrix descriptors (a k8 tf32 slice is the
+//                same 32 bytes of a row as a k16 bf16 slice)
+// TF32           round f32 to TF32, split f32 into two TF32 terms
 //
 // Fragment layouts (PTX ISA, "wgmma register fragments"): warp w of the
 // warpgroup owns rows 16 w .. 16 w + 15 of the 64; in it, lane = 4 g + c
@@ -221,6 +224,74 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[16][4],
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// --- TF32 ------------------------------------------------------------------
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest,
+// ties away from zero): the low 13 mantissa bits of the result are zero,
+// so a .tf32 operand built from it is read exactly. Two integer
+// operations on the bits (a carry into the exponent is the right result).
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+// c = hi + lo to 2^-22 |c| with hi and lo TF32 (3xTF32): c - hi is exact
+// in f32, and lo is its TF32 rounding.
+__device__ __forceinline__ void tf32_split(float c, float& hi, float& lo) {
+  hi = tf32_rna(c);
+  lo = tf32_rna(c - hi);
+}
+
+// Copies the box at coordinates (c0, c1, c2) of the tensor that `map`
+// describes into shared memory at dst, elements outside the tensor as
+// zeros, and completes its bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// d (+)= A B, m64n128k8 tf32 x tf32 -> f32: A and B K-major in shared
+// memory (.tf32 operands are K-major only); scale_d == 0 starts d afresh.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[16][4],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace tc

@@ -4,7 +4,9 @@ Each computes the same function as its CUDA kernel; the tiling is the
 kernel's own. The wrappers in ``sign_corr.py``, ``quantize.py``,
 ``flash_prefill.py`` and ``decode_attention.py`` take these for CPU
 tensors (the tests run them here), and ``chip_smoke.py`` holds every
-kernel against its plain version on the card.
+kernel against its plain version on the card. ``tf32_split`` and
+``code_corr_tf32_ref`` model the tensor-core ``code_corr``'s arithmetic
+for the tests; no wrapper calls them.
 """
 from __future__ import annotations
 
@@ -68,6 +70,41 @@ def code_corr_ref(codes: torch.Tensor, centroids: torch.Tensor,
     vf = uf if codes_rhs is None else decode_codes(
         codes_rhs, centroids).to(torch.float64)
     return torch.matmul(uf.transpose(-1, -2), vf).to(torch.float32)
+
+
+def tf32_split(centroids) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of the CUDA ``code_corr``'s 3xTF32 split of f32 values:
+    hi = tf32(c), lo = tf32(c - hi), each rounded to nearest with ties
+    away from zero (as ``cvt.rna.tf32.f32``), so both have their low 13
+    mantissa bits zero and hi + lo = c to 2^-22 |c|. A model of the
+    kernel's arithmetic, for tests; finite inputs."""
+
+    def rna(x: torch.Tensor) -> torch.Tensor:
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    c = torch.as_tensor(centroids, dtype=torch.float32)
+    hi = rna(c)
+    return hi, rna(c - hi)
+
+
+def code_corr_tf32_ref(codes: torch.Tensor, centroids,
+                       codes_rhs: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """The CUDA ``code_corr``'s three tensor-core products, summed exactly:
+    hi_u^T hi_v + hi_u^T lo_v + lo_u^T hi_v in float64 over the split
+    codebook (``tf32_split``; lo lo is dropped), rounded once to f32.
+    What the kernel computes but for its f32 accumulation. For tests."""
+    hi, lo = tf32_split(centroids)
+
+    def dec(c, table):
+        return decode_codes(c, table).to(torch.float64)
+
+    rhs = codes if codes_rhs is None else codes_rhs
+    uh, ul, vh, vl = dec(codes, hi), dec(codes, lo), dec(rhs, hi), dec(rhs, lo)
+    t = lambda x: x.transpose(-1, -2)  # noqa: E731
+    return (torch.matmul(t(ul), vh) + torch.matmul(t(uh), vl)
+            + torch.matmul(t(uh), vh)).to(torch.float32)
 
 
 def encode_ref(x: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
