@@ -70,8 +70,9 @@ constexpr int MAX_LEVELS = 128;
 constexpr int TABLE = 256;         // centroid by code as a byte; >= L is 0
 constexpr int GROUP_M = 8;
 constexpr int FLUSH_STAGES = CODE_CORR_FLUSH / BK;
-static_assert(CODE_CORR_FLUSH % BK == 0 && FLUSH_STAGES >= 1,
-              "CODE_CORR_FLUSH must be a positive multiple of BK");
+static_assert(CODE_CORR_FLUSH % (2 * BK) == 0 && FLUSH_STAGES >= 2,
+              "CODE_CORR_FLUSH must be a positive multiple of 2 BK: the "
+              "warpgroups flush half a chunk apart");
 
 constexpr int RING_A = BK * BM;         // bytes of an int8 code tile of U
 constexpr int RING_B = BK * BN;
@@ -242,8 +243,11 @@ code_corr_tf32(Operand U, Operand V, const float* __restrict__ centroids,
   // chunks of FLUSH_STAGES stages; the waits inside a chunk are fixed, so
   // ptxas keeps stage t in flight across the barrier (a flush inside the
   // same loop made it wait after every issue)
-  for (int t0 = 0; t0 < stages; t0 += FLUSH_STAGES) {
-    const int t_end = min(t0 + FLUSH_STAGES, stages);
+  // warpgroup 1's chunks start half a chunk later, so that the tensor
+  // cores run one warpgroup's stage while the other drains and flushes
+  for (int t0 = 0, len = wg ? FLUSH_STAGES / 2 : FLUSH_STAGES; t0 < stages;
+       t0 += len, len = FLUSH_STAGES) {
+    const int t_end = min(t0 + len, stages);
     for (int t = t0; t < t_end; ++t) {
       tc::wgmma_fence();
       issue_stage(acc, dec + (t % BUFS) * DEC, wg, t == 0);
