@@ -17,6 +17,12 @@ card against the CPU. Any failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
+
+    python3 chip_smoke.py --flush-sweep 32,64,128,256
+
+instead builds code_corr once for each length of its tensor-core partial
+sums (CODE_CORR_FLUSH, in samples) and prints each build's max |kernel -
+plain| at n = 2^18, d = 4096 for R = 2, 4 and 7 and its time at R = 4.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 494.7e12
 F32_OPS_PER_S = 67e12
 
 MAIN_N = 1 << 20          # PRODUCTION samples (sign, int8 wire)
@@ -147,8 +154,9 @@ def _codes(gen, shape, rate, dev):
 
 
 def code_tolerance(n: int, plain):
-    """|kernel - plain| allowed for code_corr: the kernel sums in f32 (in
-    256-sample partials), the plain version in f64 rounded once."""
+    """|kernel - plain| allowed for code_corr: the kernel sums 3xTF32
+    products on the tensor cores in 128-sample partials and those in f32
+    (compensated), the plain version in f64 rounded once."""
     return 1e-5 * n + 1e-5 * plain.abs()
 
 
@@ -157,6 +165,7 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
 
     Returns the per-kernel records of the JSON line (without launches)."""
     import torch
+    from repro_torch.core.gram import GramEngine
     from repro_torch.core.quantizers import PerSymbolQuantizer, codebook_tensors
     from repro_torch.kernels import (code_corr, quantize_fused, ref, sign_corr,
                                      sign_corr_packed)
@@ -192,28 +201,44 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
         same("sign_corr_packed", sign_corr_packed(p, n, q),
              ref.sign_corr_packed_ref(p, n, q), f"n={n} d={dl}x{dr} b={b}")
 
-    # code_corr: -1 sentinels at R = 2, 4, 7; batched, rectangular
+    # code_corr: -1 sentinels at R = 2, 4, 7; batched, rectangular; rows
+    # off 16 bytes (d = 20, 37: element loads) and on them (d = 144, 256,
+    # 272: TMA); n not a multiple of the 32-sample stage or of the
+    # 128-sample partial, and a single stage; column slices at offsets off
+    # 16 bytes, alone and as GramEngine's d_tile blocks
+    def code_case(c, cb, c2=None, what=""):
+        got, want = code_corr(c, cb, c2), ref.code_corr_ref(c, cb, c2)
+        err = (got - want).abs()
+        expect(bool((err <= code_tolerance(c.shape[-2], want)).all()),
+               f"code_corr {what} {tuple(c.shape)}x"
+               f"{None if c2 is None else tuple(c2.shape)}: max |err| "
+               f"{float(err.max())}")
+        cases["code_corr"] += 1
+
     for rate in (2, 4, 7):
         cb = torch.as_tensor(PerSymbolQuantizer(rate).centroids_np,
                              device=dev)
         for shape_l, shape_r in [((1000, 20), None), ((3, 1000, 20), None),
                                  ((1000, 20), (1000, 37)),
-                                 ((3, 1000, 20), (3, 1000, 37))]:
+                                 ((3, 1000, 20), (3, 1000, 37)),
+                                 ((4133, 256), None), ((7, 256), None),
+                                 ((2, 999, 144), (2, 999, 272))]:
             c = _codes(gen, shape_l, rate, dev)
             c2 = None if shape_r is None else _codes(gen, shape_r, rate, dev)
-            got, want = code_corr(c, cb, c2), ref.code_corr_ref(c, cb, c2)
-            err = (got - want).abs()
-            expect(bool((err <= code_tolerance(1000, want)).all()),
-                   f"code_corr R={rate} {shape_l}x{shape_r}: max |err| "
-                   f"{float(err.max())}")
-            cases["code_corr"] += 1
+            code_case(c, cb, c2, f"R={rate}")
+        wide = _codes(gen, (1001, 300), rate, dev)
+        code_case(wide[:, 5:133], cb, wide[:, 40:290],
+                  f"R={rate} column slices")
+        want = ref.code_corr_ref(wide, cb)
+        err = (GramEngine(backend="kernel", d_tile=100).code_gram(wide, cb)
+               - want).abs()
+        expect(bool((err <= code_tolerance(1001, want)).all()),
+               f"code_corr R={rate} in d_tile=100 blocks: max |err| "
+               f"{float(err.max())}")
+        cases["code_corr"] += 1
     cb4 = torch.as_tensor(PerSymbolQuantizer(4).centroids_np, device=dev)
     c = _codes(gen, (check_n, d), 4, dev)
-    got, want = code_corr(c, cb4), ref.code_corr_ref(c, cb4)
-    err = (got - want).abs()
-    expect(bool((err <= code_tolerance(check_n, want)).all()),
-           f"code_corr at main width: max |err| {float(err.max())}")
-    cases["code_corr"] += 1
+    code_case(c, cb4, None, "at main width")
 
     # quantize_fused: +-inf, NaN, +-0.0 and exact boundaries at R = 1..7
     for rate in range(1, 8):
@@ -238,7 +263,7 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
     b4, _ = codebook_tensors(4, dev)
     same("quantize_fused", quantize_fused(xm, 4), ref.encode_ref(xm, b4),
          "codes at main width")
-    del xm, c, got, want, err
+    del xm, c, got, want, err, wide
     log("phase 3 correctness cases:", json.dumps(cases))
 
     # -- timings at the main path's shapes --------------------------------
@@ -279,25 +304,38 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
            p.numel() + d * d * 4, 3 * word_pairs, F32_OPS_PER_S, 0.0)
     del p, g
 
-    # code_corr at n = 2^18, d = 4096, R = 4
-    c = _codes(gen, (cut_n, d), 4, dev)
-    g = code_corr(c, cb4)
-    want = ref.code_corr_ref(c, cb4)
-    err = (g - want).abs()
-    expect(bool((err <= code_tolerance(cut_n, want)).all()),
-           f"code_corr at main-path shape: max |err| {float(err.max())}")
-    max_err = float(err.max())
-    del want, err
-    ms = event_ms(lambda: code_corr(c, cb4), reps)
-    plain = event_ms(lambda: ref.code_corr_ref(c, cb4), reps)
-    dec = ref.decode_codes(c, cb4)
-    library = event_ms(lambda: torch.matmul(dec.t(), dec), reps)
-    record("code_corr", "code_corr.cu",
-           "src/repro/kernels/sign_corr.py:190",
-           f"n={cut_n} d={d} R=4 int8 codes", ms, plain, library,
-           c.numel() + 16 * 4 + d * d * 4, 2 * cut_n * d * d,
-           F32_OPS_PER_S, max_err)
-    del c, g, dec
+    # code_corr at n = 2^18, d = 4096: R = 2 and 7 (where the accumulation
+    # error is largest) checked, R = 4 (the main path's) checked and timed;
+    # beside the kernel's error, that of the library's f32 matmul (no TF32)
+    for rate in (2, 7, 4):
+        cb = torch.as_tensor(PerSymbolQuantizer(rate).centroids_np,
+                             device=dev)
+        c = _codes(gen, (cut_n, d), rate, dev)
+        g = code_corr(c, cb)
+        want = ref.code_corr_ref(c, cb)
+        err = (g - want).abs()
+        expect(bool((err <= code_tolerance(cut_n, want)).all()),
+               f"code_corr at n={cut_n} d={d} R={rate}: max |err| "
+               f"{float(err.max())}")
+        cases["code_corr"] += 1
+        max_err = float(err.max())
+        dec = ref.decode_codes(c, cb)
+        lib_err = float((torch.matmul(dec.t(), dec) - want).abs().max())
+        del want, err, g
+        log(f"phase 3 code_corr n={cut_n} d={d} R={rate}: max |kernel - "
+            f"plain| {max_err} max |torch.matmul - plain| {lib_err}")
+        if rate == 4:
+            ms = event_ms(lambda: code_corr(c, cb), reps)
+            plain = event_ms(lambda: ref.code_corr_ref(c, cb), reps)
+            library = event_ms(lambda: torch.matmul(dec.t(), dec), reps)
+            # 3xTF32: three TF32 products per code pair
+            record("code_corr", "code_corr.cu",
+                   "src/repro/kernels/sign_corr.py:190",
+                   f"n={cut_n} d={d} R=4 int8 codes", ms, plain, library,
+                   c.numel() + 16 * 4 + d * d * 4, 3 * 2 * cut_n * d * d,
+                   TF32_TENSOR_OPS_PER_S, max_err)
+            records[-1]["library_max_abs_err"] = lib_err
+        del c, dec
 
     # quantize_fused at n = 2^18, d = 4096, R = 4, codes only
     x = torch.randn((cut_n, d), generator=gen, device=dev)
@@ -776,34 +814,95 @@ def _cuobjdump():
     return next((c for c in cands if os.path.exists(c)), None)
 
 
+#: (library, what its tensor-core kernels are, a substring of their
+#: mangled names) whose SASS phase 2 shows
+TENSOR_CORE_KERNELS = (("flash_prefill", "bf16", "wgmma"),
+                       ("code_corr", "3xTF32", "code_corr_tf32"))
+
+
 def log_tensor_core_use(build_dir):
-    """Evidence that flash_prefill's bf16 kernels run on the tensor cores:
-    the HMMA / HGMMA instructions in libflash_prefill.so's SASS, and the
-    spills ptxas reports for them."""
+    """Evidence that flash_prefill's bf16 kernels and code_corr run on the
+    tensor cores: the HMMA / HGMMA instructions in each library's SASS, and
+    the spills ptxas reports for those kernels."""
     import re
 
-    log_lines = (build_dir / "libflash_prefill.log").read_text().splitlines()
-    spills, current = {}, None
-    for ln in log_lines:
-        m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
-            current = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and current and "wgmma" in current:
-            spills[current] = int(m.group(1)) + int(m.group(2))
-    log(f"phase 2 flash_prefill bf16 kernels: {len(spills)}, spill bytes "
-        f"{sum(spills.values())}")
     tool = _cuobjdump()
-    if tool is None:
-        log("phase 2 flash_prefill SASS: cuobjdump not found")
-        return
-    sass = subprocess.run([tool, "-sass", str(build_dir / "libflash_prefill.so")],
-                          capture_output=True, text=True).stdout
-    hgmma = len(re.findall(r"\bHGMMA\.", sass))
-    hmma = len(re.findall(r"\bHMMA\.", sass))
-    log(f"phase 2 flash_prefill SASS ({tool}): HGMMA {hgmma}, HMMA {hmma}")
-    expect(hgmma + hmma > 0, "libflash_prefill.so holds no tensor-core "
-           "instruction")
+    for lib, what, key in TENSOR_CORE_KERNELS:
+        log_lines = (build_dir / f"lib{lib}.log").read_text().splitlines()
+        spills, current = {}, None
+        for ln in log_lines:
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                current = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and current and key in current:
+                spills[current] = int(m.group(1)) + int(m.group(2))
+        log(f"phase 2 {lib} {what} kernels: {len(spills)}, spill bytes "
+            f"{sum(spills.values())}")
+        if tool is None:
+            log(f"phase 2 {lib} SASS: cuobjdump not found")
+            continue
+        sass = subprocess.run([tool, "-sass", str(build_dir / f"lib{lib}.so")],
+                              capture_output=True, text=True).stdout
+        hgmma = len(re.findall(r"\bHGMMA\.", sass))
+        hmma = len(re.findall(r"\bHMMA\.", sass))
+        log(f"phase 2 {lib} SASS ({tool}): HGMMA {hgmma}, HMMA {hmma}")
+        expect(hgmma + hmma > 0, f"lib{lib}.so holds no tensor-core "
+               f"instruction")
+
+
+def flush_sweep(flushes, dev, gen, n, d, reps):
+    """code_corr built with each CODE_CORR_FLUSH in ``flushes`` (samples
+    the tensor cores sum before the compensated f32 add): its max |kernel
+    - plain| at R = 2, 4 and 7 and its time at R = 4, all at (n, d)."""
+    import ctypes
+
+    import torch
+    from repro_torch.core.quantizers import PerSymbolQuantizer
+    from repro_torch.kernels import _build, code_corr, ref
+
+    out = _build.build_all()
+    procs = {}
+    for f in flushes:
+        so = out / f"libcode_corr_flush{f}.so"
+        procs[f] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DCODE_CORR_FLUSH={f}",
+             "-I", str(_build.CSRC), "-o", str(so),
+             str(_build.CSRC / "code_corr.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    code_corr(torch.zeros((32, 16), dtype=torch.int8, device=dev),
+              torch.zeros(2, device=dev))   # loads the default build
+    default = _build._libs["code_corr"]
+    libs = {}
+    for f, (so, p) in procs.items():
+        build_log, _ = p.communicate()
+        expect(p.returncode == 0, f"nvcc -DCODE_CORR_FLUSH={f} failed:\n"
+               f"{build_log}")
+        lib = ctypes.CDLL(str(so))
+        lib.code_corr_s8.argtypes = default.code_corr_s8.argtypes
+        lib.code_corr_s8.restype = ctypes.c_int
+        libs[f] = lib
+    try:
+        for rate in (2, 4, 7):
+            cb = torch.as_tensor(PerSymbolQuantizer(rate).centroids_np,
+                                 device=dev)
+            c = _codes(gen, (n, d), rate, dev)
+            want = ref.code_corr_ref(c, cb)
+            for f, lib in libs.items():
+                _build._libs["code_corr"] = lib
+                err = (code_corr(c, cb) - want).abs()
+                ok = bool((err <= code_tolerance(n, want)).all())
+                line = (f"flush sweep CODE_CORR_FLUSH={f} n={n} d={d} "
+                        f"R={rate}: max |kernel - plain| {float(err.max())} "
+                        f"within code_tolerance {ok}")
+                if rate == 4:
+                    line += f" ms={event_ms(lambda: code_corr(c, cb), reps)}"
+                log(line)
+                del err
+            del c, want
+    finally:
+        _build._libs["code_corr"] = default
 
 
 def main() -> int:
@@ -843,6 +942,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--flush-sweep":
+        flush_sweep([int(f) for f in sys.argv[2].split(",")], "cuda", gen,
+                    CUT_N, D, reps=3)
+        return 0
     records = check_kernels("cuda", gen, MAIN_N, CUT_N, CHECK_N, D, reps=3)
     total = run_main_path("cuda", D, MAIN_N, CUT_N)
     card_vs_cpu("cuda", 256, 1 << 14)

@@ -10,11 +10,14 @@
 // What bounds it on an H100: operations. At the main path's shape (n =
 // 2^18, d = 4096) the three TF32 products below are 3 * 2 n d^2 =
 // 2.6e13 operations, 53 ms at the dense TF32 peak, against 1.1 GB of
-// codes (0.3 ms at 3.35 TB/s).
+// codes (0.3 ms at 3.35 TB/s). What keeps it above that is shared memory:
+// each stage's decoded tiles are written there and wgmma reads both
+// operands from there, three products per 8 samples.
 //
-// Precision (3xTF32). The codebook (L <= 128 centroids) is split in each
-// block's prologue into hi = tf32(c) and lo = tf32(c - hi) (cvt.rna), both
-// with their low 13 mantissa bits zero, so the tensor core, which reads
+// Precision (3xTF32). The decode splits each centroid c (a table of
+// L <= 128 in shared memory) into hi = tf32(c) and lo = tf32(c - hi),
+// rounded as cvt.rna rounds, both with their low 13 mantissa bits zero,
+// so the tensor core, which reads
 // the top 19 bits of a .tf32 operand, reads them exactly; hi + lo = c to
 // 2^-22 |c|. A code pair's product is hi hi + hi lo + lo hi (lo lo, below
 // 2^-22 of it, is dropped): one GEMM over K = 3n, issued small terms first.
@@ -29,8 +32,8 @@
 // code rows in L2; the whole grid of tiles, also for a symmetric Gram.
 // - Thread 0 brings each stage's int8 code tiles (32 samples x 128
 //   features of U and of V, features contiguous) by TMA into a ring of
-//   STAGES, issued STAGES - 1 stages ahead of their decode (the tensor
-//   maps are built per call). Where a row or the batch stride is off a
+//   STAGES, issued STAGES stages ahead of their decode (the tensor maps
+//   are built per call). Where a row or the batch stride is off a
 //   16-byte boundary (which TMA cannot copy) the decode reads the codes
 //   from global memory itself. No thread is set aside to load: a block
 //   of 256 threads may hold 255 registers each, one of 288 only 168.
@@ -45,7 +48,8 @@
 //   from the decoded tiles of stage t while both warpgroups decode stage
 //   t + 1 into the next of three buffers; stage t stays in flight across
 //   the barrier that ends the step, so the tensor cores drain only where
-//   the accumulator is flushed.
+//   an accumulator is flushed, and warpgroup 1 flushes half a chunk after
+//   warpgroup 0, so that the other's products run meanwhile.
 #include <stdint.h>
 
 #include <cuda.h>
@@ -53,8 +57,9 @@
 
 #include "tc_ops.cuh"
 
-// samples per wgmma partial sum, a multiple of BK (chosen on the card from
-// the error at n = 2^18, d = 4096, R = 2, 4 and 7)
+// samples per wgmma partial sum, a multiple of 2 BK (chosen on the card
+// from the error at n = 2^18, d = 4096, R = 2, 4 and 7 and the time at
+// R = 4: chip_smoke.py --flush-sweep)
 #ifndef CODE_CORR_FLUSH
 #define CODE_CORR_FLUSH 128
 #endif
@@ -240,11 +245,10 @@ code_corr_tf32(Operand U, Operand V, const float* __restrict__ centroids,
     __syncthreads();
     load(STAGES);  // into stage 0's slot, decoded by all
   }
-  // chunks of FLUSH_STAGES stages; the waits inside a chunk are fixed, so
-  // ptxas keeps stage t in flight across the barrier (a flush inside the
-  // same loop made it wait after every issue)
-  // warpgroup 1's chunks start half a chunk later, so that the tensor
-  // cores run one warpgroup's stage while the other drains and flushes
+  // chunks of FLUSH_STAGES stages, warpgroup 1's starting half a chunk
+  // later, so that the tensor cores run one warpgroup's stages while the
+  // other drains and flushes. The flush sits outside the stage loop: with
+  // it inside, ptxas waits for every stage right after its issue.
   for (int t0 = 0, len = wg ? FLUSH_STAGES / 2 : FLUSH_STAGES; t0 < stages;
        t0 += len, len = FLUSH_STAGES) {
     const int t_end = min(t0 + len, stages);

@@ -52,11 +52,11 @@ def test_split_rounds_ties_away_from_zero():
     """cvt.rna: a value halfway between two TF32 numbers goes to the one
     of larger magnitude (round-half-even would go down here)."""
     tie = np.array([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
-                    3.0 + 2.0 ** -9], np.float32)
+                    3.0 + 2.0 ** -10], np.float32)
     hi, lo = ref.tf32_split(tie)
     np.testing.assert_array_equal(
         hi.numpy(), np.array([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
-                              3.0 + 2.0 ** -8], np.float32))
+                              3.0 + 2.0 ** -9], np.float32))
     np.testing.assert_array_equal((hi.double() + lo.double()).numpy(),
                                   tie.astype(np.float64))
 

@@ -55,6 +55,34 @@ def test_cuda_kernels_match_plain_versions(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rate", [2, 7])
+def test_cuda_code_corr_matches_plain_version(cuda, rate):
+    """The 3xTF32 tensor-core code_corr, batched x rectangular (rows on
+    16-byte bounds, by TMA, and off them), with n off the 32-sample stage
+    and the 128-sample partial, and on column slices at offsets off 16
+    bytes; held to the f32 plain version as chip_smoke.py holds it."""
+    gen = torch.Generator(device=cuda).manual_seed(rate)
+    cb = torch.as_tensor(PerSymbolQuantizer(rate).centroids_np, device=cuda)
+
+    def codes(*shape):
+        return torch.randint(-1, 1 << rate, shape, generator=gen, device=cuda,
+                             dtype=torch.int8)
+
+    before = kernels.launches()["code_corr"]
+    cases = [(codes(3, 1001, 20), codes(3, 1001, 37)),
+             (codes(2, 999, 144), codes(2, 999, 272)),
+             (codes(4133, 256), None)]
+    wide = codes(1001, 300)
+    cases.append((wide[:, 5:133], wide[:, 40:290]))
+    for u, v in cases:
+        n = u.shape[-2]
+        torch.testing.assert_close(kernels.code_corr(u, cb, v),
+                                   ref.code_corr_ref(u, cb, v),
+                                   rtol=1e-5, atol=1e-5 * n)
+    assert kernels.launches()["code_corr"] == before + len(cases)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [
     (torch.float32, dict(rtol=0, atol=3e-5)),
     (torch.bfloat16, dict(rtol=2 ** -7, atol=1e-2))])
