@@ -17,12 +17,6 @@ card against the CPU. Any failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
-
-    python3 chip_smoke.py --flush-sweep 32,64,128,256
-
-instead builds code_corr once for each length of its tensor-core partial
-sums (CODE_CORR_FLUSH, in samples) and prints each build's max |kernel -
-plain| at n = 2^18, d = 4096 for R = 2, 4 and 7 and its time at R = 4.
 """
 from __future__ import annotations
 
@@ -840,6 +834,10 @@ def log_tensor_core_use(build_dir):
                 spills[current] = int(m.group(1)) + int(m.group(2))
         log(f"phase 2 {lib} {what} kernels: {len(spills)}, spill bytes "
             f"{sum(spills.values())}")
+        expect(len(spills) > 0, f"ptxas reported no {what} kernel of "
+               f"lib{lib}.so (no entry function names {key!r})")
+        expect(sum(spills.values()) == 0, f"lib{lib}.so's {what} kernels "
+               f"spill: {spills}")
         if tool is None:
             log(f"phase 2 {lib} SASS: cuobjdump not found")
             continue
@@ -850,59 +848,6 @@ def log_tensor_core_use(build_dir):
         log(f"phase 2 {lib} SASS ({tool}): HGMMA {hgmma}, HMMA {hmma}")
         expect(hgmma + hmma > 0, f"lib{lib}.so holds no tensor-core "
                f"instruction")
-
-
-def flush_sweep(flushes, dev, gen, n, d, reps):
-    """code_corr built with each CODE_CORR_FLUSH in ``flushes`` (samples
-    the tensor cores sum before the compensated f32 add): its max |kernel
-    - plain| at R = 2, 4 and 7 and its time at R = 4, all at (n, d)."""
-    import ctypes
-
-    import torch
-    from repro_torch.core.quantizers import PerSymbolQuantizer
-    from repro_torch.kernels import _build, code_corr, ref
-
-    out = _build.build_all()
-    procs = {}
-    for f in flushes:
-        so = out / f"libcode_corr_flush{f}.so"
-        procs[f] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, f"-DCODE_CORR_FLUSH={f}",
-             "-I", str(_build.CSRC), "-o", str(so),
-             str(_build.CSRC / "code_corr.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    code_corr(torch.zeros((32, 16), dtype=torch.int8, device=dev),
-              torch.zeros(2, device=dev))   # loads the default build
-    default = _build._libs["code_corr"]
-    libs = {}
-    for f, (so, p) in procs.items():
-        build_log, _ = p.communicate()
-        expect(p.returncode == 0, f"nvcc -DCODE_CORR_FLUSH={f} failed:\n"
-               f"{build_log}")
-        lib = ctypes.CDLL(str(so))
-        lib.code_corr_s8.argtypes = default.code_corr_s8.argtypes
-        lib.code_corr_s8.restype = ctypes.c_int
-        libs[f] = lib
-    try:
-        for rate in (2, 4, 7):
-            cb = torch.as_tensor(PerSymbolQuantizer(rate).centroids_np,
-                                 device=dev)
-            c = _codes(gen, (n, d), rate, dev)
-            want = ref.code_corr_ref(c, cb)
-            for f, lib in libs.items():
-                _build._libs["code_corr"] = lib
-                err = (code_corr(c, cb) - want).abs()
-                ok = bool((err <= code_tolerance(n, want)).all())
-                line = (f"flush sweep CODE_CORR_FLUSH={f} n={n} d={d} "
-                        f"R={rate}: max |kernel - plain| {float(err.max())} "
-                        f"within code_tolerance {ok}")
-                if rate == 4:
-                    line += f" ms={event_ms(lambda: code_corr(c, cb), reps)}"
-                log(line)
-                del err
-            del c, want
-    finally:
-        _build._libs["code_corr"] = default
 
 
 def main() -> int:
@@ -942,10 +887,6 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    if len(sys.argv) == 3 and sys.argv[1] == "--flush-sweep":
-        flush_sweep([int(f) for f in sys.argv[2].split(",")], "cuda", gen,
-                    CUT_N, D, reps=3)
-        return 0
     records = check_kernels("cuda", gen, MAIN_N, CUT_N, CHECK_N, D, reps=3)
     total = run_main_path("cuda", D, MAIN_N, CUT_N)
     card_vs_cpu("cuda", 256, 1 << 14)

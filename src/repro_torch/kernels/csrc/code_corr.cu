@@ -57,13 +57,6 @@
 
 #include "tc_ops.cuh"
 
-// samples per wgmma partial sum, a multiple of 2 BK (chosen on the card
-// from the error at n = 2^18, d = 4096, R = 2, 4 and 7 and the time at
-// R = 4: chip_smoke.py --flush-sweep)
-#ifndef CODE_CORR_FLUSH
-#define CODE_CORR_FLUSH 128
-#endif
-
 namespace {
 
 constexpr int BM = 128, BN = 128;  // output tile: features of U x of V
@@ -74,10 +67,16 @@ constexpr int THREADS = 256;       // two warpgroups of 64 output rows
 constexpr int MAX_LEVELS = 128;
 constexpr int TABLE = 256;         // centroid by code as a byte; >= L is 0
 constexpr int GROUP_M = 8;
-constexpr int FLUSH_STAGES = CODE_CORR_FLUSH / BK;
-static_assert(CODE_CORR_FLUSH % (2 * BK) == 0 && FLUSH_STAGES >= 2,
-              "CODE_CORR_FLUSH must be a positive multiple of 2 BK: the "
-              "warpgroups flush half a chunk apart");
+// samples per wgmma partial sum, a multiple of 2 BK (the warpgroups flush
+// half a chunk apart). Measured on an H100 80GB HBM3 (700 W) at n = 2^18,
+// d = 4096, max |kernel - code_corr_ref| at R = 2 / 4 / 7 and ms at R = 4:
+// 64: 0.047 / 0.094 / 0.125, 114.3; 128: 0.078 / 0.17 / 0.27, 106.0;
+// 256: 0.047 / 0.31 / 0.53, 101.9; 512: 0.17 / 0.66 / 1.09, 100.9. 128 is
+// the longest whose R = 7 error stays under the CUDA-core kernel's 0.484.
+constexpr int FLUSH = 128;
+constexpr int FLUSH_STAGES = FLUSH / BK;
+static_assert(FLUSH % (2 * BK) == 0 && FLUSH_STAGES >= 2,
+              "FLUSH must be a positive multiple of 2 BK");
 
 constexpr int RING_A = BK * BM;         // bytes of an int8 code tile of U
 constexpr int RING_B = BK * BN;
