@@ -98,6 +98,28 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one fn() call in ms: the kernels' time that
+    torch.profiler records over ``reps`` calls (after one warm-up), summed
+    over every kernel a call launches, over ``reps``. Unlike event_ms it
+    leaves out the host's time to issue a call, which sets the pace of a
+    call whose kernels take tens of microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    total = sum(getattr(e, "self_device_time_total", 0) or 0
+                for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", "")))
+    expect(total > 0, "the profiler saw no device time")
+    return total / reps / 1e3
+
+
 def make_record(phase, name, source, replaces, shape, ms, plain_ms,
                 library_ms, bytes_moved, ops, op_rate, max_abs_err):
     """One kernel's entry of the JSON line; bound_ms is the larger of its
@@ -172,10 +194,14 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
                f"version: {what}")
         cases[name] += 1
 
-    # sign_corr: single, batched, rectangular, column slice, main width
+    # sign_corr: single, batched, rectangular, column slice, main width;
+    # rows off 16 bytes (d = 20, 37: the transpose reads global memory)
+    # and on them (d = 144, 272: TMA); n off the 128-sample stage
     for shape_l, shape_r in [((1000, 20), None), ((3, 1000, 20), None),
                              ((1000, 20), (1000, 37)),
                              ((3, 1000, 20), (3, 1000, 37)),
+                             ((2, 999, 144), (2, 999, 272)),
+                             ((129, 272), None),
                              ((check_n, d), None)]:
         u = _signs(gen, shape_l, dev)
         v = None if shape_r is None else _signs(gen, shape_r, dev)
@@ -184,6 +210,9 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
     wide = _signs(gen, (1000, 45), dev)
     same("sign_corr", sign_corr(wide[:, 5:25], wide[:, 3:40]),
          ref.sign_corr_ref(wide[:, 5:25], wide[:, 3:40]), "column slices")
+    wide = _signs(gen, (1001, 300), dev)
+    same("sign_corr", GramEngine(backend="kernel", d_tile=100).gram(wide),
+         ref.sign_corr_ref(wide), "d_tile=100 blocks")
 
     # sign_corr_packed: n not a multiple of 8 or 32, batched, rectangular
     for n, dl, dr, b in [(1000, 20, None, None), (997, 20, None, None),
@@ -277,6 +306,8 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
     expect(torch.equal(lib.to(torch.float32), g),
            "torch._int_mm disagrees with sign_corr")
     library = event_ms(lambda: torch._int_mm(ut, u), reps)
+    log(f"phase 3 sign_corr n={main_n} d={d}: kernel {ms:.4f} ms, "
+        f"torch._int_mm {library:.4f} ms")
     record("sign_corr", "sign_corr.cu",
            "src/repro/kernels/sign_corr.py:113", f"n={main_n} d={d} int8",
            ms, plain, library, main_n * d + d * d * 4, 2 * main_n * d * d,
@@ -520,6 +551,58 @@ def check_prefill_bf16_edges(dev, rnd):
     return n
 
 
+def check_decode_split_edges(dev, rnd):
+    """The split-KV decode_attention with forced split counts (1, 2, 7 and
+    more than the range has tiles), so that whole splits hold no valid
+    entry (windows, pos = 1, window 0), in f32 and bf16 against its plain
+    version (``_attn_close``); the same bits on a second call (the combine
+    runs in split order and resets its counters); then calls of several
+    shapes on one stream, which share the wrapper's workspace. Returns the
+    cases."""
+    import torch
+    from repro_torch.kernels import decode_attention, ref
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        # (B, Hq, Hkv, S, Dh, pos, window)
+        for b, hq, hkv, s, dh, pos, window in [
+                (2, 32, 8, 1000, 128, 1, None),   # one entry: 1 tile
+                (1, 48, 1, 777, 128, 500, None),  # G = 48
+                (2, 8, 2, 900, 80, 880, 100),     # window: 2 of 14 tiles
+                (1, 8, 8, 300, 64, 300, 0)]:      # no valid entry
+            q = rnd(b, hq, dh, dtype=dtype)
+            k, v = (rnd(b, s, hkv, dh, dtype=dtype).transpose(1, 2)
+                    for _ in range(2))
+            want = ref.decode_attention_ref(q, k, v, pos, window=window)
+            for splits in (1, 2, 7, 64):
+                got = decode_attention(q, k, v, pos, window=window,
+                                       splits=splits)
+                what = (f"decode_attention {dtype} B={b} Hq={hq} Hkv={hkv} "
+                        f"S={s} Dh={dh} pos={pos} window={window} "
+                        f"splits={splits}")
+                _attn_close(got, want, what)
+                expect(torch.equal(got, decode_attention(
+                    q, k, v, pos, window=window, splits=splits)),
+                    f"{what}: two calls differ")
+                if window == 0:
+                    expect(bool((got == 0).all()), f"{what}: not 0")
+                n += 1
+    # shapes that share the workspace on one stream: B = 12 after the
+    # serving shape has more groups and fewer splits, so its counters must
+    # not lie where the B = 8 partials were
+    for b, splits in ((8, None), (12, None), (8, None), (2, 64),
+                      (16, None), (12, None)):
+        q = rnd(b, 32, 128, dtype=torch.bfloat16)
+        k, v = (rnd(b, 2080, 8, 128, dtype=torch.bfloat16).transpose(1, 2)
+                for _ in range(2))
+        _attn_close(decode_attention(q, k, v, 2064, splits=splits),
+                    ref.decode_attention_ref(q, k, v, 2064),
+                    f"decode_attention bf16 B={b} splits={splits} after "
+                    f"other shapes on one stream")
+        n += 1
+    return n
+
+
 def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
     """Both attention kernels against their plain versions (f32 and bf16;
     groups of 1, 4 and 48; head sizes 64, 80 and 128; ragged lengths,
@@ -529,6 +612,7 @@ def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention, flash_prefill, ref
+    from repro_torch.kernels.decode_attention import split_count
 
     def rnd(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -579,6 +663,7 @@ def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
                         f"decode_attention {dtype} B={b} Hq={hq} Hkv={hkv} "
                         f"S={s} Dh={dh} pos={pos} window={window}")
             cases["decode_attention"] += 1
+    cases["decode_attention split edges"] = check_decode_split_edges(dev, rnd)
     cases["flash_prefill bf16 edges"] = check_prefill_bf16_edges(dev, rnd)
     log("phase 6 correctness cases:", json.dumps(cases))
 
@@ -621,20 +706,40 @@ def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
     ck, cv = (rnd(batch, sbuf, hkv, dh, dtype=bf) for _ in range(2))
     kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
     out = decode_attention(qd, kt, vt, n_valid)
+    splits = split_count(qd, kt, n_valid)
+    expect(splits > 1, f"decode_attention does not split the serving "
+           f"shape's cache ({splits} split)")
+    log(f"phase 6 decode_attention at the serving shape: {splits} splits, "
+        f"grid {splits} x {hkv} x {batch} blocks in one launch")
+    sweep = {n: device_ms(lambda: decode_attention(qd, kt, vt, n_valid,
+                                                   splits=n), 5 * reps)
+             for n in (1, 2, 3, 4, 6, 8, 12)}
+    log("phase 6 decode_attention device ms by forced split count: "
+        + json.dumps(sweep))
     err = _attn_close(out, ref.decode_attention_ref(qd, kt, vt, n_valid),
                       "decode_attention at the serving shape")
+    # a call's kernels take tens of microseconds, less than the host needs
+    # to issue it: ms, plain_ms and library_ms are device time
+    # (device_ms); the CUDA-event times, which include the host's issue
+    # time, are logged beside them
     dreps = 20 * reps
-    ms = event_ms(lambda: decode_attention(qd, kt, vt, n_valid), dreps)
-    plain = event_ms(lambda: ref.decode_attention_ref(qd, kt, vt, n_valid),
-                     dreps)
     mask = (torch.arange(sbuf, device=dev) < n_valid).view(1, 1, 1, sbuf)
     q4 = qd.unsqueeze(2)
     lib = F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask,
                                          enable_gqa=True)
     _attn_close(out, lib.squeeze(2), "decode_attention against "
                 "scaled_dot_product_attention")
-    library = event_ms(lambda: F.scaled_dot_product_attention(
-        q4, kt, vt, attn_mask=mask, enable_gqa=True), dreps)
+    calls = {
+        "kernel": lambda: decode_attention(qd, kt, vt, n_valid),
+        "plain": lambda: ref.decode_attention_ref(qd, kt, vt, n_valid),
+        "library": lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True)}
+    dev_t = {k: device_ms(fn, dreps) for k, fn in calls.items()}
+    ev_t = {k: event_ms(fn, dreps) for k, fn in calls.items()}
+    log("phase 6 decode_attention at the serving shape, ms a call: device "
+        + json.dumps(dev_t) + " CUDA events (with the host's issue time) "
+        + json.dumps(ev_t))
+    ms, plain, library = dev_t["kernel"], dev_t["plain"], dev_t["library"]
     nbytes = 2 * (2 * batch * hkv * n_valid * dh + 2 * qd.numel())
     flop = 4 * batch * hq * n_valid * dh
     records.append(make_record(
@@ -643,6 +748,8 @@ def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
         f"B={batch} Hq={hq} Hkv={hkv} Sbuf={sbuf} n_valid={n_valid} "
         f"Dh={dh} bf16", ms, plain, library, nbytes, flop,
         BF16_TENSOR_OPS_PER_S, err))
+    records[-1]["timing"] = "device time (torch.profiler)"
+    records[-1]["event_ms"] = ev_t["kernel"]
     return records
 
 
@@ -809,19 +916,26 @@ def _cuobjdump():
 
 
 #: (library, what its tensor-core kernels are, a substring of their
-#: mangled names) whose SASS phase 2 shows
-TENSOR_CORE_KERNELS = (("flash_prefill", "bf16", "wgmma"),
-                       ("code_corr", "3xTF32", "code_corr_tf32"))
+#: mangled names, the SASS opcodes one of which it must hold) whose SASS
+#: phase 2 shows
+TENSOR_CORE_KERNELS = (("flash_prefill", "bf16", "wgmma", ("HGMMA", "HMMA")),
+                       ("code_corr", "3xTF32", "code_corr_tf32", ("HGMMA",)),
+                       ("sign_corr", "int8", "sign_corr_s8_wgmma",
+                        ("IGMMA",)),
+                       ("decode_attention", "bf16",
+                        "decode_attention_kernelI13__nv_bfloat16",
+                        ("HMMA",)))
 
 
 def log_tensor_core_use(build_dir):
-    """Evidence that flash_prefill's bf16 kernels and code_corr run on the
-    tensor cores: the HMMA / HGMMA instructions in each library's SASS, and
-    the spills ptxas reports for those kernels."""
+    """Evidence that flash_prefill's and decode_attention's bf16 kernels,
+    code_corr and sign_corr run on the tensor cores: the HMMA / HGMMA
+    (float) and IGMMA (int8) instructions in each library's SASS, and the
+    spills ptxas reports for those kernels."""
     import re
 
     tool = _cuobjdump()
-    for lib, what, key in TENSOR_CORE_KERNELS:
+    for lib, what, key, opcodes in TENSOR_CORE_KERNELS:
         log_lines = (build_dir / f"lib{lib}.log").read_text().splitlines()
         spills, current = {}, None
         for ln in log_lines:
@@ -843,11 +957,12 @@ def log_tensor_core_use(build_dir):
             continue
         sass = subprocess.run([tool, "-sass", str(build_dir / f"lib{lib}.so")],
                               capture_output=True, text=True).stdout
-        hgmma = len(re.findall(r"\bHGMMA\.", sass))
-        hmma = len(re.findall(r"\bHMMA\.", sass))
-        log(f"phase 2 {lib} SASS ({tool}): HGMMA {hgmma}, HMMA {hmma}")
-        expect(hgmma + hmma > 0, f"lib{lib}.so holds no tensor-core "
-               f"instruction")
+        counts = {op: len(re.findall(rf"\b{op}\.", sass))
+                  for op in ("HGMMA", "HMMA", "IGMMA")}
+        log(f"phase 2 {lib} SASS ({tool}): " +
+            ", ".join(f"{op} {c}" for op, c in counts.items()))
+        expect(sum(counts[op] for op in opcodes) > 0, f"lib{lib}.so holds "
+               f"no {what} tensor-core instruction ({'/'.join(opcodes)})")
 
 
 def main() -> int:

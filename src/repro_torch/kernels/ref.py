@@ -6,7 +6,9 @@ kernel's own. The wrappers in ``sign_corr.py``, ``quantize.py``,
 tensors (the tests run them here), and ``chip_smoke.py`` holds every
 kernel against its plain version on the card. ``tf32_split`` and
 ``code_corr_tf32_ref`` model the tensor-core ``code_corr``'s arithmetic
-for the tests; no wrapper calls them.
+for the tests; no wrapper calls them. Nor does any wrapper call
+``decode_split_ranges`` and ``decode_attention_split_ref``, which model
+the split-KV ``decode_attention`` for the tests.
 """
 from __future__ import annotations
 
@@ -212,4 +214,60 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         valid &= idx >= pos - window
     out = _masked_softmax_pv(s, valid, v, "bhgs,bhsd->bhgd")
+    return out.reshape(b, hq, dh).to(q.dtype)
+
+
+#: cache entries per tile of the CUDA decode_attention
+DECODE_TILE = 64
+
+
+def decode_split_ranges(lo: int, hi: int, splits: int,
+                        tile: int = DECODE_TILE) -> list[tuple[int, int]]:
+    """The CUDA ``decode_attention``'s split of the valid range [lo, hi):
+    ceil(tiles / splits) tiles of ``tile`` entries per split, in order,
+    the last ones shorter or empty (start == end)."""
+    tiles = -(-(hi - lo) // tile) if hi > lo else 0
+    per = -(-tiles // splits)
+    out = []
+    for s in range(splits):
+        a = min(hi, lo + s * per * tile) if hi > lo else lo
+        out.append((a, max(a, min(hi, a + per * tile))))
+    return out
+
+
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, pos: int, *,
+                               window: int | None = None,
+                               splits: int = 1) -> torch.Tensor:
+    """Split-KV decode attention as the CUDA kernel computes it, in f32:
+    each split of ``decode_split_ranges`` gives its partial (max m, sum
+    l, accumulator acc) over its entries, and the partials are combined
+    in split order: out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M)
+    with M the max over splits. A split with no entry has m = -inf, l = 0
+    and acc = 0 and adds nothing; with no valid entry at all the output is
+    0. Shapes and validity as ``decode_attention_ref``."""
+    b, hq, dh = q.shape
+    hkv, s_len = k.shape[1], k.shape[2]
+    lo = 0 if window is None else max(0, pos - window)
+    hi = max(0, min(pos, s_len))
+    qg = q.reshape(b, hkv, hq // hkv, dh).to(torch.float32) / math.sqrt(dh)
+    parts = []
+    for a, e in decode_split_ranges(lo, hi, splits):
+        if e <= a:
+            m = torch.full(qg.shape[:-1], -math.inf, device=q.device)
+            parts.append((m, torch.zeros_like(m), torch.zeros_like(qg)))
+            continue
+        s = torch.einsum("bhgd,bhsd->bhgs", qg, k[:, :, a:e].to(torch.float32))
+        m = s.amax(-1)
+        p = torch.exp(s - m.unsqueeze(-1))
+        parts.append((m, p.sum(-1), torch.einsum(
+            "bhgs,bhsd->bhgd", p, v[:, :, a:e].to(torch.float32))))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    total = torch.zeros_like(big)
+    acc = torch.zeros_like(qg)
+    for m, l_s, a_s in parts:  # in split order
+        w = torch.where(m == -math.inf, 0.0, torch.exp(m - big))
+        total = total + l_s * w
+        acc = acc + a_s * w.unsqueeze(-1)
+    out = acc / total.clamp_min(1e-30).unsqueeze(-1)
     return out.reshape(b, hq, dh).to(q.dtype)

@@ -116,3 +116,142 @@ def test_cuda_attention_kernels_match_plain_versions(cuda, dtype, tol):
     after = kernels.launches()
     assert after["flash_prefill"] == before["flash_prefill"] + 6
     assert after["decode_attention"] == before["decode_attention"] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, dict(rtol=0, atol=3e-5)),
+    (torch.bfloat16, dict(rtol=2 ** -7, atol=1e-2))])
+def test_cuda_decode_attention_split_edges(cuda, dtype, tol):
+    """The split-KV decode_attention at its edges, held to its plain
+    version as chip_smoke.py holds it: forced split counts of 1, 2, 7 and
+    more than the range has tiles (empty splits), windows and pos = 1
+    (splits without a valid entry), groups of 1, 4 and 48, every head
+    size, rows off 16 bytes (element loads). The default count splits the
+    serving shape's range, and two calls give identical bits (the combine
+    runs in split order and leaves its counters at 0)."""
+    from repro_torch.kernels.decode_attention import split_count
+    from repro_torch.kernels.flash_prefill import HEAD_DIMS
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    before = kernels.launches()["decode_attention"]
+    calls = 0
+
+    def check(q, k, v, pos, window, splits):
+        nonlocal calls
+        got = kernels.decode_attention(q, k, v, pos, window=window,
+                                       splits=splits)
+        calls += 1
+        want = ref.decode_attention_ref(q, k, v, pos, window=window)
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, **tol)
+        return got
+
+    # (B, Hq, Hkv, S, Dh, pos, window)
+    for b, hq, hkv, s, dh, pos, window in [
+            (2, 8, 8, 700, 64, 700, None),     # G = 1
+            (2, 32, 8, 1000, 128, 1, None),    # G = 4, pos = 1
+            (1, 48, 1, 777, 128, 500, None),   # G = 48
+            (2, 8, 2, 900, 80, 880, 100),      # window: 2 tiles of 14
+            (1, 8, 2, 300, 32, 300, 0)]:       # window 0: no entry at all
+        kv = rnd(b, s, hkv, dh), rnd(b, s, hkv, dh)
+        k, v = (t.transpose(1, 2) for t in kv)   # the model's cache layout
+        q = rnd(b, hq, dh)
+        for splits in (None, 1, 2, 7, 64):
+            got = check(q, k, v, pos, window, splits)
+            if window == 0:
+                assert (got == 0).all()
+    for dh in HEAD_DIMS:
+        q, k, v = rnd(1, 8, dh), rnd(1, 2, 333, dh), rnd(1, 2, 333, dh)
+        check(q, k, v, 333, None, None)
+        check(q, k, v, 200, 50, 5)
+    kv = rnd(1, 2, 333, 65)   # rows off 16 bytes: element loads
+    check(rnd(1, 8, 64), kv[..., 1:], kv[..., :64], 300, 200, None)
+    check(rnd(1, 8, 64), kv[..., 1:], kv[..., :64], 300, 200, 9)
+
+    # the serving shape: more than one split, and the same bits twice
+    q = rnd(8, 32, 128)
+    kt, vt = (rnd(8, 2080, 8, 128).transpose(1, 2) for _ in range(2))
+    assert split_count(q, kt, 2064) > 1
+    first = check(q, kt, vt, 2064, None, None)
+    assert torch.equal(first, kernels.decode_attention(q, kt, vt, 2064))
+    calls += 1
+    assert kernels.launches()["decode_attention"] == before + calls
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_workspace_across_shapes(cuda):
+    """Calls of several shapes on one stream share the wrapper's workspace:
+    the serving shape (B = 8, 32/8 heads of 128, bf16), then B = 12 (more
+    groups, fewer splits: its counters must not lie on the partials the
+    first call left), B = 8 again, a forced 64 splits, then B = 16 and
+    B = 12; each held to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=cuda).to(torch.bfloat16)
+
+    for b, splits in ((8, None), (12, None), (8, None), (2, 64),
+                      (16, None), (12, None), (8, 64), (12, None)):
+        q = rnd(b, 32, 128)
+        k, v = (rnd(b, 2080, 8, 128).transpose(1, 2) for _ in range(2))
+        got = kernels.decode_attention(q, k, v, 2064, splits=splits)
+        want = ref.decode_attention_ref(q, k, v, 2064)
+        torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-2)
+
+
+def _pm1(gen, *shape, device):
+    return torch.randint(0, 2, shape, generator=gen, device=device,
+                         dtype=torch.int8) * 2 - 1
+
+
+@pytest.mark.cuda
+def test_cuda_sign_corr_edges(cuda):
+    """The int8 tensor-core sign_corr is bit-identical to its plain version
+    at n off the 128-sample stage (1, 127, 129, 1000), on rows off 16
+    bytes (d = 20, 37: the transpose reads global memory) and on them
+    (d = 144, 256, 272: TMA), batched and rectangular, on column slices
+    at offsets 5 and 3, and as GramEngine's d_tile = 100 blocks."""
+    from repro_torch.core.gram import GramEngine
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    before = kernels.launches()["sign_corr"]
+    calls = 0
+
+    def same(u, v=None):
+        nonlocal calls
+        got = kernels.sign_corr(u, v)
+        calls += 1
+        assert torch.equal(got, ref.sign_corr_ref(u, v))
+
+    for n in (1, 127, 129, 1000):
+        same(_pm1(gen, n, 144, device=cuda))
+    for shape_l, shape_r in [((1000, 20), None), ((1000, 37), None),
+                             ((3, 1000, 20), (3, 1000, 37)),
+                             ((2, 999, 144), (2, 999, 272)),
+                             ((4133, 256), None), ((300, 272), (300, 144))]:
+        same(_pm1(gen, *shape_l, device=cuda),
+             None if shape_r is None else _pm1(gen, *shape_r, device=cuda))
+    wide = _pm1(gen, 1000, 45, device=cuda)
+    same(wide[:, 5:25], wide[:, 3:40])
+    big = _pm1(gen, 1001, 300, device=cuda)
+    same(big[:, 16:272], big[:, 32:])  # slices on 16-byte bounds
+    assert torch.equal(GramEngine(backend="kernel", d_tile=100).gram(big),
+                       ref.sign_corr_ref(big))
+    assert kernels.launches()["sign_corr"] > before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [37, 256])
+def test_cuda_sign_corr_all_ones_is_exactly_n(cuda, d):
+    """All +1 at n = 2^20: every entry of the Gram is exactly n (int32
+    sums over 8192 stages, by element loads at d = 37, by TMA at 256)."""
+    n = 1 << 20
+    u = torch.ones((n, d), dtype=torch.int8, device=cuda)
+    g = kernels.sign_corr(u)
+    assert g.shape == (d, d) and bool((g == n).all())
