@@ -162,6 +162,14 @@ def _packed(gen, shape_bits, dev):
     return pack_codes(torch.nn.functional.pad(bits, (0, pad)), 1)
 
 
+def _random_bytes(gen, shape, dev):
+    """Random packed bytes: every bit random, those beyond n too."""
+    import torch
+
+    return torch.randint(0, 256, shape, generator=gen, device=dev,
+                         dtype=torch.uint8)
+
+
 def _codes(gen, shape, rate, dev):
     import torch
 
@@ -214,15 +222,32 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
     same("sign_corr", GramEngine(backend="kernel", d_tile=100).gram(wide),
          ref.sign_corr_ref(wide), "d_tile=100 blocks")
 
-    # sign_corr_packed: n not a multiple of 8 or 32, batched, rectangular
+    # sign_corr_packed: n not a multiple of 8 or of the 128-sample stage,
+    # batched, rectangular; bits beyond n zero (the wire's) and random
+    # (the unpack zeroes them); byte widths off 16 (1, 17, 125, 126, 500:
+    # the wrapper pads them) and on them (16); d = 20, 37, 144, 272
     for n, dl, dr, b in [(1000, 20, None, None), (997, 20, None, None),
                          (1003, 20, 37, None), (997, 20, None, 3),
-                         (1000, 20, 37, 3), (check_n, d, None, None)]:
+                         (1000, 20, 37, 3), (1, 144, 272, None),
+                         (127, 37, None, 2), (128, 144, None, None),
+                         (129, 272, 144, 2), (4000, 144, 272, None),
+                         (check_n, d, None, None)]:
         lead = () if b is None else (b,)
         p = _packed(gen, (*lead, dl, n), dev)
         q = None if dr is None else _packed(gen, (*lead, dr, n), dev)
         same("sign_corr_packed", sign_corr_packed(p, n, q),
              ref.sign_corr_packed_ref(p, n, q), f"n={n} d={dl}x{dr} b={b}")
+        p = _random_bytes(gen, p.shape, dev)
+        q = None if q is None else _random_bytes(gen, q.shape, dev)
+        same("sign_corr_packed", sign_corr_packed(p, n, q),
+             ref.sign_corr_packed_ref(p, n, q),
+             f"n={n} d={dl}x{dr} b={b}, random bits beyond n")
+    wide = _random_bytes(gen, (300, 80), dev)
+    same("sign_corr_packed", sign_corr_packed(wide[:, 3:70], 500),
+         ref.sign_corr_packed_ref(wide[:, 3:70], 500), "byte slice")
+    same("sign_corr_packed",
+         GramEngine(backend="kernel", d_tile=100).packed_sign_gram(wide, 633),
+         ref.sign_corr_packed_ref(wide, 633), "d_tile=100 blocks")
 
     # code_corr: -1 sentinels at R = 2, 4, 7; batched, rectangular; rows
     # off 16 bytes (d = 20, 37: element loads) and on them (d = 144, 256,
@@ -282,11 +307,27 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
                f"quantize_fused R={rate}: a subnormal encodes unlike 0.0")
         for g_, w_, what in zip(got, want, ("codes", "values", "packed")):
             same("quantize_fused", g_, w_, f"R={rate} {what}")
+    # views at an offset of 1..3 elements (off 16 bytes) and totals of
+    # 0..3 mod 4 over several of the kernel's 4096-element tiles, R = 1..7
+    flat = torch.randn(70000, generator=gen, device=dev)
+    for rate in range(1, 8):
+        bounds, cents = codebook_tensors(rate, dev)
+        group = 8 // rate if 8 % rate == 0 else 1
+        for off, total in ((1, 12289), (2, 16386), (3, 8195), (0, 40963),
+                           (3, 65536)):
+            total -= total % group
+            x = flat[off:off + total].view(-1, group)
+            got = quantize_fused(x, rate, values=True, pack=group > 1)
+            want = ref.quantize_fused_ref(x, bounds, cents, rate,
+                                          values=True, pack=group > 1)
+            for g_, w_, what in zip(got, want, ("codes", "values", "packed")):
+                same("quantize_fused", g_, w_,
+                     f"R={rate} offset {off} total {total} {what}")
     xm = torch.randn((check_n, d), generator=gen, device=dev)
     b4, _ = codebook_tensors(4, dev)
     same("quantize_fused", quantize_fused(xm, 4), ref.encode_ref(xm, b4),
          "codes at main width")
-    del xm, c, got, want, err, wide
+    del xm, c, got, want, err, wide, flat
     log("phase 3 correctness cases:", json.dumps(cases))
 
     # -- timings at the main path's shapes --------------------------------
@@ -321,13 +362,23 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
          "main-path shape")
     ms = event_ms(lambda: sign_corr_packed(p, cut_n), reps)
     plain = event_ms(lambda: ref.sign_corr_packed_ref(p, cut_n), reps)
-    # one XOR, one POPC and one add per pair of 32-bit words
-    word_pairs = d * d * (cut_n // 32)
+    # yardstick: the library's int8 matmul of the signs already unpacked
+    # to +-1 bytes (the unpack left out), as code_corr's row times the
+    # matmul of the decoded codes
+    ut = ref.unpack_signs_pm1(p, cut_n).to(torch.int8)
+    u = ut.t().contiguous()
+    expect(torch.equal(torch._int_mm(ut, u).to(torch.float32), g),
+           "torch._int_mm disagrees with sign_corr_packed")
+    library = event_ms(lambda: torch._int_mm(ut, u), reps)
+    log(f"phase 3 sign_corr_packed n={cut_n} d={d}: kernel {ms:.4f} ms, "
+        f"torch._int_mm of the unpacked +-1 bytes {library:.4f} ms")
+    # the Gram of the unpacked signs on the int8 tensor cores
     record("sign_corr_packed", "sign_corr_packed.cu",
            "src/repro/kernels/sign_corr.py:278",
-           f"n={cut_n} d={d} packed", ms, plain, None,
-           p.numel() + d * d * 4, 3 * word_pairs, F32_OPS_PER_S, 0.0)
-    del p, g
+           f"n={cut_n} d={d} packed", ms, plain, library,
+           p.numel() + d * d * 4, 2 * cut_n * d * d, INT8_TENSOR_OPS_PER_S,
+           0.0)
+    del p, g, ut, u
 
     # code_corr at n = 2^18, d = 4096: R = 2 and 7 (where the accumulation
     # error is largest) checked, R = 4 (the main path's) checked and timed;
@@ -362,8 +413,18 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
             records[-1]["library_max_abs_err"] = lib_err
         del c, dec
 
-    # quantize_fused at n = 2^18, d = 4096, R = 4, codes only
+    # quantize_fused at n = 2^18, d = 4096: R = 7 and 1 checked and timed
+    # (the deepest and the shallowest search), R = 4 (the main path's)
+    # checked, timed and recorded; codes only
     x = torch.randn((cut_n, d), generator=gen, device=dev)
+    by_rate = {}
+    for rate in (7, 1):
+        br, _ = codebook_tensors(rate, dev)
+        same("quantize_fused", quantize_fused(x, rate), ref.encode_ref(x, br),
+             f"main-path shape R={rate}")
+        by_rate[rate] = event_ms(lambda: quantize_fused(x, rate), reps)
+    log(f"phase 3 quantize_fused n={cut_n} d={d} codes: R=7 "
+        f"{by_rate[7]:.4f} ms, R=1 {by_rate[1]:.4f} ms")
     same("quantize_fused", quantize_fused(x, 4), ref.encode_ref(x, b4),
          "main-path shape")
     ms = event_ms(lambda: quantize_fused(x, 4), reps)
@@ -374,10 +435,11 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
                        quantize_fused(x, 4)),
            "torch.bucketize disagrees with quantize_fused")
     library = event_ms(lambda: torch.bucketize(x, b4), reps)
+    # operations: the R = 4 compares of the binary search a symbol
     record("quantize_fused", "quantize.cu",
            "src/repro/kernels/quantize.py:81",
            f"n={cut_n} d={d} R=4 codes", ms, plain, library,
-           x.numel() * 5 + (15 + 16) * 4, 15 * x.numel(), F32_OPS_PER_S, 0.0)
+           x.numel() * 5 + (15 + 16) * 4, 4 * x.numel(), F32_OPS_PER_S, 0.0)
     del x
     return records
 
@@ -922,6 +984,8 @@ TENSOR_CORE_KERNELS = (("flash_prefill", "bf16", "wgmma", ("HGMMA", "HMMA")),
                        ("code_corr", "3xTF32", "code_corr_tf32", ("HGMMA",)),
                        ("sign_corr", "int8", "sign_corr_s8_wgmma",
                         ("IGMMA",)),
+                       ("sign_corr_packed", "int8",
+                        "sign_corr_packed_s8_wgmma", ("IGMMA",)),
                        ("decode_attention", "bf16",
                         "decode_attention_kernelI13__nv_bfloat16",
                         ("HMMA",)))
@@ -929,9 +993,9 @@ TENSOR_CORE_KERNELS = (("flash_prefill", "bf16", "wgmma", ("HGMMA", "HMMA")),
 
 def log_tensor_core_use(build_dir):
     """Evidence that flash_prefill's and decode_attention's bf16 kernels,
-    code_corr and sign_corr run on the tensor cores: the HMMA / HGMMA
-    (float) and IGMMA (int8) instructions in each library's SASS, and the
-    spills ptxas reports for those kernels."""
+    code_corr, sign_corr and sign_corr_packed run on the tensor cores: the
+    HMMA / HGMMA (float) and IGMMA (int8) instructions in each library's
+    SASS, and the spills ptxas reports for those kernels."""
     import re
 
     tool = _cuobjdump()

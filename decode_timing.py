@@ -152,8 +152,13 @@ def _loop(model, prompts, splits) -> dict:
             "attn_us": spent[0] / calls[0] * 1e6, "attn_calls": calls[0]}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def run_in_turns(measure, script: str, doc: str) -> int:
+    """The command line of a timing script: with ``--child``, print
+    measure(src) as JSON; else print the card's name and power limit and
+    run ``script --child`` once per ``--src`` a turn, in a fresh process
+    that imports ``repro_torch`` from that directory (every other turn in
+    reverse order)."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--src", action="append", required=True,
                     help="a directory that holds repro_torch (repeatable)")
     ap.add_argument("--turns", type=int, default=1)
@@ -165,7 +170,8 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("decode_timing: CUDA is not available", file=sys.stderr)
+        print(f"{os.path.basename(script)}: CUDA is not available",
+              file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -174,10 +180,10 @@ def main() -> int:
     for turn in range(args.turns):
         for src in args.src if turn % 2 == 0 else args.src[::-1]:
             env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
-            subprocess.run([sys.executable, os.path.abspath(__file__),
+            subprocess.run([sys.executable, os.path.abspath(script),
                             "--child", "--src", src], env=env, check=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_in_turns(measure, __file__, __doc__))

@@ -4,9 +4,10 @@ Each computes the same function as its CUDA kernel; the tiling is the
 kernel's own. The wrappers in ``sign_corr.py``, ``quantize.py``,
 ``flash_prefill.py`` and ``decode_attention.py`` take these for CPU
 tensors (the tests run them here), and ``chip_smoke.py`` holds every
-kernel against its plain version on the card. ``tf32_split`` and
-``code_corr_tf32_ref`` model the tensor-core ``code_corr``'s arithmetic
-for the tests; no wrapper calls them. Nor does any wrapper call
+kernel against its plain version on the card. ``unpack_signs_s8``
+models the tensor-core ``sign_corr_packed``'s unpack, ``tf32_split`` and
+``code_corr_tf32_ref`` the tensor-core ``code_corr``'s arithmetic, for
+the tests; no wrapper calls them. Nor does any wrapper call
 ``decode_split_ranges`` and ``decode_attention_split_ref``, which model
 the split-KV ``decode_attention`` for the tests.
 """
@@ -48,6 +49,39 @@ def sign_corr_packed_ref(packed: torch.Tensor, n: int,
     uf = unpack_signs_pm1(packed, n)
     vf = uf if packed_rhs is None else unpack_signs_pm1(packed_rhs, n)
     return torch.matmul(uf, vf.transpose(-1, -2))
+
+
+def unpack_signs_s8(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The CUDA ``sign_corr_packed``'s int8 operand, by its own bit
+    arithmetic: (..., d, nb) uint8 -> (..., d, 128 * ceil(nb / 16)) int8,
+    ±1 for samples below ``n``, 0 from ``n`` on (pad bits included); ``n``
+    is clamped to the 8 nb samples on the wire, as the wrapper clamps it.
+
+    The byte axis is zero-padded to whole 16-byte stages; chunk c (bytes
+    2c, 2c + 1, samples 16c .. 16c + 15) splits into nibbles q, spread to
+    0/1 bytes by ``(q * 0x00204081) & 0x01010101``, mapped to ±1 by
+    ``b * 0xFFFFFF02 + 0xFFFFFFFF`` (mod 2^32) and masked by the same
+    spread of the chunk's valid bits times 0xFF. A model for tests; no
+    wrapper calls it."""
+    m32 = 0xFFFFFFFF
+
+    def spread(q):
+        return (q * 0x00204081) & 0x01010101
+
+    n = max(0, min(int(n), 8 * packed.shape[-1]))
+    p = torch.nn.functional.pad(packed, (0, (-packed.shape[-1]) % 16))
+    p = p.to(torch.int64)
+    chunks = p[..., 0::2] | p[..., 1::2] << 8  # (..., d, nb / 2) 16 bits
+    first = 16 * torch.arange(chunks.shape[-1], device=packed.device)
+    valid = (1 << (n - first).clamp(0, 16)) - 1
+    words = []
+    for q in range(4):
+        w = (spread(chunks >> 4 * q & 0xF) * 0xFFFFFF02 + 0xFFFFFFFF) & m32
+        words.append(w & spread(valid >> 4 * q & 0xF) * 0xFF)
+    w = torch.stack(words, -1).unsqueeze(-1)  # (..., d, chunks, 4, 1)
+    shifts = 8 * torch.arange(4, device=packed.device)
+    b = (w >> shifts & 0xFF).to(torch.uint8)
+    return b.reshape(*p.shape[:-1], p.shape[-1] * 8).view(torch.int8)
 
 
 def decode_codes(codes: torch.Tensor, centroids: torch.Tensor

@@ -5,7 +5,7 @@ G = U^T V over the received codes. Three CUDA kernels cover the wire
 formats (sources in ``csrc/``, built by ``_build``):
 
 * :func:`sign_corr` — int8 values (±1 signs, 0 for masked rows);
-* :func:`sign_corr_packed` — bit-packed signs, G = n - 2*popcount(xor);
+* :func:`sign_corr_packed` — bit-packed signs, unpacked to ±1 in-kernel;
 * :func:`code_corr` — int8 bin codes with the centroid decode in-kernel.
 
 Each wrapper checks its operands against the kernel's contract on either
@@ -96,14 +96,16 @@ sign_corr.launches = 0
 
 
 def _as_words(p: torch.Tensor) -> torch.Tensor:
-    """(b, d, nb) uint8 -> (b, d, ceil(nb/4)) int32 words over the same
-    bytes: the byte axis zero-padded to a multiple of 4 (pad bits XOR to
-    0) when it is not a 4-byte-aligned view already."""
+    """(b, d, nb) uint8 -> (b, d, nw) int32 words over the same bytes, the
+    operand and its rows on 16-byte boundaries (what TMA copies): the byte
+    axis zero-padded to a multiple of 16 when it is not such a view
+    already. Pad bits are samples >= n, which the kernel zeroes."""
     nb = p.shape[-1]
-    aligned = (nb % 4 == 0 and p.stride(-1) == 1 and p.stride(1) % 4 == 0
-               and p.stride(0) % 4 == 0 and p.data_ptr() % 4 == 0)
+    aligned = (nb % 16 == 0 and p.stride(-1) == 1 and p.stride(1) % 16 == 0
+               and (p.shape[0] == 1 or p.stride(0) % 16 == 0)
+               and p.data_ptr() % 16 == 0)
     if not aligned:
-        p = torch.nn.functional.pad(p, (0, (-nb) % 4)).contiguous()
+        p = torch.nn.functional.pad(p, (0, (-nb) % 16)).contiguous()
     return p.view(torch.int32)
 
 
@@ -112,8 +114,9 @@ def sign_corr_packed(packed: torch.Tensor, n: int,
     """Sign Gram straight from bit-packed signs.
 
     packed: (d_l, nb) or (b, d_l, nb) uint8, feature-major, little bit
-    order, bits beyond ``n`` zero in every row; packed_rhs likewise with
-    d_r rows. Returns n - 2*popcount(xor) as f32, integer-exact.
+    order; packed_rhs likewise with d_r rows. Bits at or past sample ``n``
+    drop out, whatever they are. Returns the ±1 Gram of the first ``n``
+    samples as f32, integer-exact (int8 tensor cores on the card).
     """
     rhs = packed if packed_rhs is None else packed_rhs
     _check_pair(packed, rhs, torch.uint8, "sign_corr_packed")
@@ -126,6 +129,8 @@ def sign_corr_packed(packed: torch.Tensor, n: int,
     bb, _ = _batched(rhs, "sign_corr_packed packed_rhs")
     if ab.shape[0] != bb.shape[0]:
         raise ValueError("sign_corr_packed operands disagree on batch")
+    # the plain version's samples: those below n of the nb * 8 on the wire
+    n_eff = max(0, min(int(n), 8 * ab.shape[-1]))
     aw = _as_words(ab)
     bw = aw if packed_rhs is None else _as_words(bb)
     b, dl, nw = aw.shape
@@ -138,7 +143,7 @@ def sign_corr_packed(packed: torch.Tensor, n: int,
             [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P]})
     with torch.cuda.device(packed.device):
         check(lib.sign_corr_packed_u32(
-            aw.data_ptr(), bw.data_ptr(), out.data_ptr(), b, int(n), dl, dr,
+            aw.data_ptr(), bw.data_ptr(), out.data_ptr(), b, n_eff, dl, dr,
             nw, a_sb, a_ld, b_sb, b_ld, _stream(packed)), "sign_corr_packed")
     sign_corr_packed.launches += 1
     return out if batched else out[0]

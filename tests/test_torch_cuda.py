@@ -255,3 +255,93 @@ def test_cuda_sign_corr_all_ones_is_exactly_n(cuda, d):
     u = torch.ones((n, d), dtype=torch.int8, device=cuda)
     g = kernels.sign_corr(u)
     assert g.shape == (d, d) and bool((g == n).all())
+
+
+def _bytes(gen, *shape, device):
+    return torch.randint(0, 256, shape, generator=gen, device=device,
+                         dtype=torch.uint8)
+
+
+@pytest.mark.cuda
+def test_cuda_sign_corr_packed_edges(cuda):
+    """The int8 tensor-core sign_corr_packed is bit-identical to its plain
+    version with random bits beyond n (the unpack zeroes them), at n = 1,
+    127, 129, 997 (byte widths 1, 16, 17, 125: off 16 bytes, so the
+    wrapper pads them), on an aligned width, batched and rectangular, on
+    byte-axis and row slices, with n past the wire's 8 nb samples, and as
+    GramEngine's d_tile = 100 blocks."""
+    from repro_torch.core.gram import GramEngine
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    before = kernels.launches()["sign_corr_packed"]
+    calls = 0
+
+    def same(p, n, q=None):
+        nonlocal calls
+        got = kernels.sign_corr_packed(p, n, q)
+        calls += 1
+        assert torch.equal(got, ref.sign_corr_packed_ref(p, n, q)), n
+
+    for n in (1, 127, 129, 997):
+        nb = -(-n // 8)
+        same(_bytes(gen, 144, nb, device=cuda), n)
+        same(_bytes(gen, 3, 20, nb, device=cuda), n,
+             _bytes(gen, 3, 37, nb, device=cuda))
+    same(_bytes(gen, 2, 272, 256, device=cuda), 2040,
+         _bytes(gen, 2, 144, 256, device=cuda))
+    wide = _bytes(gen, 300, 80, device=cuda)
+    same(wide[:, 3:70], 500)
+    same(wide[5:133, 16:64], 380, wide[40:290, 16:64])
+    same(wide, 8 * 80 + 100)
+    assert torch.equal(
+        GramEngine(backend="kernel", d_tile=100).packed_sign_gram(wide, 633),
+        ref.sign_corr_packed_ref(wide, 633))
+    assert kernels.launches()["sign_corr_packed"] > before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [37, 256])
+def test_cuda_sign_corr_packed_equal_signs_is_exactly_n(cuda, d):
+    """Every feature holds the same random signs at n = 2^20 - 3 (8192
+    stages), random bits past n: every entry of the Gram is exactly n."""
+    n = (1 << 20) - 3
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    row = _bytes(gen, 1, n // 8 + 1, device=cuda)
+    p = row.repeat(d, 1)
+    keep = (1 << n % 8) - 1  # the last byte's bits below n
+    p[:, -1] = (p[:, -1] & keep) | (_bytes(gen, d, device=cuda)
+                                     & (0xFF ^ keep))
+    g = kernels.sign_corr_packed(p, n)
+    assert g.shape == (d, d) and bool((g == n).all())
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_fused_edges(cuda):
+    """R = 1..7, codes, values and (R | 8) packed bytes bit-identical to
+    the plain version: totals of 0..3 mod 4 over several tiles, views at
+    an offset of 1, 2 and 3 elements (off 16 bytes), and calls of several
+    sizes queued on one stream before any is read."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    big = torch.randn(40000, generator=gen, device=cuda)
+    big[:6] = torch.tensor([float("inf"), -float("inf"), float("nan"), 0.0,
+                            -0.0, 1e-40], device=cuda)
+    before = kernels.launches()["quantize_fused"]
+    calls, queued = 0, []
+    for rate in range(1, 8):
+        bounds, cents = codebook_tensors(rate, cuda)
+        group = 8 // rate if 8 % rate == 0 else 1
+        for off, total in ((0, 12296), (1, 12297), (2, 4098), (3, 16387),
+                           (0, 7), (1, 24), (0, 1)):
+            total -= total % group if 8 % rate == 0 else 0
+            x = big[off:off + total].view(-1, group) if group > 1 else \
+                big[off:off + total]
+            pack = 8 % rate == 0 and total > 0
+            got = kernels.quantize_fused(x, rate, values=True, pack=pack)
+            calls += 1
+            want = ref.quantize_fused_ref(x, bounds, cents, rate,
+                                          values=True, pack=pack)
+            queued.append((got, want))
+    for got, want in queued:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert kernels.launches()["quantize_fused"] == before + calls
