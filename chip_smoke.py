@@ -13,7 +13,12 @@ that the card and the CPU give the same edge lists. Then it serves
 granite-8b at full width in bf16 (random weights from a seed; batch 8,
 2048-token prompts, 32 greedy tokens) through the flash-prefill and
 flash-decode kernels, and checks a small GQA model's greedy decode on the
-card against the CPU. Any failed check exits non-zero. The last three
+card against the CPU. Then the serving plane: StreamingGram at d = 4096
+against the batch Gram (phase 9), the structure server at 64 tenants and
+d = 1024 with its throughput and a tick's time split (phase 10), and its
+crash recovery, card-vs-CPU and per-symbol checks (phase 11); the three
+Gram kernels are also held and timed on the server's batched grids
+(phase 3). Any failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
@@ -45,6 +50,13 @@ CHECK_N = 1 << 16         # kernel checks at the main path's width
 # The LM serving run: granite-8b at full width, uncut.
 SERVE_ARCH = "granite-8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 32
+# The serving plane (phases 9-11): StreamingGram at the main path's width
+# (n = 2^18 over 8 machines), and the structure server of
+# benchmarks/serve.py's throughput phase widened to d = 1024 and 256-row
+# payloads; a fold launches its kernels at b = SERVE_SLOTS payload slots.
+STREAM_MACHINES = 8
+SERVE_TENANTS, SERVE_MACHINES, SERVE_TICKS = 64, 4, 16
+SERVE_D, SERVE_BLOCK_N, SERVE_SLOTS = 1024, 256, 64
 #: f32 kernel against its f32 plain version: sums in another order
 ATTN_F32_ATOL = 3e-5
 #: bf16: the output is rounded once to bf16 (2^-8 relative) after f32 sums
@@ -442,6 +454,90 @@ def check_kernels(dev, gen, main_n, cut_n, check_n, d, reps):
            x.numel() * 5 + (15 + 16) * 4, 4 * x.numel(), F32_OPS_PER_S, 0.0)
     del x
     return records
+
+
+def check_fold_kernels(dev, gen, slots, block_n, d, reps):
+    """The three Gram kernels on the batched grids the serving plane's
+    fold launches (b = ``slots`` payload slots of ``block_n`` rows), with
+    the fold's padding: sign slots pad with 0, per-symbol slots with the
+    -1 sentinel, packed slots with zero bytes. Held to the plain versions
+    at the fold shape and at d = 250 and block_n = 24 (rows off 16 bytes),
+    then timed at the fold shape. Returns {kernel: fold record}."""
+    import torch
+    from repro_torch.core.quantizers import PerSymbolQuantizer
+    from repro_torch.kernels import (code_corr, ref, sign_corr,
+                                     sign_corr_packed)
+
+    cb = torch.as_tensor(PerSymbolQuantizer(4).centroids_np, device=dev)
+
+    def operands(b, n, dd):
+        used = b - max(1, b // 4)     # the last quarter are padding slots
+        u = _signs(gen, (b, n, dd), dev)
+        u[used:] = 0
+        u[:used, n - n // 3:] = 0     # ragged payloads: rows past n pad
+        c = _codes(gen, (b, n, dd), 4, dev)
+        c[used:] = -1
+        p = _packed(gen, (b, dd, n), dev)
+        p[used:] = 0
+        return u, c, p
+
+    for b, n, dd in ((slots, block_n, d), (slots, 24, 250), (3, 256, 250)):
+        u, c, p = operands(b, n, dd)
+        expect(torch.equal(sign_corr(u), ref.sign_corr_ref(u)),
+               f"sign_corr at the fold shape b={b} n={n} d={dd}")
+        g = sign_corr_packed(p, n)
+        expect(torch.equal(g, ref.sign_corr_packed_ref(p, n)),
+               f"sign_corr_packed at the fold shape b={b} n={n} d={dd}")
+        # an all-zero padding slot comes out as n everywhere (every
+        # zero bit is -1 on both sides), which the fold's shift removes
+        expect(bool((g[b - 1] == n).all()), "a padding slot of "
+               "sign_corr_packed is not exactly n")
+        want = ref.code_corr_ref(c, cb)
+        err = (code_corr(c, cb) - want).abs()
+        expect(bool((err <= code_tolerance(n, want)).all()),
+               f"code_corr at the fold shape b={b} n={n} d={dd}: max |err| "
+               f"{float(err.max())}")
+        expect(bool((want[b - 1] == 0).all()), "a sentinel slot of "
+               "code_corr_ref is not 0")
+    log(f"phase 3 fold shapes (b={slots}, n={block_n}, d={d}; b={slots}, "
+        f"n=24, d=250; b=3, n=256, d=250): sign_corr, sign_corr_packed, "
+        f"code_corr equal their plain versions")
+
+    u, c, p = operands(slots, block_n, d)
+    out = {}
+
+    def fold_record(name, fn, plain, library, bytes_moved, ops, op_rate):
+        ms = event_ms(fn, reps)
+        rec = make_record("phase 3 fold", name, "", "",
+                          f"b={slots} n={block_n} d={d}", ms,
+                          event_ms(plain, reps), event_ms(library, reps),
+                          bytes_moved, ops, op_rate, 0.0)
+        out[name] = {k: rec[k] for k in ("shape", "ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by")}
+
+    # library yardstick: one f32 torch.bmm of the operands already in
+    # f32 (signs, unpacked signs, decoded codes; the conversion left out)
+    out_bytes = slots * d * d * 4
+    uf = u.to(torch.float32)
+    ut = uf.transpose(1, 2).contiguous()
+    fold_record("sign_corr", lambda: sign_corr(u),
+                lambda: ref.sign_corr_ref(u), lambda: torch.bmm(ut, uf),
+                u.numel() + out_bytes, 2 * slots * block_n * d * d,
+                INT8_TENSOR_OPS_PER_S)
+    pf = ref.unpack_signs_pm1(p, block_n)
+    pt = pf.transpose(1, 2).contiguous()
+    fold_record("sign_corr_packed", lambda: sign_corr_packed(p, block_n),
+                lambda: ref.sign_corr_packed_ref(p, block_n),
+                lambda: torch.bmm(pf, pt), p.numel() + out_bytes,
+                2 * slots * block_n * d * d, INT8_TENSOR_OPS_PER_S)
+    dec = ref.decode_codes(c, cb)
+    dt = dec.transpose(1, 2).contiguous()
+    fold_record("code_corr", lambda: code_corr(c, cb),
+                lambda: ref.code_corr_ref(c, cb), lambda: torch.bmm(dt, dec),
+                c.numel() + 16 * 4 + out_bytes,
+                3 * 2 * slots * block_n * d * d, TF32_TENSOR_OPS_PER_S)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -959,6 +1055,404 @@ def lm_card_vs_cpu(dev):
         f"f32); max |logit error| {worst}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-11: streaming ingest and the structure server
+# ---------------------------------------------------------------------------
+
+def counted(total, fn):
+    """fn() with every launch count set to 0 just before it; the counts it
+    leaves are added to ``total`` and returned beside its result."""
+    from repro_torch.kernels import launches, reset_launches
+
+    reset_launches()
+    out = fn()
+    counts = launches()
+    for k, v in counts.items():
+        total[k] += v
+    return out, counts
+
+
+def _update_in_batches(sg, x, batches):
+    for part in x.chunk(batches):
+        sg.update(part)
+    return sg
+
+
+def stream_at_width(dev, d, n, machines, total):
+    """Phase 9: ``StreamingGram`` at the main path's width. One sample set
+    goes through the int8 wire (``update_codes_batch``, one sign_corr
+    launch at b = machines), the packed wire (``update_packed_batch`` with
+    two machines truncated) and per-symbol R = 4 (``update`` over
+    ``machines`` batches: quantize_fused + code_corr); each is held to the
+    batch Gram of the same samples and to ``learn_structure``'s edges."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import PRODUCTION
+    from repro_torch.core import StreamingGram, Strategy
+    from repro_torch.core.chow_liu import learn_structure
+    from repro_torch.core.gram import GramEngine
+    from repro_torch.core.quantizers import (PerSymbolQuantizer, pack_codes,
+                                             sign_bits, sign_codes)
+    from repro_torch.data import GGMDataset
+
+    t0 = time.perf_counter()
+    x = GGMDataset(d=d, seed=PRODUCTION.seed).sample(n, batch_seed=3,
+                                                     device=dev)
+    m_b = n // machines
+    codes = sign_codes(x).view(machines, m_b, d)
+
+    def int8_wire():
+        sg = StreamingGram(d).update_codes_batch(codes)
+        return sg, sg.learn_structure("boruvka")
+
+    (sg, edges), counts = counted(total, int8_wire)
+    expect(counts["sign_corr"] == 1, f"the int8 stream launched "
+           f"{counts['sign_corr']} sign_corr, not 1")
+    expect(torch.equal(sg.gram, GramEngine().gram(codes.view(n, d))),
+           "streaming != batch Gram on the int8 wire")
+    truth = learn_structure(x, strategy=Strategy())
+    expect(edges == truth, "the int8 stream's edges differ from "
+           "learn_structure's")
+    del sg
+
+    bits = sign_bits(x).view(machines, m_b, d).transpose(1, 2)
+    payloads = pack_codes(bits.to(torch.uint8).contiguous(), 1)
+    del bits
+    nv = np.full(machines, m_b, np.int64)
+    nv[2], nv[5] = m_b // 3 + 5, 0          # a straggler and a dropout
+    sp, counts = counted(total, lambda: StreamingGram(d).update_packed_batch(
+        payloads, m_b, nv))
+    expect(counts["sign_corr_packed"] == 1, "the packed stream launched "
+           f"{counts['sign_corr_packed']} sign_corr_packed, not 1")
+    prefixes = torch.cat([codes[i, :nv[i]] for i in range(machines)])
+    expect(torch.equal(sp.gram, GramEngine().gram(prefixes))
+           and sp.n == int(nv.sum()), "the packed stream with n_valid != "
+           "the fold of the surviving prefixes")
+    del sp, payloads, prefixes, codes
+
+    sq, counts = counted(total, lambda: _update_in_batches(
+        StreamingGram(d, method="persymbol", rate=4), x, machines))
+    expect(counts["quantize_fused"] == machines
+           and counts["code_corr"] == machines, "the per-symbol stream "
+           f"launched {counts}")
+    q = PerSymbolQuantizer(4)
+    batch = GramEngine().code_gram(q.encode(x), q.centroids_np)
+    err = (sq.gram - batch).abs()
+    expect(bool((err <= code_tolerance(n, batch)).all()),
+           f"per-symbol streaming vs batch Gram: max |err| {float(err.max())}")
+    edges = sq.learn_structure("boruvka")
+    expect(edges == learn_structure(
+        x, strategy=Strategy(method="persymbol", rate=4)),
+        "the per-symbol stream's edges differ from learn_structure's")
+    log(f"phase 9 StreamingGram d={d} n={n} ({machines} machines x {m_b}): "
+        f"int8 wire == batch Gram, packed wire with n_valid={nv.tolist()} "
+        f"== surviving prefixes, per-symbol R=4 max |stream - batch| "
+        f"{float(err.max())}; edges == learn_structure's; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del x, sq, batch, err
+    torch.cuda.empty_cache()
+
+
+def _drive(srv, trace, extra_ticks=4):
+    """Deliver the trace tick by tick, then drain the reorder deadlines
+    and solve every tenant; returns the per-tick telemetry."""
+    tele = []
+    for batch in trace:
+        for p in batch:
+            srv.submit(p)
+        tele.append(srv.run_tick())
+    for _ in range(extra_ticks):
+        tele.append(srv.run_tick())
+    srv.force_resolve()
+    return tele
+
+
+class TickSplit:
+    """Times the parts of the server's ticks by wrapping its stages:
+    the fold stages' device work by CUDA events (a fold stage never waits
+    for the host), the host parts by the host clock (the device -> host
+    copy after a synchronize, so the wait for the fold kernels is a part
+    of its own)."""
+
+    def __init__(self):
+        self.host = {}
+        self.events = {}
+        self._undo = []
+
+    def _wrap(self, owner, name, key, timed):
+        orig = getattr(owner, name)
+
+        def wrapper(*args, **kw):
+            return timed(key, orig, args, kw)
+
+        setattr(owner, name, wrapper)
+        self._undo.append((owner, name, orig))
+
+    def _add(self, key, seconds):
+        self.host[key] = self.host.get(key, 0.0) + seconds
+
+    def _host(self, key, fn, args, kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            self._add(key, time.perf_counter() - t0)
+
+    def _device(self, key, fn, args, kw):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        self.events.setdefault(key, []).append((start, end))
+        return out
+
+    def _copy(self, key, fn, args, kw):
+        t0 = time.perf_counter()
+        sync()
+        t1 = time.perf_counter()
+        out = fn(*args, **kw)
+        self._add("wait for the fold kernels", t1 - t0)
+        self._add(key, time.perf_counter() - t1)
+        return out
+
+    def install(self):
+        from repro_torch.serve import journal, server, table
+
+        self._wrap(table, "codes_fold_stage", "fold kernels (device)",
+                   self._device)
+        self._wrap(table, "packed_fold_stage", "fold kernels (device)",
+                   self._device)
+        self._wrap(table, "to_host", "device->host copy + f64 cast",
+                   self._copy)
+        self._wrap(table.TenantTable, "_scatter", "host scatter", self._host)
+        self._wrap(table.TenantTable, "resolve", "solve", self._host)
+        self._wrap(journal.FoldJournal, "append", "journal append",
+                   self._host)
+        self._wrap(journal.FoldJournal, "sync", "journal fsync", self._host)
+        self._wrap(server.StructureServer, "save_snapshot", "snapshot",
+                   self._host)
+        return self
+
+    def remove(self):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo.clear()
+
+    def device_seconds(self) -> dict:
+        sync()
+        return {k: sum(s.elapsed_time(e) for s, e in pairs) / 1e3
+                for k, pairs in self.events.items()}
+
+
+def serve_structures(dev, tenants, machines, d, block_n, ticks, workdir,
+                     total):
+    """Phase 10: the structure server at a size a user would run (the
+    throughput phase of ``benchmarks/serve.py``, widened to d = 1024 and
+    256-row payloads): ticks/s, rows/s, fold p50/p99, a tick's time split,
+    the launches; its accumulators against an independent exactly-once
+    StreamingGram fold on the card, bit for bit, and drained buffers."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core import StreamingGram
+    from repro_torch.serve import (ServeConfig, StructureServer,
+                                   TrafficConfig, make_trace,
+                                   unique_payloads)
+
+    t0 = time.perf_counter()
+    trace = make_trace(TrafficConfig(
+        tenants=tenants, machines=machines, ticks=ticks, n=block_n, d=d,
+        packed_fraction=0.5, p_duplicate=0.05, p_reorder=0.05, p_drop=0.02,
+        seed=3))
+    t_trace = time.perf_counter() - t0
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = ServeConfig(tenants=tenants, machines=machines, d=d,
+                      block_n=block_n, snapshot_every=4, reorder_ticks=2,
+                      fold_budget=8 * tenants, queue_capacity=16 * tenants)
+    srv = StructureServer(cfg, workdir)
+    split = TickSplit().install()
+    try:
+        t0 = time.perf_counter()
+        tele, counts = counted(total, lambda: _drive(srv, trace))
+        sync()
+        wall = time.perf_counter() - t0
+        device_s = split.device_seconds()
+    finally:
+        split.remove()
+    # the solve syncs with the host once a Boruvka round, so its device
+    # time comes from the profiler: one more solve of every tenant
+    solve_ms = device_ms(srv.force_resolve, 1)
+    folds = sorted(t["fold_seconds"] for t in tele)
+    rows = sum(t["rows"] for t in tele)
+    n_ticks = len(tele)
+    expect(counts["sign_corr"] > 0 and counts["sign_corr_packed"] > 0,
+           f"the server launched {counts}")
+    expect(srv.log.buffered() == 0, "the server did not drain clean")
+    parts = {**device_s, **split.host}
+    other = wall - sum(split.host.values())
+    log(f"phase 10 server {tenants} tenants x {machines} machines, d={d}, "
+        f"block_n={block_n}, {ticks} ticks + 4 drain ticks + a final solve "
+        f"(trace made in {t_trace:.1f} s): wall_s={wall:.3f} "
+        f"ticks_per_s={n_ticks / wall:.4f} rows_per_s={rows / wall:.1f} "
+        f"fold_p50_ms={1e3 * folds[len(folds) // 2]:.3f} "
+        f"fold_p99_ms={1e3 * folds[int(len(folds) * 0.99)]:.3f} "
+        f"launches={json.dumps(counts)}")
+    log("phase 10 a tick's split, ms a tick: " + " ".join(
+        f"{k}={1e3 * v / n_ticks:.3f}" for k, v in parts.items())
+        + f" other={1e3 * other / n_ticks:.3f} (host ms outside the parts: "
+        f"drain, cursors, batch assembly, host->device; the device parts "
+        f"lie inside the host's); a {tenants}-tenant solve's kernels "
+        f"(torch.profiler) {solve_ms:.3f} ms")
+    last = tele[-1]
+    log("phase 10 telemetry: " + json.dumps({k: last[k] for k in (
+        "duplicates", "reordered", "lost", "degraded_tenants",
+        "watchdog_fires", "rejected")}))
+
+    t0 = time.perf_counter()
+    refs = {}
+    for p in unique_payloads(trace):
+        sg = refs.setdefault(p.tenant, StreamingGram(d))
+        if p.kind == "codes":
+            sg.update_codes(p.codes)
+        else:
+            sg.update_packed(p.packed, p.n)
+    for t, sg in refs.items():
+        expect(np.array_equal(sg.gram.cpu().numpy().astype(np.float64),
+                              srv.table.gram[t])
+               and sg.n == int(srv.table.n[t]),
+               f"tenant {t}: the server's accumulator != the exactly-once "
+               f"StreamingGram fold")
+    expect(len(refs) == tenants, "a tenant received nothing")
+    log(f"phase 10 folds exactly once: {tenants} accumulators == the "
+        f"exactly-once StreamingGram fold on the card, bit for bit "
+        f"({time.perf_counter() - t0:.1f} s); drained_clean=True")
+    srv.close()
+    shutil.rmtree(workdir, ignore_errors=True)
+
+
+_CRASH_CHILD = """\
+import sys
+sys.path.insert(0, {src!r})
+from repro_torch.serve import (ServeConfig, StructureServer, TrafficConfig,
+                               make_trace)
+
+srv = StructureServer(ServeConfig(**{scfg!r},
+                                  crash_after_journal_records={crash}),
+                      sys.argv[1])
+for batch in make_trace(TrafficConfig(**{tcfg!r})):
+    for p in batch:
+        srv.submit(p)
+    srv.run_tick()
+print("SURVIVED")
+sys.exit(3)
+"""
+
+#: repro's crash configuration (``benchmarks/serve.py``), widened to d = 250
+CRASH_TRAFFIC = dict(tenants=8, machines=3, ticks=12, n=24, d=250,
+                     p_duplicate=0.25, p_reorder=0.25, p_drop=0.1, seed=11)
+CRASH_SERVE = dict(tenants=8, machines=3, d=250, block_n=24,
+                   snapshot_every=3, reorder_ticks=2)
+
+PERSYMBOL_TRAFFIC = dict(tenants=16, machines=4, ticks=8, n=256, d=1024,
+                         method="persymbol", rate=4, p_duplicate=0.05,
+                         p_reorder=0.05, p_drop=0.02, seed=5)
+PERSYMBOL_SERVE = dict(tenants=16, machines=4, d=1024, method="persymbol",
+                       rate=4, block_n=256, snapshot_every=4,
+                       reorder_ticks=2)
+
+
+def _equal_states(a, b, what):
+    import numpy as np
+
+    sa, sb = a.comparable_state(), b.comparable_state()
+    for k in sa:
+        expect(np.array_equal(sa[k], sb[k]), f"{what}: {k} differs")
+
+
+def serve_correctness(dev, workdir, total, crash_after=60):
+    """Phase 11: the server's correctness on the card. Crash recovery
+    (a child on the card SIGKILLs itself after ``crash_after`` journal
+    records) is bit-identical to the clean run; the card and the CPU give
+    equal states and per-tick telemetry on the sign trace; a per-symbol
+    R = 4 run gives card-vs-CPU Grams within code_tolerance and equal
+    trees."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.gram import GramEngine
+    from repro_torch.serve import (ServeConfig, StructureServer,
+                                   TrafficConfig, make_trace)
+
+    t_start = time.perf_counter()
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    cpu = GramEngine(device="cpu")
+    trace = make_trace(TrafficConfig(**CRASH_TRAFFIC))
+    clean = StructureServer(ServeConfig(**CRASH_SERVE),
+                            os.path.join(workdir, "clean"))
+    tele_card, _ = counted(total, lambda: _drive(clean, trace))
+    crash_dir = os.path.join(workdir, "crash")
+    child = _CRASH_CHILD.format(src=os.path.join(ROOT, "src"),
+                                scfg=CRASH_SERVE, tcfg=CRASH_TRAFFIC,
+                                crash=crash_after)
+    r = subprocess.run([sys.executable, "-c", child, crash_dir],
+                       capture_output=True, text=True, timeout=600)
+    expect(r.returncode == -9, f"the crash child exited {r.returncode}, "
+           f"not by SIGKILL: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+    srv = StructureServer(ServeConfig(**CRASH_SERVE), crash_dir)
+    recovered = (srv.recovered_records, srv.snapshot_step)
+    counted(total, lambda: _drive(srv, trace))
+    _equal_states(clean, srv, "crash recovery on the card")
+    log(f"phase 11 crash recovery on the card (d={CRASH_SERVE['d']}, "
+        f"SIGKILL after "
+        f"{crash_after} journal records; replayed {recovered[0]} records "
+        f"after snapshot {recovered[1]}): state == the clean run's, bit "
+        f"for bit")
+    srv.close()
+
+    host = StructureServer(ServeConfig(**CRASH_SERVE, engine=cpu),
+                           os.path.join(workdir, "cpu"))
+    tele_cpu = _drive(host, trace)
+    _equal_states(clean, host, "card vs CPU server")
+    diff = [(i, {k: (a[k], b[k]) for k in a
+                 if k != "fold_seconds" and a[k] != b[k]})
+            for i, (a, b) in enumerate(zip(tele_card, tele_cpu))]
+    diff = [d for d in diff if d[1]]
+    expect(len(tele_card) == len(tele_cpu) and not diff,
+           f"card and CPU per-tick telemetry differ: {diff[:3]}")
+    log(f"phase 11 card == CPU server (d={CRASH_SERVE['d']}): equal state and "
+        f"{len(tele_card)} ticks of telemetry")
+    clean.close(), host.close()
+
+    scfg = PERSYMBOL_SERVE
+    trace = make_trace(TrafficConfig(**PERSYMBOL_TRAFFIC))
+    card = StructureServer(ServeConfig(**scfg),
+                           os.path.join(workdir, "persymbol-card"))
+    _, counts = counted(total, lambda: _drive(card, trace))
+    expect(counts["code_corr"] > 0, f"the per-symbol server launched "
+           f"{counts}")
+    host = StructureServer(ServeConfig(**scfg, engine=cpu),
+                           os.path.join(workdir, "persymbol-cpu"))
+    _drive(host, trace)
+    a, b = card.comparable_state(), host.comparable_state()
+    for k in ("n", "cursors", "lost", "adj"):
+        expect(np.array_equal(a[k], b[k]), f"per-symbol card vs CPU: {k} "
+               f"differs")
+    err = np.abs(a["gram"] - b["gram"])
+    bound = 1e-5 * a["n"][:, None, None] + 1e-5 * np.abs(b["gram"])
+    expect(bool((err <= bound).all()), f"per-symbol card vs CPU Grams: "
+           f"max |err| {float(err.max())}")
+    log(f"phase 11 per-symbol R=4 server ({scfg['tenants']} tenants, "
+        f"d={scfg['d']}, {PERSYMBOL_TRAFFIC['ticks']} ticks): "
+        f"card vs CPU max |gram error| {float(err.max())}, equal trees; "
+        f"phase 11 took {time.perf_counter() - t_start:.1f} s")
+    card.close(), host.close()
+    shutil.rmtree(workdir, ignore_errors=True)
+
+
 def _cuobjdump():
     """cuobjdump from PATH, the CUDA toolkit or Triton's bundle, else None."""
     import shutil
@@ -1067,6 +1561,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     records = check_kernels("cuda", gen, MAIN_N, CUT_N, CHECK_N, D, reps=3)
+    fold = check_fold_kernels("cuda", gen, SERVE_SLOTS, SERVE_BLOCK_N,
+                              SERVE_D, reps=5)
+    for r in records:
+        if r["name"] in fold:
+            r["fold"] = fold[r["name"]]
     total = run_main_path("cuda", D, MAIN_N, CUT_N)
     card_vs_cpu("cuda", 256, 1 << 14)
     records += check_attention_kernels("cuda", gen, 5, SERVE_BATCH,
@@ -1075,6 +1574,13 @@ def main() -> int:
                          SERVE_GEN).items():
         total[k] += n
     lm_card_vs_cpu("cuda")
+    t0 = time.perf_counter()
+    stream_at_width("cuda", D, CUT_N, STREAM_MACHINES, total)
+    work = os.path.join(ROOT, "build", "chip_smoke_serve")
+    serve_structures("cuda", SERVE_TENANTS, SERVE_MACHINES, SERVE_D,
+                     SERVE_BLOCK_N, SERVE_TICKS, work, total)
+    serve_correctness("cuda", work, total)
+    log(f"phases 9-11 took {time.perf_counter() - t0:.1f} s")
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

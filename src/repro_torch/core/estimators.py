@@ -136,8 +136,15 @@ def weights_from_gram(gram: torch.Tensor, n, method, *,
     if method == "original":
         w = mi_gaussian(gram if normalized else gram / n)
     elif method == "sign":
-        w = mi_sign((0.5 + gram / 2.0) if normalized
-                    else (0.5 + gram / (2.0 * n)))
+        # I(theta) = I(1 - theta): take theta from |gram| so that Grams of
+        # opposite sign give the same bits on every device. From theta
+        # and 1 - theta, h would round differently on each side, and how
+        # depends on the device's log2: the MWST's choice between two
+        # such exactly tied edges would then differ between the card and
+        # the CPU.
+        g = gram.abs()
+        w = mi_sign((0.5 + g / 2.0) if normalized
+                    else (0.5 + g / (2.0 * n)))
     elif method == "persymbol":
         rho_bar = gram if normalized else gram / n
         r2 = torch.clamp(rho_squared_unbiased(rho_bar, n), 0.0, 1.0 - 1e-7)

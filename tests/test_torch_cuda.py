@@ -345,3 +345,143 @@ def test_cuda_quantize_fused_edges(cuda):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert kernels.launches()["quantize_fused"] == before + calls
+
+
+# -- the serving plane's batched grids ----------------------------------------
+
+def _fold_slots(slots, block_n, d, seed):
+    """Host batches as ``TenantTable`` pads a fold: ``used`` payloads of
+    ragged row counts, the rest padding slots — sign codes (0 = pad or a
+    masked entry), per-symbol R = 4 codes (-1 = pad) and packed bits
+    (zero bytes) with their valid counts."""
+    from repro_torch.core.quantizers import pack_codes
+
+    gen = torch.Generator().manual_seed(seed)
+    used = slots - slots // 4
+    rows = torch.randint(1, block_n + 1, (used,), generator=gen)
+    signs = torch.zeros((slots, block_n, d), dtype=torch.int8)
+    codes = torch.full((slots, block_n, d), -1, dtype=torch.int8)
+    bits = torch.zeros((slots, d, block_n), dtype=torch.uint8)
+    n_valid = torch.zeros(slots, dtype=torch.int32)
+    for i, n in enumerate(rows.tolist()):
+        signs[i, :n] = torch.randint(-1, 2, (n, d), generator=gen,
+                                     dtype=torch.int8)
+        codes[i, :n] = torch.randint(0, 16, (n, d), generator=gen,
+                                     dtype=torch.int8)
+        bits[i, :, :n] = torch.randint(0, 2, (d, n), generator=gen,
+                                       dtype=torch.uint8)
+        n_valid[i] = n
+    return signs, codes, pack_codes(bits, 1), n_valid, used
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_n,d", [(24, 250), (24, 1024), (256, 250),
+                                       (256, 1024)])
+def test_cuda_fold_stages_match_cpu(cuda, block_n, d):
+    """The server's fold stages at b = 64 payload slots on the card
+    (sign_corr, sign_corr_packed, code_corr) against the same stages on
+    the CPU: sign and packed bit for bit, padding slots exactly 0,
+    per-symbol R = 4 within rtol=1e-5, atol=1e-5*block_n."""
+    from repro_torch.core.gram import GramEngine
+    from repro_torch.serve.table import codes_fold_stage, packed_fold_stage
+
+    signs, codes, packed, n_valid, used = _fold_slots(64, block_n, d,
+                                                      block_n + d)
+    card, cpu = GramEngine(), GramEngine(device="cpu")
+    before = kernels.launches()
+    got = codes_fold_stage(signs.to(cuda), "sign", 1, card).cpu()
+    assert torch.equal(got, codes_fold_stage(signs, "sign", 1, cpu))
+    got = packed_fold_stage(packed.to(cuda), n_valid.to(cuda), block_n,
+                            card).cpu()
+    assert torch.equal(got, packed_fold_stage(packed, n_valid, block_n, cpu))
+    assert bool((got[used:] == 0).all())
+    got = codes_fold_stage(codes.to(cuda), "persymbol", 4, card).cpu()
+    want = codes_fold_stage(codes, "persymbol", 4, cpu)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * block_n)
+    assert bool((got[used:] == 0).all())
+    # the engine's c^2 * sign route at R = 1: {0, 1} codes, -1 padding
+    r1 = torch.where(codes >= 0, codes % 2, -1).to(torch.int8)
+    assert torch.equal(codes_fold_stage(r1.to(cuda), "persymbol", 1,
+                                        card).cpu(),
+                       codes_fold_stage(r1, "persymbol", 1, cpu))
+    after = kernels.launches()
+    assert after["sign_corr"] == before["sign_corr"] + 2
+    assert after["sign_corr_packed"] == before["sign_corr_packed"] + 1
+    assert after["code_corr"] == before["code_corr"] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_gram_kernels_at_the_fold_shape(cuda):
+    """sign_corr, sign_corr_packed and code_corr at the server's fold
+    shape (b = 64, n = 256, d = 1024) held to their plain versions on the
+    card, as chip_smoke.py's phase 3 holds them."""
+    from repro_torch.core.quantizers import PerSymbolQuantizer
+
+    signs, codes, packed, _, _ = _fold_slots(64, 256, 1024, 7)
+    u, c, p = signs.to(cuda), codes.to(cuda), packed.to(cuda)
+    assert torch.equal(kernels.sign_corr(u), ref.sign_corr_ref(u))
+    assert torch.equal(kernels.sign_corr_packed(p, 256),
+                       ref.sign_corr_packed_ref(p, 256))
+    cb = torch.as_tensor(PerSymbolQuantizer(4).centroids_np, device=cuda)
+    want = ref.code_corr_ref(c, cb)
+    err = (kernels.code_corr(c, cb) - want).abs()
+    assert bool((err <= 1e-5 * 256 + 1e-5 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_packed_batch_n_valid_matches_cpu(cuda):
+    """StreamingGram.update_packed_batch with a straggler, a dropout and
+    odd prefixes: the card's Gram equals the CPU's bit for bit, in one
+    sign_corr_packed launch."""
+    from repro_torch.core import StreamingGram
+    from repro_torch.core.gram import GramEngine
+    from repro_torch.core.quantizers import pack_codes
+
+    gen = torch.Generator().manual_seed(8)
+    m, n, d = 8, 997, 250
+    bits = torch.randint(0, 2, (m, d, n), generator=gen, dtype=torch.uint8)
+    p = pack_codes(torch.nn.functional.pad(bits, (0, (-n) % 8)), 1)
+    nv = [997, 0, 500, 13, 997, 996, 1, 800]
+    before = kernels.launches()["sign_corr_packed"]
+    a = StreamingGram(d, engine=GramEngine()).update_packed_batch(
+        p.to(cuda), n, nv)
+    assert kernels.launches()["sign_corr_packed"] == before + 1
+    b = StreamingGram(d, engine=GramEngine(device="cpu")).update_packed_batch(
+        p, n, nv)
+    assert a.gram.device.type == "cuda" and a.n == b.n == sum(nv)
+    assert torch.equal(a.gram.cpu(), b.gram)
+
+
+@pytest.mark.cuda
+def test_cuda_server_matches_cpu(cuda, tmp_path):
+    """A small structure-server run on the card and on the CPU (d = 250,
+    rows off 16 bytes): equal comparable_state and per-tick telemetry."""
+    import numpy as np
+    from repro_torch.core.gram import GramEngine
+    from repro_torch.serve import (ServeConfig, StructureServer,
+                                   TrafficConfig, make_trace)
+
+    trace = make_trace(TrafficConfig(
+        tenants=4, machines=3, ticks=6, n=24, d=250, p_duplicate=0.25,
+        p_reorder=0.25, p_drop=0.1, seed=11))
+    scfg = dict(tenants=4, machines=3, d=250, block_n=24, snapshot_every=3,
+                reorder_ticks=2)
+    runs = []
+    for name, eng in (("card", GramEngine()),
+                      ("cpu", GramEngine(device="cpu"))):
+        srv = StructureServer(ServeConfig(**scfg, engine=eng),
+                              str(tmp_path / name))
+        tele = []
+        for batch in trace + [[]] * 3:
+            for p in batch:
+                srv.submit(p)
+            tick = srv.run_tick()
+            tick.pop("fold_seconds")
+            tele.append(tick)
+        srv.force_resolve()
+        runs.append((tele, srv.comparable_state()))
+        srv.close()
+    (t_card, s_card), (t_cpu, s_cpu) = runs
+    assert t_card == t_cpu
+    for k in s_card:
+        assert np.array_equal(s_card[k], s_cpu[k]), k
