@@ -18,7 +18,12 @@ against the batch Gram (phase 9), the structure server at 64 tenants and
 d = 1024 with its throughput and a tick's time split (phase 10), and its
 crash recovery, card-vs-CPU and per-symbol checks (phase 11); the three
 Gram kernels are also held and timed on the server's batched grids
-(phase 3). Any failed check exits non-zero. The last three
+(phase 3). Last, the trial plane (phase 12): the four kernels held and
+timed at its batched shapes, the paper's Fig. 3 sweep (d = 20, 720
+trials) on the card and the CPU with one device->host copy a sweep,
+sweeps at d = 1024 with their time split, and the fault plane (a
+zero-fault plan bit-identical to none, a mixed plan's telemetry card
+against CPU). Any failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
@@ -1453,6 +1458,494 @@ def serve_correctness(dev, workdir, total, crash_after=60):
     shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the trial plane
+# ---------------------------------------------------------------------------
+
+#: benchmarks/trials.py's point, the paper's Fig. 3: d = 20, four ns, the
+#: six strategies of FIG3_STRATEGIES, 30 reps (720 trials)
+TRIALS_FIG3 = dict(d=20, ns=(125, 250, 500, 1000), reps=30)
+#: benchmarks/bigd.py's width: d = 1024 at n up to 8192, 32 reps
+TRIALS_BIGD = dict(d=1024, ns=(2048, 8192), reps=32)
+#: benchmarks/faults.py's plan (seed0 = 7, its three strategies) at the
+#: large width, and cut to d = 64, 8 reps for the card-vs-CPU check
+TRIALS_FAULTS = dict(d=1024, ns=(8192,), reps=32, seed0=7)
+TRIALS_FAULTS_CUT = dict(d=64, ns=(1024,), reps=8, seed0=7)
+#: benchmarks/faults.py's mixed_faults plan with its machines widened from
+#: 4 to 16, which divide d = 1024 and d = 64
+MIXED_FAULTS = dict(dropout=0.15, straggle=0.3, straggle_frac=0.5,
+                    bitflip=0.005, retries=1, machines=16, seed=1)
+#: (d, n, b, n_valid) of the kernels' checks at the trial plane's shapes:
+#: Fig. 3's largest bucket (b = 30 trials) and the d = 1024 plan's
+TRIAL_KERNEL_SHAPES = ((20, 1024, 30, 1000), (1024, 8192, 32, 8000))
+#: the result fields card and CPU must agree on exactly
+TRIAL_FIELDS = ("error_rate", "edit_distance", "edge_f1", "buckets",
+                "host_syncs", "faults", "tiling")
+
+
+def _packed_strategies():
+    from repro_torch.core import Strategy
+
+    # their labels ("sign", "R2") are FIG3_STRATEGIES' own and a plan's
+    # labels are unique, so the packed wires sweep as a second plan over
+    # the same trials
+    return (Strategy("sign", wire="packed"),
+            Strategy("persymbol", rate=2, wire="packed"))
+
+
+def _fault_strategies():
+    from repro_torch.core import Strategy
+
+    return (Strategy("sign", wire="packed"), Strategy("persymbol", rate=4),
+            Strategy("original"))
+
+
+def _same_results(a, b, what, fields=TRIAL_FIELDS, comm=True):
+    import dataclasses
+
+    for f in fields:
+        expect(getattr(a, f) == getattr(b, f), f"{what}: {f} differs "
+               f"({getattr(a, f)} vs {getattr(b, f)})")
+    if not comm:
+        return
+    ca = {k: [dataclasses.asdict(r) for r in v] for k, v in a.comm.items()}
+    cb = {k: [dataclasses.asdict(r) for r in v] for k, v in b.comm.items()}
+    expect(ca == cb, f"{what}: the CommReports differ")
+
+
+#: card vs CPU weights of one trial: max |difference| <= TIE_RTOL * max |w|
+#: (code_corr's f32-accurate Grams against the CPU's exactly rounded ones)
+TIE_RTOL = 1e-5
+METRIC_FIELDS = ("error_rate", "edit_distance", "edge_f1", "precision",
+                 "recall")
+
+
+def card_vs_cpu_sweep(plan, card, host, dev, what):
+    """Hold a sweep's card results to its CPU results: every field equal,
+    or, for the metrics, different only through trials whose two trees
+    are both maximum spanning trees of weights that agree within
+    TIE_RTOL — a tie, broken one way by the card's rounding and the other
+    by the CPU's. Recomputes each differing point's weights and trees on
+    both devices and checks that they reproduce both results. Returns the
+    ties found as (label, n, trial, weight gap, max |w_card - w_cpu|)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import experiments
+    from repro_torch.core.chow_liu import boruvka_mst_batch
+    from repro_torch.core.faults import fault_trial_keys
+    from repro_torch.core.gram import GramEngine
+
+    _same_results(card, host, what, fields=[
+        f for f in TRIAL_FIELDS if f not in METRIC_FIELDS])
+    ties = []
+    for s in plan.strategies:
+        for j, n in enumerate(plan.ns):
+            if all(getattr(card, f)[s.label][j] == getattr(host, f)[s.label][j]
+                   for f in METRIC_FIELDS):
+                continue
+            got = {}
+            for where in (dev, "cpu"):
+                where = str(torch.device(where))
+                parents, rhos, adj, keys = experiments._plan_setup(
+                    *experiments._setup_key(plan), where)
+                extra = () if plan.faults is None else (
+                    plan.faults, fault_trial_keys(plan.faults, plan.reps,
+                                                  device=where))
+                w = experiments._stacked_weights(
+                    keys, parents, rhos, n, (s,), plan.bucket_for(n),
+                    GramEngine(), *extra)
+                w = (w if plan.faults is None else w[0])[0]
+                t = boruvka_mst_batch(w, early_exit=False)
+                ham = ((t != adj).sum(dim=(1, 2)) // 2).cpu().numpy()
+                got[where] = (w.double().cpu(), t.cpu(), ham)
+            (wc, tc, hc), (wh, th, hh) = got[str(torch.device(dev))], \
+                got["cpu"]
+            for res, ham in ((card, hc), (host, hh)):
+                expect(res.edit_distance[s.label][j] == float(
+                    np.float32(ham.sum()) / np.float32(plan.reps)),
+                    f"{what}: recomputed trees of {s.label} n={n} do not "
+                    f"give the sweep's edit distance")
+            for k in np.flatnonzero((tc != th).flatten(1).any(1).numpy()):
+                delta = float((wc[k] - wh[k]).abs().max())
+                expect(delta <= TIE_RTOL * float(wh[k].abs().max()),
+                       f"{what}: {s.label} n={n} trial {k}: card and CPU "
+                       f"weights differ by {delta}")
+                gap = float(wh[k][th[k]].sum() - wh[k][tc[k]].sum()) / 2
+                expect(0.0 <= gap <= 2 * (plan.d - 1) * delta,
+                       f"{what}: {s.label} n={n} trial {k}: the card's "
+                       f"tree is {gap} below the CPU's maximum, beyond a "
+                       f"tie at {delta}")
+                ties.append((s.label, n, int(k), gap, delta))
+    return ties
+
+
+def profiled(fn):
+    """(result, wall s, device busy ms, device->host copies) of fn() under
+    torch.profiler: busy is the kernels' and copies' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+    busy = sum(getattr(e, "self_device_time_total", 0) or 0
+               for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", "")))
+    dtoh = sum(1 for e in prof.events()
+               if "CUDA" in str(getattr(e, "device_type", ""))
+               and "DtoH" in e.name)
+    expect(busy > 0, "the profiler saw no device time")
+    return out, wall, busy / 1e3, dtoh
+
+
+def check_trial_kernels(dev, reps):
+    """The four kernels of the trial plane against their plain versions on
+    the operands its sweeps give them: b = 30 trials at d = 20 (Fig. 3,
+    n = 1024, rows off 16 bytes) and b = 32 at d = 1024 (n = 8192), from
+    the row-keyed sampler, masked to n_valid or to fault counts. Timed at
+    the larger shape; returns {kernel: trial record}."""
+    import torch
+    from repro_torch.core import estimators, sampler
+    from repro_torch.core.experiments import (TrialPlan, stacked_trees,
+                                              trial_keys)
+    from repro_torch.core.faults import FaultPlan, fault_trial_keys
+    from repro_torch.core.quantizers import PerSymbolQuantizer, codebook_tensors
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.kernels import (code_corr, quantize_fused, ref,
+                                     sign_corr, sign_corr_packed)
+
+    out = {}
+    for d, n, b, n_valid in TRIAL_KERNEL_SHAPES:
+        plan = TrialPlan(d=d, ns=(n,), reps=b)
+        parents, rhos, _ = stacked_trees(plan, device=dev)
+        x = sampler.sample_tree_ggm_rows_batch(trial_keys(plan, device=dev),
+                                               n, parents, rhos)
+        shape = f"b={b} n={n} d={d}"
+        for rate in (1, 2, 4):
+            bounds, _ = codebook_tensors(rate, dev)
+            expect(torch.equal(quantize_fused(x, rate),
+                               ref.encode_ref(x, bounds)),
+                   f"quantize_fused R={rate} at the trial shape {shape}")
+        u = estimators.strategy_payload(x, Strategy(), n_valid=n_valid)
+        expect(torch.equal(sign_corr(u), ref.sign_corr_ref(u)),
+               f"sign_corr at the trial shape {shape}")
+        fp = FaultPlan(**MIXED_FAULTS) if d % 16 == 0 else FaultPlan(
+            dropout=0.2, straggle=0.3, bitflip=0.01, machines=4, seed=1)
+        n_rows, flip, _ = fp.draw_batch(fault_trial_keys(fp, b, device=dev),
+                                        n, n_valid, d)
+        sp = Strategy("sign", wire="packed")
+        uf = estimators.payload_operand(estimators.strategy_payload(
+            x, sp, n_valid=n_valid, n_rows=n_rows, flip=flip), sp,
+            n_rows=n_rows)
+        expect(torch.equal(sign_corr(uf), ref.sign_corr_ref(uf)),
+               f"sign_corr on the faulty unpacked wire at {shape}")
+        p = estimators.strategy_payload(x, sp, n_valid=n_valid)
+        expect(torch.equal(sign_corr_packed(p, n),
+                           ref.sign_corr_packed_ref(p, n)),
+               f"sign_corr_packed at the trial shape {shape}")
+        for s in (Strategy("persymbol", rate=4),
+                  Strategy("persymbol", rate=2, wire="packed")):
+            c = estimators.payload_operand(estimators.strategy_payload(
+                x, s, n_valid=n_valid), s, n_valid=n_valid)
+            cb = torch.as_tensor(PerSymbolQuantizer(s.rate).centroids_np,
+                                 device=dev)
+            want = ref.code_corr_ref(c, cb)
+            err = (code_corr(c, cb) - want).abs()
+            expect(bool((err <= code_tolerance(n, want)).all()),
+                   f"code_corr R={s.rate} at the trial shape {shape}: max "
+                   f"|err| {float(err.max())}")
+        del u, uf, p, c, want, err, n_rows, flip
+    log("phase 12 trial shapes (" + "; ".join(
+        f"b={b} n={n} d={d}" for d, n, b, _ in TRIAL_KERNEL_SHAPES)
+        + "): sign_corr (int8, and the faulty unpacked wire), "
+        "sign_corr_packed, code_corr (R=4 int8, R=2 packed), "
+        "quantize_fused (R=1, 2, 4) equal their plain versions")
+
+    # timings at b = 32, n = 8192, d = 1024 (x from the last loop)
+    u = estimators.strategy_payload(x, Strategy())
+    p = estimators.strategy_payload(x, Strategy("sign", wire="packed"))
+    c = PerSymbolQuantizer(4).encode(x)
+    cb = torch.as_tensor(PerSymbolQuantizer(4).centroids_np, device=dev)
+    b4, _ = codebook_tensors(4, dev)
+    out_bytes = b * d * d * 4
+    ops = 2 * b * n * d * d
+
+    def trial_record(name, fn, plain, library, bytes_moved, n_ops, rate):
+        rec = make_record("phase 12 trial", name, "", "", shape,
+                          event_ms(fn, reps), event_ms(plain, reps),
+                          event_ms(library, reps), bytes_moved, n_ops, rate,
+                          0.0)
+        out[name] = {k: rec[k] for k in ("shape", "ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by")}
+
+    uf = u.to(torch.float32)
+    ut = uf.transpose(1, 2).contiguous()
+    trial_record("sign_corr", lambda: sign_corr(u),
+                 lambda: ref.sign_corr_ref(u), lambda: torch.bmm(ut, uf),
+                 u.numel() + out_bytes, ops, INT8_TENSOR_OPS_PER_S)
+    del uf, ut
+    pf = ref.unpack_signs_pm1(p, n)
+    pt = pf.transpose(1, 2).contiguous()
+    trial_record("sign_corr_packed", lambda: sign_corr_packed(p, n),
+                 lambda: ref.sign_corr_packed_ref(p, n),
+                 lambda: torch.bmm(pf, pt), p.numel() + out_bytes, ops,
+                 INT8_TENSOR_OPS_PER_S)
+    del pf, pt
+    dec = ref.decode_codes(c, cb)
+    dt = dec.transpose(1, 2).contiguous()
+    trial_record("code_corr", lambda: code_corr(c, cb),
+                 lambda: ref.code_corr_ref(c, cb), lambda: torch.bmm(dt, dec),
+                 c.numel() + 16 * 4 + out_bytes, 3 * ops,
+                 TF32_TENSOR_OPS_PER_S)
+    del dec, dt
+    trial_record("quantize_fused", lambda: quantize_fused(x, 4),
+                 lambda: ref.encode_ref(x, b4),
+                 lambda: torch.bucketize(x, b4), x.numel() * 5 + 31 * 4,
+                 4 * x.numel(), F32_OPS_PER_S)
+    del x, u, p, c
+    torch.cuda.empty_cache()
+    return out
+
+
+def fig3_sweeps(dev, total):
+    """Part 1: the Fig. 3 sweep with pow2 buckets and exact shapes, and
+    the packed wires over the same trials, on the card and on the CPU:
+    equal results, one host read, and one device->host copy in the
+    profile of a warm sweep."""
+    from repro_torch.core import FIG3_STRATEGIES
+    from repro_torch.core.experiments import TrialPlan, run_trials
+
+    for strategies, what in ((FIG3_STRATEGIES, "FIG3"),
+                             (_packed_strategies(), "packed")):
+        for buckets in ("pow2", None):
+            plan = TrialPlan(strategies=strategies, n_buckets=buckets,
+                             **TRIALS_FIG3)
+            card, counts = counted(total, lambda: run_trials(plan, device=dev))
+            warm, _ = counted(total, lambda: run_trials(plan, device=dev))
+            (prof, wall, busy, dtoh), _ = counted(
+                total, lambda: profiled(lambda: run_trials(plan, device=dev)))
+            host, t_cpu = timed(lambda: run_trials(plan, device="cpu"))
+            name = f"{what} n_buckets={buckets}"
+            expect(card.host_syncs == 1 and warm.host_syncs == 1,
+                   f"{name}: host_syncs {card.host_syncs}")
+            expect(dtoh == 1, f"{name}: a warm sweep made {dtoh} "
+                   f"device->host copies, not 1")
+            ties = card_vs_cpu_sweep(plan, card, host, dev,
+                                     f"{name} card vs CPU")
+            _same_results(warm, card, f"{name} warm vs cold")
+            _same_results(prof, card, f"{name} profiled vs cold")
+            log(f"phase 12 Fig. 3 {name}: {plan.trials} trials, card cold "
+                f"{card.seconds:.4f} s, warm {warm.seconds:.4f} s "
+                f"({warm.trials_per_s:.1f} trials/s; profiled wall "
+                f"{wall:.4f} s, device busy {busy:.3f} ms, idle "
+                f"{100 * (1 - busy / 1e3 / wall):.1f}%, device->host "
+                f"copies {dtoh}); CPU {t_cpu:.2f} s; card == CPU"
+                f"{' but for ties (label, n, trial, gap, max |dw|): '
+                   + json.dumps(ties) if ties else ''}; "
+                f"buckets={card.buckets} launches={json.dumps(counts)}")
+            log(f"phase 12 Fig. 3 {name} error_rate="
+                f"{json.dumps(card.error_rate)}")
+
+
+def _staged_sweep(plan, dev):
+    """run_trials' device path stage by stage, each stage synchronised:
+    (S, len(ns), 3) mean metrics and seconds by stage."""
+    import torch
+    from repro_torch.core import estimators, experiments, sampler
+    from repro_torch.core.gram import GramEngine
+
+    parents, rhos, adj_true, keys = experiments._plan_setup(
+        *experiments._setup_key(plan), str(torch.device(dev)))
+    engine = plan.budget_engine(GramEngine(), device=dev)
+    chunk = plan.metrics_chunk()
+    split = dict(sample=0.0, weights=0.0, boruvka=0.0, read_back=0.0)
+    sums = []
+    for n in plan.ns:
+        x, t = timed(lambda: sampler.sample_tree_ggm_rows_batch(
+            keys, plan.bucket_for(n), parents, rhos))
+        split["sample"] += t
+        w, t = timed(lambda: torch.stack([
+            estimators.strategy_weights_batch(x, s, n_valid=n, engine=engine)
+            for s in plan.strategies]))
+        split["weights"] += t
+        del x
+        s, t = timed(lambda: experiments._metric_sums(w, adj_true, chunk))
+        split["boruvka"] += t
+        sums.append(s)
+        del w
+    m, t = timed(lambda: (torch.stack(sums, dim=1) / plan.reps).cpu())
+    split["read_back"] = t
+    return m.numpy(), split
+
+
+def bigd_sweeps(dev, total):
+    """Part 2: the sweep at d = 1024 (FIG3_STRATEGIES, then the packed
+    wires over the same trials: 512 trials): cold and warm seconds and
+    trials/s, the device's idle share, peak memory, the tiling chosen, a
+    stage split (held to run_trials' metrics), and the card's sampler
+    against the CPU's at a row block of the plan."""
+    import torch
+    from repro_torch.core import FIG3_STRATEGIES, prng, sampler
+    from repro_torch.core.experiments import (TrialPlan, clear_compile_caches,
+                                              run_trials, trial_keys)
+
+    plans = [TrialPlan(strategies=s, **TRIALS_BIGD)
+             for s in (FIG3_STRATEGIES, _packed_strategies())]
+    trials = sum(p.trials for p in plans)
+    clear_compile_caches()
+    torch.cuda.empty_cache()
+    cold, launches = [], {}
+    for plan in plans:
+        (res, t), counts = counted(total, lambda: timed(
+            lambda: run_trials(plan, device=dev)))
+        cold.append((res, t))
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ("sign_corr", "sign_corr_packed", "code_corr",
+              "quantize_fused"):
+        expect(launches[k] > 0, f"the d=1024 sweeps launched no {k}")
+    torch.cuda.reset_peak_memory_stats()
+    warm = [counted(total, lambda: run_trials(plan, device=dev))[0] for plan in plans]
+    peak = torch.cuda.max_memory_allocated()
+    wall = busy = 0.0
+    for plan, (c, _), w in zip(plans, cold, warm):
+        (p, t, b, dtoh), _ = counted(
+            total, lambda: profiled(lambda: run_trials(plan, device=dev)))
+        wall, busy = wall + t, busy + b
+        expect(dtoh == 1, f"a warm d=1024 sweep made {dtoh} device->host "
+               f"copies")
+        expect(c.host_syncs == 1, "a d=1024 sweep read the host twice")
+        _same_results(w, c, "d=1024 warm vs cold")
+        _same_results(p, c, "d=1024 profiled vs cold")
+    cold_s = sum(t for _, t in cold)
+    warm_s = sum(w.seconds for w in warm)
+    log(f"phase 12 d=1024 sweeps ({trials} trials: FIG3 + packed, ns="
+        f"{TRIALS_BIGD['ns']}, reps={TRIALS_BIGD['reps']}): cold "
+        f"{cold_s:.3f} s ({trials / cold_s:.1f} trials/s, setup included), "
+        f"warm {warm_s:.3f} s ({trials / warm_s:.1f} trials/s); profiled "
+        f"warm wall {wall:.3f} s, device busy {busy:.1f} ms, idle "
+        f"{100 * (1 - busy / 1e3 / wall):.1f}%; peak_bytes={peak}; "
+        f"tiling={json.dumps(cold[0][0].tiling)} "
+        f"buckets={cold[0][0].buckets} launches={json.dumps(launches)}")
+    for (res, _) in cold:
+        log(f"phase 12 d=1024 error_rate={json.dumps(res.error_rate)} "
+            f"edit_distance={json.dumps(res.edit_distance)}")
+
+    split = dict(sample=0.0, weights=0.0, boruvka=0.0, read_back=0.0)
+    for plan, (res, _) in zip(plans, cold):
+        (m, part), _ = counted(total, lambda: _staged_sweep(plan, dev))
+        for k, v in part.items():
+            split[k] += v
+        for i, s in enumerate(plan.strategies):
+            expect(list(map(float, m[i, :, 0])) == res.error_rate[s.label]
+                   and list(map(float, m[i, :, 1]))
+                   == res.edit_distance[s.label],
+                   f"the staged d=1024 sweep disagrees with run_trials "
+                   f"({s.label})")
+    log("phase 12 d=1024 stage split, s (both plans, each stage "
+        "synchronised): " + " ".join(f"{k}={v:.4f}" for k, v in
+                                     split.items()))
+
+    # the sampler's last row block of the plan, on the card and the CPU
+    plan = plans[0]
+    n = max(plan.ns)
+    r0 = n - 64
+    out = {}
+    for where in (dev, "cpu"):
+        keys = trial_keys(plan, device=where)
+        rows = prng.fold_in(keys[:, None, :],
+                            torch.arange(r0, n, device=keys.device))
+        out[where] = (prng.uniform(rows, (plan.d,),
+                                   minval=prng._NORMAL_LO).cpu(),
+                      sampler._row_normals(keys, r0, n, plan.d).cpu())
+    (uc, zc), (uh, zh) = out[dev], out["cpu"]
+    expect(torch.equal(uc, uh), "card and CPU uniforms differ")
+    rel = float(((zc - zh).abs() / zh.abs().clamp_min(1e-30)).max())
+    expect(rel <= 2.0 ** -21, f"card and CPU normals differ by {rel} "
+           f"relative")
+    log(f"phase 12 sampler rows {r0}..{n} of {plan.reps} trials at d="
+        f"{plan.d}: card uniforms == CPU uniforms bit for bit; normals "
+        f"max relative difference {rel} (tolerance 2^-21), "
+        f"{float((zc == zh).float().mean()):.6f} of them equal")
+    del out, uc, zc, uh, zh
+
+
+def fault_sweeps(dev, total):
+    """Part 3: benchmarks/faults.py's mixed plan at d = 1024: a zero-fault
+    plan bit-identical to none on the card (weights and results), the
+    mixed sweep's telemetry and retry accounting, and the cut run's
+    faults and retries card == CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import experiments
+    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.faults import FaultPlan, fault_trial_keys
+    from repro_torch.core.gram import GramEngine
+
+    plan = TrialPlan(strategies=_fault_strategies(), **TRIALS_FAULTS)
+    zero = dataclasses.replace(plan, faults=FaultPlan(machines=16,
+                                                      retries=1))
+    mixed = dataclasses.replace(plan, faults=FaultPlan(**MIXED_FAULTS))
+    n = plan.ns[0]
+    parents, rhos, _, keys = experiments._plan_setup(
+        *experiments._setup_key(plan), str(torch.device(dev)))
+    engine = GramEngine()
+    w = experiments._stacked_weights(keys, parents, rhos, n, plan.strategies,
+                                     plan.bucket_for(n), engine)
+    wz, tele = experiments._stacked_weights(
+        keys, parents, rhos, n, plan.strategies, plan.bucket_for(n), engine,
+        zero.faults, fault_trial_keys(zero.faults, plan.reps, device=dev))
+    expect(torch.equal(w, wz) and not bool(tele.any()),
+           "the zero-fault plan's weights differ from no plan's")
+    del w, wz
+    none_r, _ = counted(total, lambda: run_trials(plan, device=dev))
+    zero_r, _ = counted(total, lambda: run_trials(zero, device=dev))
+    _same_results(zero_r, none_r, "zero-fault vs no faults",
+                  fields=("error_rate", "edit_distance", "edge_f1",
+                          "buckets", "host_syncs"), comm=False)
+    mixed_r, counts = counted(total, lambda: run_trials(mixed, device=dev))
+    expect(mixed_r.host_syncs == 1, "the faulty sweep read the host twice")
+    retry = {k: [(r.retry_bytes, r.retry_collectives) for r in v]
+             for k, v in mixed_r.comm.items()}
+    log(f"phase 12 faults d={plan.d} n={n} reps={plan.reps}: zero-fault "
+        f"plan == no plan bit for bit (weights and results); mixed "
+        f"{mixed_r.seconds:.3f} s ({mixed_r.trials_per_s:.1f} trials/s) "
+        f"error_rate={json.dumps(mixed_r.error_rate)} (lossless "
+        f"{json.dumps(none_r.error_rate)}) faults="
+        f"{json.dumps(mixed_r.faults)} retry (bytes, rounds)="
+        f"{json.dumps(retry)} launches={json.dumps(counts)}")
+    cut = TrialPlan(strategies=_fault_strategies(),
+                    faults=FaultPlan(**MIXED_FAULTS), **TRIALS_FAULTS_CUT)
+    card, _ = counted(total, lambda: run_trials(cut, device=dev))
+    host = run_trials(cut, device="cpu")
+    ties = card_vs_cpu_sweep(cut, card, host, dev,
+                             "the cut faulty sweep card vs CPU")
+    log(f"phase 12 faults cut (d={cut.d}, reps={cut.reps}, ns={cut.ns}): "
+        f"card == CPU in TrialResult.faults and CommReport retry fields, "
+        f"and in metrics{' but for ties: ' + json.dumps(ties) if ties else ''}"
+        f"; faults={json.dumps(card.faults)}")
+
+
+def trial_plane(dev, total, records, reps):
+    """Phase 12: the trial plane on the card: its kernels at its shapes,
+    then parts 1-3 above. Adds each kernel's trial record to
+    ``records``."""
+    t0 = time.perf_counter()
+    trial = check_trial_kernels(dev, reps)
+    for r in records:
+        if r["name"] in trial:
+            r["trial"] = trial[r["name"]]
+    fig3_sweeps(dev, total)
+    bigd_sweeps(dev, total)
+    fault_sweeps(dev, total)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
 def _cuobjdump():
     """cuobjdump from PATH, the CUDA toolkit or Triton's bundle, else None."""
     import shutil
@@ -1581,6 +2074,7 @@ def main() -> int:
                      SERVE_BLOCK_N, SERVE_TICKS, work, total)
     serve_correctness("cuda", work, total)
     log(f"phases 9-11 took {time.perf_counter() - t0:.1f} s")
+    trial_plane("cuda", total, records, reps=3)
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

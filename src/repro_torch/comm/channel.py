@@ -22,6 +22,11 @@ class Channel:
     def validate(self, strategy) -> None:
         """Raise if ``strategy`` cannot run over this channel."""
 
+    def check_plan(self, d: int, faults=None) -> None:
+        """Raise if this channel cannot serve a sweep over ``d`` features
+        (optionally composed with a ``FaultPlan``); ``TrialPlan``
+        validation calls it. The gather channel serves any."""
+
     @property
     def suffix(self) -> str:
         """Label suffix appended to ``Strategy.label`` ('' for gather)."""

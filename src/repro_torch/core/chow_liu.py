@@ -100,26 +100,45 @@ def _rank_weights(weights: torch.Tensor) -> torch.Tensor:
 _I32_MIN = torch.iinfo(torch.int32).min
 
 
-def boruvka_mst_batch(weights: torch.Tensor) -> torch.Tensor:
+def boruvka_mst_batch(weights: torch.Tensor, chunk: int | None = None, *,
+                      early_exit: bool = True) -> torch.Tensor:
     """Max-weight spanning trees of (b, d, d) weights -> (b, d, d) bools.
 
     Each round picks, for every component, its best outgoing edge (the
     champion of the component's nodes, smallest node index on ties) and
-    merges along it. The loop runs on the host and syncs once per round
-    on the largest component count; Boruvka at least halves the count
-    each round, so there are at most ceil(log2 d) rounds. The round body
-    is idempotent once a single component is left, so trials that finish
-    early coast while the others finish.
+    merges along it. Boruvka at least halves the component count each
+    round, so ceil(log2 d) rounds finish every trial, and the round body
+    is idempotent once a single component is left.
+
+    ``early_exit=True`` reads the largest component count on the host
+    after every round and stops when every trial is one component (one
+    host sync a round). ``early_exit=False`` runs the ceil(log2 d) rounds
+    with no host sync: the trial plane's form, whose contract is one
+    device->host transfer a sweep. Both give the same trees.
+
+    ``chunk`` streams the batch through the solver in slabs of that many
+    trials, bounding the rank and component scratch; trials are
+    independent, so the result is bit-identical to the full batch.
     """
     weights = torch.as_tensor(weights)
+    b = weights.shape[0]
+    if chunk is None or chunk >= b:
+        return _boruvka_slab(weights, early_exit)
+    chunk = max(1, int(chunk))
+    return torch.cat([_boruvka_slab(weights[i:i + chunk], early_exit)
+                      for i in range(0, b, chunk)])
+
+
+def _boruvka_slab(weights: torch.Tensor, early_exit: bool) -> torch.Tensor:
     b, d = weights.shape[0], weights.shape[-1]
     dev = weights.device
     W = _rank_weights(weights)
     n_jump = int(np.ceil(np.log2(max(d, 2)))) + 1
+    rounds = int(np.ceil(np.log2(d))) if d > 1 else 0
     ar = torch.arange(d, dtype=torch.int64, device=dev).expand(b, d)
     comp = ar.clone()
     sel = torch.zeros((b, d * d), dtype=torch.int32, device=dev)
-    while d > 1:
+    for _ in range(rounds):
         cross = comp[:, :, None] != comp[:, None, :]
         Wm = torch.where(cross, W, -1)
         best_w, best_k = Wm.max(dim=-1)        # best outgoing rank per node
@@ -149,18 +168,20 @@ def boruvka_mst_batch(weights: torch.Tensor) -> torch.Tensor:
         for _ in range(n_jump):
             parent = parent.gather(1, parent)
         comp = parent.gather(1, comp)
-        present = torch.zeros((b, d), dtype=torch.int32, device=dev)
-        present.scatter_(1, comp, 1)
-        if int(present.sum(dim=1).max()) <= 1:
-            break
+        if early_exit:
+            present = torch.zeros((b, d), dtype=torch.int32, device=dev)
+            present.scatter_(1, comp, 1)
+            if int(present.sum(dim=1).max()) <= 1:
+                break
     return sel.reshape(b, d, d).bool()
 
 
-def boruvka_mst(weights) -> torch.Tensor:
+def boruvka_mst(weights, *, early_exit: bool = True) -> torch.Tensor:
     """Max-weight spanning tree of symmetric (d, d) weights (diagonal
     ignored) -> (d, d) bool adjacency on the weights' device."""
     weights = torch.as_tensor(weights)
-    return boruvka_mst_batch(weights.unsqueeze(0))[0]
+    return boruvka_mst_batch(weights.unsqueeze(0),
+                             early_exit=early_exit)[0]
 
 
 def adjacency_to_edges(adj) -> list[tuple[int, int]]:

@@ -18,8 +18,12 @@ pipeline shares:
   -> Chow-Liu weights (eqs. 1/4/30).
 
 The fault plane's per-feature row counts (``n_rows``) and bit flips
-(``flip``), and the MAC / bit-budget channels, arrive with the wire
-plane: passing them raises ``NotImplementedError``.
+(``flip``) thread the masked-Gram degradation path: each feature column
+is prefix-masked to its own count, the packed sign wire is unpacked to
+±1/0 int8 under ``n_rows``, and the weights divide by the per-entry
+:func:`effective_counts` with voided entries at weight 0. The MAC /
+bit-budget channels arrive with the wire plane: passing their operands
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch
 from .gram import GramEngine, resolve_engine
 from .quantizers import (MASKED_CODE, PerSymbolQuantizer, pack_codes,
                          sign_bits, sign_codes, unpack_codes_u8,
-                         valid_sample_mask)
+                         valid_row_mask, valid_sample_mask)
 from .strategy import Strategy
 
 _WIRE_PLANE = "arrives with the port's wire plane"
@@ -206,6 +210,36 @@ def _sample_mask(n_pad: int, n_valid, device) -> torch.Tensor:
     return valid_sample_mask(n_pad, n_valid, device)[:, None]
 
 
+def _payload_mask(n_pad: int, n_valid, n_rows, device):
+    """The encode stage's row mask: (..., n, d) per-feature prefixes under
+    fault counts ``n_rows`` (which win: they are clamped to n_valid
+    already), (n, 1) under bucketing, else None."""
+    if n_rows is not None:
+        return valid_row_mask(n_pad, n_rows)
+    if n_valid is not None:
+        return _sample_mask(n_pad, n_valid, device)
+    return None
+
+
+def _packs(strategy: Strategy, n: int) -> bool:
+    """Whether :func:`strategy_payload` packs n samples densely: the
+    packed wire of a quantized method, n a whole number of bytes."""
+    return (strategy.method != "original" and strategy.wire == "packed"
+            and n % (8 // strategy.rate) == 0)
+
+
+def payload_layout(strategy: Strategy, n: int, d: int
+                   ) -> tuple[tuple[int, ...], torch.dtype]:
+    """(shape, dtype) of :func:`strategy_payload` on (n, d) samples,
+    without drawing one: sample-major (n, d) f32 values or int8
+    signs/codes, or a feature-major (d, n*R/8) uint8 packed wire."""
+    if strategy.method == "original":
+        return (n, d), torch.float32
+    if _packs(strategy, n):
+        return (d, n * strategy.rate // 8), torch.uint8
+    return (n, d), torch.int8
+
+
 def strategy_payload(x: torch.Tensor, strategy: Strategy, *, n_valid=None,
                      n_rows=None, flip=None) -> torch.Tensor:
     """Encode stage: raw (..., n, d) f32 samples -> the strategy's wire
@@ -221,23 +255,31 @@ def strategy_payload(x: torch.Tensor, strategy: Strategy, *, n_valid=None,
     ``n_valid`` masks pad rows: values/signs to 0, bin codes to
     ``MASKED_CODE`` (packed wires carry pad symbols as 0 bits;
     :func:`payload_operand` restores the sentinel at the center).
+
+    ``n_rows`` — a fault plan's (..., d) per-feature delivered-row counts
+    — masks each feature column to its own prefix and wins over
+    ``n_valid``. ``flip`` — the (..., n, d) bool bit-flip mask — flips
+    sign-method payloads' bits; per-symbol and float wires ignore it.
     """
-    _no_wire_plane(n_rows=n_rows, flip=flip)
     n_pad = x.shape[-2]
-    mask = None if n_valid is None else _sample_mask(n_pad, n_valid, x.device)
+    mask = _payload_mask(n_pad, n_valid, n_rows, x.device)
 
     if strategy.method == "original":
         return x if mask is None else torch.where(mask, x, 0.0)
     if strategy.method == "sign":
-        if strategy.packed_gram_ok(n_pad):
+        if _packs(strategy, n_pad):
             bits = sign_bits(x)
+            if flip is not None:
+                bits ^= flip
             if mask is not None:
                 bits &= mask
             return pack_codes(bits.transpose(-2, -1), 1)  # (., d, n/8)
         u = sign_codes(x)
+        if flip is not None:
+            u = torch.where(flip, -u, u)
         return u if mask is None else u.masked_fill_(~mask, 0)
     codes = PerSymbolQuantizer(strategy.rate).encode(x)
-    if strategy.wire == "packed" and n_pad % (8 // strategy.rate) == 0:
+    if _packs(strategy, n_pad):
         # dense R-bit wire: pad symbols travel as code 0 (the center
         # re-masks them from n_valid before contracting)
         if mask is not None:
@@ -256,16 +298,30 @@ def payload_operand(payload: torch.Tensor, strategy: Strategy, *,
     signs, bin codes, 1-bit packed signs). The per-symbol packed wire is
     unpacked back to sample-major int8 bin codes with ``MASKED_CODE``
     restored on pad rows — integer-exact.
+
+    Under fault counts ``n_rows`` the 1-bit packed sign wire is unpacked
+    too, to ±1 int8 with undelivered rows 0: the packed Gram's uniform
+    shift assumes one prefix length for every feature. Its integer Gram
+    equals the packed one whenever the counts are uniform (the zero-fault
+    bit-identity).
     """
-    _no_wire_plane(n_rows=n_rows)
-    if payload.dtype != torch.uint8 or strategy.method != "persymbol":
+    if payload.dtype != torch.uint8:
+        return payload
+    if strategy.method == "sign":
+        if n_rows is None:
+            return payload  # the packed Gram contracts the bytes directly
+        u = unpack_codes_u8(payload, 1).transpose(-2, -1).to(
+            torch.int8, memory_format=torch.contiguous_format)
+        u.mul_(2).sub_(1)
+        return u.masked_fill_(~valid_row_mask(u.shape[-2], n_rows), 0)
+    if strategy.method != "persymbol":
         return payload
     # feature-major bytes -> sample-major int8 codes (a contiguous copy:
     # the Gram kernels read rows of samples)
     codes = unpack_codes_u8(payload, strategy.rate).transpose(
         -2, -1).contiguous().view(torch.int8)
-    if n_valid is not None:
-        mask = _sample_mask(codes.shape[-2], n_valid, codes.device)
+    mask = _payload_mask(codes.shape[-2], n_valid, n_rows, codes.device)
+    if mask is not None:
         codes = codes.masked_fill_(~mask, MASKED_CODE)
     return codes
 
@@ -282,12 +338,17 @@ def payload_gram(payload: torch.Tensor, strategy: Strategy, *, n_valid=None,
     the rectangular (..., d_rows, d) block of those rows against the full
     payload. ``n_valid`` applies the integer-exact masked-count shift to
     the packed sign identity (G = n_valid - 2*popcount).
+
+    ``n_rows`` / ``n_rows_rows`` are the fault plane's per-feature counts
+    of the full payload and of the row slice: the packed sign wire then
+    goes through :func:`payload_operand` (unpacked), and each Gram entry
+    sums exactly its ``effective_counts(n_rows)`` surviving rows.
     """
-    _no_wire_plane(n_rows=n_rows, n_rows_rows=n_rows_rows)
     eng = resolve_engine(engine)
     batched = payload.ndim == 3
 
-    if strategy.method == "sign" and payload.dtype == torch.uint8:
+    if (strategy.method == "sign" and payload.dtype == torch.uint8
+            and n_rows is None):
         n_pad = payload.shape[-1] * 8
         fn = eng.packed_sign_gram_batch if batched else eng.packed_sign_gram
         if payload_rows is not None:
@@ -301,10 +362,11 @@ def payload_gram(payload: torch.Tensor, strategy: Strategy, *, n_valid=None,
                 n_valid, dtype=torch.float32, device=gram.device))
         return gram
 
-    u = payload_operand(payload, strategy, n_valid=n_valid)
+    u = payload_operand(payload, strategy, n_valid=n_valid, n_rows=n_rows)
     rows = None
     if payload_rows is not None:
-        rows = payload_operand(payload_rows, strategy, n_valid=n_valid)
+        rows = payload_operand(payload_rows, strategy, n_valid=n_valid,
+                               n_rows=n_rows_rows)
     if strategy.method == "persymbol":
         cb = PerSymbolQuantizer(strategy.rate).centroids_np
         fn = eng.code_gram_batch if batched else eng.code_gram
@@ -335,12 +397,22 @@ def strategy_weights_batch(x: torch.Tensor, strategy: Strategy, *,
     ``n_valid`` enables shape bucketing: rows >= n_valid are padding,
     masked in :func:`strategy_payload`, and every normalization uses
     n_valid; integer-exact paths are bit-equal to the unpadded ones.
+
+    ``n_rows`` / ``flip`` thread a ``FaultPlan`` realization: the Gram is
+    prefix-masked per feature and the weights divide by the per-entry
+    :func:`effective_counts`, voided entries (count < 2) at weight 0. A
+    zero-fault realization (every count n_valid, no flip) is
+    bit-identical to the faultless call.
     """
-    _no_wire_plane(n_rows=n_rows, flip=flip, rates=rates,
-                   delivered=delivered)
+    _no_wire_plane(rates=rates, delivered=delivered)
     n_pad = x.shape[-2]
-    payload = strategy_payload(x, strategy, n_valid=n_valid)
-    gram = payload_gram(payload, strategy, n_valid=n_valid, engine=engine)
-    n = n_pad if n_valid is None else torch.as_tensor(
-        n_valid, dtype=torch.float32, device=gram.device)
+    payload = strategy_payload(x, strategy, n_valid=n_valid, n_rows=n_rows,
+                               flip=flip)
+    gram = payload_gram(payload, strategy, n_valid=n_valid, n_rows=n_rows,
+                        engine=engine)
+    if n_rows is not None:
+        n = effective_counts(n_rows)
+    else:
+        n = n_pad if n_valid is None else torch.as_tensor(
+            n_valid, dtype=torch.float32, device=gram.device)
     return weights_from_gram(gram, n, strategy)

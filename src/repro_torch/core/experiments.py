@@ -1,14 +1,422 @@
-"""Experiment-plane metrics (the port of ``repro.core.experiments``).
+"""The trial plane: batched Monte-Carlo sweeps on one device (the port of
+``repro.core.experiments``' tree plane).
 
-Only the structure-metric channels are ported so far: the serving plane
-(``repro_torch.serve``) counts per-tenant drift with them. The trial
-plane (``TrialPlan``, ``run_trials``) arrives with its own slice.
+The paper's results are Monte-Carlo estimates — Pr(T_hat != T) over many
+(tree, data, method, R, n) trials (Figs. 3-11). :func:`run_trials` runs
+a whole :class:`TrialPlan` as batched device work:
+
+* **Shape bucketing** — each n is padded up to a bucket (powers of two by
+  default) and a valid-length mask runs through sampler -> quantizer ->
+  Gram -> weights. The sampler draws row i of trial k from
+  ``fold_in(keys[k], i)`` (``sampler.sample_tree_ggm_rows_batch``, the
+  port's threefry in ``core.prng``), so a padded draw equals the
+  unpadded one on its valid rows, and the port draws ``repro``'s trials.
+* **Batched kernel grids** — every strategy's weights come from the trial
+  axis through ``GramEngine``'s ``*_batch`` entry points (one kernel
+  launch a strategy and point on the card), and the MWST + metric stage
+  is one (S*reps, d, d) Boruvka solve with a fixed round count.
+* **One device->host transfer a sweep** — the metric sums (and the fault
+  telemetry) stay on the device until the single read-back at the end;
+  ``TrialResult.host_syncs`` counts the reads.
+* **Faults** — a :class:`~repro_torch.core.faults.FaultPlan` injects
+  machine dropout, straggler truncation and sign bit flips, drawn from
+  ``repro``'s fold_in streams, and the center degrades through the
+  masked-Gram path; a zero-fault plan is bit-identical to none.
+
+``mst="host_kruskal"`` reads the weights back once and runs host Kruskal
+and numpy metrics per trial (metric-identical to the device path).
+:func:`evaluate_strategies` scores strategies on one dataset, and
+:func:`mc_sign_crossover` / :func:`mc_persymbol_corr_error` are the
+scalar Monte-Carlo engines of Figs. 5-6, 8 and 9.
+
+Not ported yet, each raising ``NotImplementedError``: the sparse plane
+(``tree="sparse"``, sparse strategies, ``path=`` plans) and the mesh and
+wire plane (``run_trials(mesh=...)``). Torch has no trace compile, so
+``repro``'s compile caches and their warm-up threads have no counterpart;
+the per-plan setup cache (trees and keys, per device) takes their place
+in :func:`compile_cache_size` and :func:`clear_compile_caches`.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+import time
+from typing import Sequence
+
+import numpy as np
 import torch
 
-from . import trees
+from repro_torch._device import as_tensor, resolve_device
+
+from . import estimators, faults as faults_mod, prng, sampler, trees
+from .chow_liu import boruvka_mst, boruvka_mst_batch, kruskal_mst
+from .distributed import CommReport, comm_report
+from .faults import FaultPlan, fault_trial_keys
+from .gram import (GramConfig, GramEngine, default_memory_budget,
+                   gram_working_set_bytes, resolve_engine)
+from .quantizers import PerSymbolQuantizer
+from .strategy import FIG3_STRATEGIES, Strategy
+
+TREE_KINDS = ("random", "star", "chain", "skeleton")
+#: ground-truth generators of the sparse trial plane (not ported yet)
+SPARSE_KINDS = ("sparse",)
+
+_SPARSE_PLANE = "arrives with the port's sparse plane (glasso, path)"
+_MESH_PLANE = "arrives with the port's mesh and wire plane"
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (and >= 8, the packed-wire byte floor)."""
+    return max(8, 1 << max(int(n) - 1, 1).bit_length())
+
+
+def _gram_path(s: Strategy) -> str:
+    """Which GramEngine path a strategy's payload contracts through
+    (the key of ``gram.gram_working_set_bytes``)."""
+    if s.method == "original":
+        return "f32"
+    if s.method == "sign":
+        return "packed" if s.wire == "packed" else "int8"
+    return "code"
+
+
+# --------------------------------------------------------------------------
+# Declarative sweep plan + result
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrialPlan:
+    """A full Monte-Carlo sweep: reps trials per (strategy, n) point.
+
+    Trial ``rep`` draws its tree and edge correlations from
+    ``np.random.default_rng(seed0 + rep)`` — topology per ``tree`` kind,
+    correlations Uniform[rho_min, rho_max] — and its samples from the key
+    ``fold_in(key(seed0), rep)``, folded again per sample row.
+
+    ``n_buckets``: ``"pow2"`` (default) pads each n to the next power of
+    two; an explicit tuple gives the bucket sizes (each n takes the
+    smallest bucket >= n); ``None`` runs exact shapes.
+
+    ``faults``: an optional :class:`FaultPlan` (``None`` = pristine wire).
+    ``memory_budget_bytes``: the per-device budget the sweep's working
+    sets must fit (``None`` = ``gram.default_memory_budget()``): pow2
+    padding backs off to the minimal 8-multiple, the Gram engine streams
+    (:meth:`budget_engine`) and the MWST stage runs in slabs
+    (:meth:`metrics_chunk`) where the monolithic forms would not fit.
+
+    Sparse plans (``tree="sparse"`` with sparse strategies, ``density``)
+    validate as in ``repro`` but do not run yet; ``path`` plans raise.
+    """
+
+    d: int
+    ns: tuple[int, ...]
+    strategies: tuple[Strategy, ...] = FIG3_STRATEGIES
+    reps: int = 30
+    tree: str = "random"
+    rho_min: float = 0.4
+    rho_max: float = 0.9
+    seed0: int = 0
+    n_buckets: tuple[int, ...] | str | None = "pow2"
+    #: edge density of the sparse ground truth (sparse plans only)
+    density: float = 0.2
+    faults: FaultPlan | None = None
+    memory_budget_bytes: int | None = None
+    #: regularization-path plan of the sparse plane (not ported yet)
+    path: object | None = None
+
+    def __post_init__(self):
+        if self.tree not in TREE_KINDS + SPARSE_KINDS:
+            raise ValueError(f"unknown tree kind {self.tree!r}")
+        if self.tree == "skeleton" and self.d != 20:
+            raise ValueError("skeleton topology is the 20-joint body")
+        if self.reps < 1 or self.d < 2:
+            raise ValueError("need reps >= 1 and d >= 2")
+        object.__setattr__(self, "ns", tuple(int(n) for n in self.ns))
+        object.__setattr__(self, "strategies", tuple(self.strategies))
+        structures = {s.structure for s in self.strategies}
+        if len(structures) > 1:
+            raise ValueError(
+                "a plan must be homogeneous in Strategy.structure (tree "
+                f"and sparse metrics differ), got {sorted(structures)}")
+        if (self.tree in SPARSE_KINDS) != (structures == {"sparse"}):
+            raise ValueError(
+                f"tree kind {self.tree!r} does not match the strategies' "
+                f"structure {sorted(structures)}: sparse strategies sweep "
+                "over tree='sparse' ground truths and vice versa")
+        if self.tree in SPARSE_KINDS and not 0.0 < self.density <= 1.0:
+            raise ValueError(f"density must be in (0, 1], got {self.density}")
+        nb = self.n_buckets
+        if isinstance(nb, str):
+            if nb != "pow2":
+                raise ValueError(f"unknown bucketing scheme {nb!r}")
+        elif nb is not None:
+            nb = tuple(sorted(int(b) for b in nb))
+            if not nb or nb[0] < 1:
+                raise ValueError(f"invalid n_buckets {self.n_buckets!r}")
+            if self.ns and max(self.ns) > nb[-1]:
+                raise ValueError(
+                    f"n_buckets {nb} do not cover max(ns)={max(self.ns)}")
+            object.__setattr__(self, "n_buckets", nb)
+        if self.faults is not None:
+            if not isinstance(self.faults, FaultPlan):
+                raise TypeError(
+                    f"faults must be a FaultPlan, got {type(self.faults)!r}")
+            self.faults.n_machines(self.d)  # machines must divide d
+        for s in self.strategies:
+            s.channel.check_plan(self.d, self.faults)
+        if (self.memory_budget_bytes is not None
+                and self.memory_budget_bytes <= 0):
+            raise ValueError(
+                f"memory_budget_bytes must be positive, "
+                f"got {self.memory_budget_bytes}")
+        if self.path is not None:
+            if self.tree not in SPARSE_KINDS:
+                raise ValueError(
+                    "path plans ride the sparse plane: TrialPlan(path=...) "
+                    "requires tree='sparse' + sparse strategies")
+            raise NotImplementedError(f"TrialPlan(path=...) {_SPARSE_PLANE}")
+
+    @property
+    def effective_memory_budget(self) -> int:
+        """The budget plan decisions run against (bytes): the explicit
+        ``memory_budget_bytes`` or ``gram.default_memory_budget()``."""
+        if self.memory_budget_bytes is not None:
+            return self.memory_budget_bytes
+        return default_memory_budget()
+
+    def stage_bytes(self, n_pad: int, *, backend: str = "torch",
+                    config: GramConfig | None = None) -> int:
+        """Analytic peak transient bytes of one weights stage at bucket
+        ``n_pad``: the (reps, n_pad, d) f32 samples, the worst strategy's
+        Gram working set and the (S, reps, d, d) f32 stage output."""
+        samples = 4 * self.reps * n_pad * self.d
+        gram_ws = max(
+            gram_working_set_bytes(
+                _gram_path(s), n_pad, self.d, backend=backend,
+                config=config, batch=self.reps)
+            for s in self.strategies)
+        out = 4 * len(self.strategies) * self.reps * self.d * self.d
+        return samples + gram_ws + out
+
+    def bucket_for(self, n: int) -> int:
+        """The padded sample count the weights stage runs at. Under
+        ``"pow2"``, when the stage's working set at the pow2 bucket
+        exceeds the budget, padding backs off to the minimal 8-multiple;
+        explicit buckets and ``None`` are respected as given."""
+        if self.n_buckets is None:
+            return n
+        if self.n_buckets == "pow2":
+            b = next_pow2(n)
+            floor_b = max(8, -(-n // 8) * 8)
+            if (b > floor_b
+                    and self.stage_bytes(b) > self.effective_memory_budget):
+                return floor_b
+            return b
+        for b in self.n_buckets:
+            if b >= n:
+                return b
+        raise ValueError(f"no bucket >= {n} in {self.n_buckets}")
+
+    def budget_engine(self, engine: GramEngine, device=None) -> GramEngine:
+        """Clamp ``engine``'s streaming knobs to the plan's memory budget.
+
+        If the monolithic Gram working set at the largest bucket exceeds
+        half the budget, returns a copy with the largest (d_tile, n_chunk)
+        whose working set fits. Engines with explicit d_tile/n_chunk are
+        returned unchanged. ``device`` (default cuda) decides what an
+        ``auto`` engine runs: the kernels on a card, torch on the CPU.
+        """
+        if (engine.d_tile is not None or engine.n_chunk is not None
+                or not self.ns):
+            return engine
+        backend = engine.backend
+        if backend == "auto":
+            dev = resolve_device(device)
+            backend = "kernel" if dev.type == "cuda" else "torch"
+        budget = self.effective_memory_budget // 2
+        n_max = max(self.bucket_for(n) for n in self.ns)
+        paths = {_gram_path(s) for s in self.strategies}
+
+        def worst(cfg: GramConfig) -> int:
+            return max(
+                gram_working_set_bytes(p, n_max, self.d, backend=backend,
+                                       config=cfg, batch=self.reps)
+                for p in paths)
+
+        if worst(GramConfig()) <= budget:
+            return engine
+        for t in (1024, 512, 256, 128):
+            if t >= self.d:
+                continue
+            for nc in (None, 8192, 2048):
+                cfg = GramConfig(d_tile=t, n_chunk=nc)
+                if worst(cfg) <= budget:
+                    return dataclasses.replace(
+                        engine, d_tile=t, n_chunk=nc)
+        # nothing fits the declared budget: stream as hard as we can
+        return dataclasses.replace(
+            engine, d_tile=min(128, self.d), n_chunk=1024)
+
+    def metrics_chunk(self) -> int | None:
+        """Slab size of the MWST stage (``None`` = one batch of all
+        S*reps trials): the per-trial solver scratch (~10 (d, d) f32
+        planes) of a slab must fit half the budget."""
+        trials = len(self.strategies) * self.reps
+        per_trial = 40 * self.d * self.d
+        budget = self.effective_memory_budget // 2
+        if trials * per_trial <= budget:
+            return None
+        return max(1, min(trials, budget // per_trial))
+
+    @property
+    def buckets(self) -> dict[int, int]:
+        """n -> padded bucket for every sweep point."""
+        return {n: self.bucket_for(n) for n in self.ns}
+
+    @property
+    def structure(self) -> str:
+        """'tree' or 'sparse' — which trial plane the plan runs on."""
+        return "sparse" if self.tree in SPARSE_KINDS else "tree"
+
+    @property
+    def points(self) -> int:
+        return len(self.ns) * len(self.strategies)
+
+    @property
+    def trials(self) -> int:
+        return self.points * self.reps
+
+
+@dataclasses.dataclass
+class TrialResult:
+    """Per-(strategy, n) Monte-Carlo metrics + engine telemetry."""
+
+    plan: TrialPlan
+    #: label -> [Pr(T_hat != T) per n in plan.ns]
+    error_rate: dict[str, list[float]]
+    #: label -> [mean edge symmetric difference |E_hat ^ E| per n]
+    edit_distance: dict[str, list[float]]
+    #: label -> [edge F1 per n]: mean shared edges / (d - 1)
+    edge_f1: dict[str, list[float]]
+    seconds: float
+    #: device->host reads the whole sweep performed: exactly 1
+    host_syncs: int
+    #: label -> [edge precision per n] (== recall == F1 for trees)
+    precision: dict[str, list[float]] = dataclasses.field(
+        default_factory=dict)
+    #: label -> [edge recall per n]
+    recall: dict[str, list[float]] = dataclasses.field(default_factory=dict)
+    #: label -> [CommReport per n]: logical n*d*R bits beside the bytes
+    #: the wire gathers at the bucket the sweep ran (and, under a fault
+    #: plan with retries, the measured retry bytes and rounds)
+    comm: dict[str, list[CommReport]] = dataclasses.field(default_factory=dict)
+    #: n -> padded bucket the weights stage ran at
+    buckets: dict[int, int] = dataclasses.field(default_factory=dict)
+    #: setup-cache entries live after this sweep (:func:`compile_cache_size`)
+    compile_cache_size: int = 0
+    #: fault plans only: per-n realized fault telemetry means — ``{"n",
+    #: "dropped_machines", "straggling_machines", "retransmissions",
+    #: "retry_rounds_used"}`` — measured from the sweep's draws
+    faults: list[dict] | None = None
+    #: ``{"memory_budget_bytes", "d_tile", "n_chunk", "metrics_chunk"}``:
+    #: the streaming knobs the sweep ran with (None = monolithic)
+    tiling: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def trials_per_s(self) -> float:
+        return self.plan.trials / max(self.seconds, 1e-9)
+
+
+# --------------------------------------------------------------------------
+# Host setup: stacked trees + trial keys (O(reps * d), cached per plan)
+# --------------------------------------------------------------------------
+
+def _draw_tree(kind: str, d: int, rng: np.random.Generator):
+    if kind == "random":
+        return trees.random_tree(d, rng)
+    if kind == "star":
+        return trees.star_tree(d)
+    if kind == "chain":
+        return trees.chain_tree(d)
+    return list(trees.SKELETON_EDGES)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_setup(d: int, reps: int, tree: str, rho_min: float,
+                rho_max: float, seed0: int):
+    """(parents, rhos) of the plan's trees as (reps, d) numpy arrays."""
+    parents = np.zeros((reps, d), np.int32)
+    rhos = np.zeros((reps, d), np.float32)
+    for rep in range(reps):
+        rng = np.random.default_rng(seed0 + rep)
+        edges = _draw_tree(tree, d, rng)
+        w = rng.uniform(rho_min, rho_max, size=d - 1)
+        parents[rep], rhos[rep], _ = trees.topological_parents(d, edges, w)
+    return parents, rhos
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_setup(d: int, reps: int, tree: str, rho_min: float, rho_max: float,
+                seed0: int, device: str):
+    """Cached device setup: (parents, rhos, adj_true, keys) on ``device``.
+
+    Keyed on the plan fields the ground truth depends on (not ns,
+    strategies or buckets) and on the device, so repeated sweeps of a
+    plan skip the host tree loop, the uploads and the key folds."""
+    parents, rhos = _host_setup(d, reps, tree, rho_min, rho_max, seed0)
+    parents_t = torch.from_numpy(parents).to(device)
+    keys = prng.fold_in(prng.key(seed0, device=device),
+                        torch.arange(reps, device=device))
+    return (parents_t, torch.from_numpy(rhos).to(device),
+            trees.adjacency_from_parents(parents_t), keys)
+
+
+def _setup_key(plan: TrialPlan):
+    return (plan.d, plan.reps, plan.tree, plan.rho_min, plan.rho_max,
+            plan.seed0)
+
+
+def _require_tree_plane(plan: TrialPlan) -> None:
+    if plan.structure == "sparse":
+        raise NotImplementedError(f"sparse trial plans {_SPARSE_PLANE}")
+
+
+def stacked_trees(plan: TrialPlan, *, device=None):
+    """``(parents, rhos, adj_true)`` of the plan's ``reps`` ground-truth
+    trees, (reps, d), (reps, d) and (reps, d, d), on ``device`` (default
+    cuda). Cached per plan and device with the trial keys."""
+    _require_tree_plane(plan)
+    return _plan_setup(*_setup_key(plan), str(resolve_device(device)))[:3]
+
+
+def trial_keys(plan: TrialPlan, *, device=None) -> torch.Tensor:
+    """(reps, 2) keys: one sampling stream per trial (``fold_in(key(seed0),
+    rep)``), from the same cache as :func:`stacked_trees`."""
+    _require_tree_plane(plan)
+    return _plan_setup(*_setup_key(plan), str(resolve_device(device)))[3]
+
+
+# --------------------------------------------------------------------------
+# Stages
+# --------------------------------------------------------------------------
+
+def _stacked_weights(keys, parents, rhos, n_valid: int, strategies, n_pad,
+                     engine, faults=None, fault_keys=None):
+    """Sample the bucket-shaped data once and emit every strategy's
+    (reps, d, d) weights stacked as (S, reps, d, d). With a fault plan
+    the one fault realization of each trial masks every strategy's
+    payload, and the return is ``(weights, telemetry sums)``."""
+    x = sampler.sample_tree_ggm_rows_batch(keys, n_pad, parents, rhos)
+    reps, _, d = x.shape
+    n_rows = flip = tele = None
+    if faults is not None:
+        n_rows, flip, tele = faults.draw_batch(fault_keys, n_pad, n_valid, d)
+    w = torch.empty((len(strategies), reps, d, d), dtype=torch.float32,
+                    device=x.device)
+    for i, s in enumerate(strategies):
+        w[i] = estimators.strategy_weights_batch(
+            x, s, n_valid=n_valid, n_rows=n_rows, flip=flip, engine=engine)
+    return w if faults is None else (w, tele.sum(dim=0))
 
 
 def structure_metric_channels(adj_est: torch.Tensor,
@@ -27,3 +435,331 @@ def structure_metric_channels(adj_est: torch.Tensor,
     ham = trees.structure_hamming(adj_est, adj_ref).to(torch.float32)
     shared = (adj_est & adj_ref).sum(dim=(-2, -1)).to(torch.float32) / 2
     return torch.stack([err, ham, shared], dim=-1)
+
+
+def _metric_sums(w: torch.Tensor, adj_true: torch.Tensor,
+                 chunk: int | None = None) -> torch.Tensor:
+    """(S, r, d, d) weights + (r, d, d) truth -> (S, 3) metric SUMS over
+    the rep axis: one Boruvka solve of the flattened (S*r) stack with a
+    fixed round count (no host sync), in ``chunk``-trial slabs."""
+    S, r, d, _ = w.shape
+    est = boruvka_mst_batch(w.reshape(S * r, d, d), chunk,
+                            early_exit=False).reshape(S, r, d, d)
+    return structure_metric_channels(est, adj_true[None]).sum(dim=1)
+
+
+# --------------------------------------------------------------------------
+# Setup-cache hygiene
+# --------------------------------------------------------------------------
+
+def _setup_caches():
+    return (_host_setup, _plan_setup, faults_mod._fault_trial_keys)
+
+
+def compile_cache_size() -> int:
+    """Live entries of the per-plan setup caches (trees, uploads, keys).
+    The name is ``repro``'s, whose caches also hold compiled stages."""
+    return sum(c.cache_info().currsize for c in _setup_caches())
+
+
+def clear_compile_caches() -> int:
+    """Drop every cached per-plan setup bundle; returns how many."""
+    n = compile_cache_size()
+    for c in _setup_caches():
+        c.cache_clear()
+    return n
+
+
+# --------------------------------------------------------------------------
+# The sweep engine
+# --------------------------------------------------------------------------
+
+def _comm_reports(plan: TrialPlan, fault_sums: np.ndarray | None = None
+                  ) -> dict[str, list[CommReport]]:
+    """Per-strategy CommReport per n: logical bits at the true n beside
+    the payload bytes at the bucket the sweep ran (no collectives on one
+    device). Under a fault plan with retries, the retry bytes are
+    measured from the realized retransmission counts: mean machines
+    re-requested a round times the per-machine wire bytes."""
+    f = plan.faults
+    comm: dict[str, list[CommReport]] = {}
+    for s in plan.strategies:
+        reports = []
+        for i, n in enumerate(plan.ns):
+            rep = dataclasses.replace(
+                comm_report(s, n, plan.d, n_pad=plan.bucket_for(n)),
+                collectives=0)
+            if f is not None and f.retries > 0 and fault_sums is not None:
+                machines = f.n_machines(plan.d)
+                retrans = fault_sums[i, 2:2 + f.retries] / plan.reps
+                used = fault_sums[i, 2 + f.retries:2 + 2 * f.retries] \
+                    / plan.reps
+                rep = dataclasses.replace(
+                    rep,
+                    retry_bytes=float(np.sum(retrans))
+                    * rep.wire_bytes / machines,
+                    retry_collectives=float(np.sum(used)),
+                    retry_rounds=f.retries)
+            reports.append(rep)
+        comm[s.label] = reports
+    return comm
+
+
+def _fault_stats(plan: TrialPlan,
+                 fault_sums: np.ndarray | None) -> list[dict] | None:
+    """(len(ns), channels) realized telemetry sums -> the per-n
+    ``TrialResult.faults`` dicts (means over reps)."""
+    if fault_sums is None:
+        return None
+    r = plan.faults.retries
+    stats = []
+    for i, n in enumerate(plan.ns):
+        row = np.asarray(fault_sums[i], np.float64) / plan.reps
+        stats.append({
+            "n": int(n),
+            "dropped_machines": float(row[0]),
+            "straggling_machines": float(row[1]),
+            "retransmissions": [float(v) for v in row[2:2 + r]],
+            "retry_rounds_used": [float(v) for v in row[2 + r:2 + 2 * r]],
+        })
+    return stats
+
+
+def _package_result(plan: TrialPlan, m: np.ndarray, *, seconds: float,
+                    host_syncs: int, fault_sums: np.ndarray | None,
+                    tiling: dict) -> TrialResult:
+    """(S, len(ns), 3) mean metrics -> TrialResult, with ``repro``'s f32
+    arithmetic for the derived metrics: edge F1 == shared / (d - 1) for
+    spanning trees, and precision == recall == F1."""
+    labels = [s.label for s in plan.strategies]
+
+    def _cols(a: np.ndarray) -> dict[str, list[float]]:
+        return {lab: [float(v) for v in a[i]] for i, lab in enumerate(labels)}
+
+    edge_f1 = _cols(m[:, :, 2] / np.float32(plan.d - 1))
+    return TrialResult(
+        plan=plan, error_rate=_cols(m[:, :, 0]),
+        edit_distance=_cols(m[:, :, 1]), edge_f1=edge_f1,
+        precision={lab: list(v) for lab, v in edge_f1.items()},
+        recall={lab: list(v) for lab, v in edge_f1.items()},
+        seconds=seconds, host_syncs=host_syncs,
+        comm=_comm_reports(plan, fault_sums), buckets=plan.buckets,
+        compile_cache_size=compile_cache_size(),
+        faults=_fault_stats(plan, fault_sums), tiling=tiling)
+
+
+def _host_kruskal_trials(plan: TrialPlan, engine: GramEngine,
+                         dev: torch.device) -> TrialResult:
+    """``mst="host_kruskal"``: the device weights stage, then host Kruskal
+    and numpy metrics per trial. Every weight tensor (and the fault
+    telemetry) comes back in ONE read."""
+    parents, rhos, _, keys = _plan_setup(*_setup_key(plan), str(dev))
+    host_adj = trees.adjacency_from_parents(
+        torch.from_numpy(_host_setup(*_setup_key(plan))[0])).numpy()
+    faults = plan.faults
+    fkeys = (fault_trial_keys(faults, plan.reps, device=dev)
+             if faults is not None else None)
+    t0 = time.perf_counter()
+    ws, fsums = [], []
+    for n in plan.ns:
+        out = _stacked_weights(keys, parents, rhos, n, plan.strategies,
+                               plan.bucket_for(n), engine, faults, fkeys)
+        if faults is None:
+            ws.append(out)
+        else:
+            ws.append(out[0])
+            fsums.append(out[1])
+    stacked = torch.stack(ws)  # (len(ns), S, reps, d, d)
+    flat = [stacked.flatten()]
+    if faults is not None:  # the telemetry rides the same read
+        flat.append(torch.stack(fsums).flatten())
+    host = torch.cat(flat).cpu().numpy()
+    syncs = 1
+    host_w = host[:stacked.numel()].reshape(stacked.shape)
+    host_f = (host[stacked.numel():].reshape(len(plan.ns), -1)
+              if faults is not None else None)
+    d = plan.d
+    sums = np.zeros((len(plan.strategies), len(plan.ns), 3), np.float32)
+    for i_n in range(len(plan.ns)):
+        for i_s in range(len(plan.strategies)):
+            for rep in range(plan.reps):
+                est = np.zeros((d, d), dtype=bool)
+                for j, k in kruskal_mst(host_w[i_n, i_s, rep]):
+                    est[j, k] = est[k, j] = True
+                true = host_adj[rep]
+                sums[i_s, i_n, 0] += (est != true).any()
+                sums[i_s, i_n, 1] += (est != true).sum() // 2
+                sums[i_s, i_n, 2] += (est & true).sum() // 2
+    m = sums / np.float32(plan.reps)
+    return _package_result(
+        plan, m, seconds=time.perf_counter() - t0, host_syncs=syncs,
+        fault_sums=host_f,
+        tiling={"memory_budget_bytes": plan.effective_memory_budget,
+                "d_tile": engine.d_tile, "n_chunk": engine.n_chunk,
+                "metrics_chunk": None})
+
+
+def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
+               mesh=None, mst: str = "device", device=None) -> TrialResult:
+    """Run a full Monte-Carlo sweep on one device with ONE host read.
+
+    For each n the trial data (reps, n_bucket, d) is sampled once and
+    shared by every strategy (methods see the same draws); every
+    strategy's weights come through the batched Gram entry points, and
+    one fixed-round Boruvka solve of the (S*reps, d, d) stack gives the
+    per-point metric sums, which stay on the device until the single
+    read-back of the (S, len(ns), 3) tensor (with the fault telemetry).
+
+    ``device`` (default cuda; raises without it) is where the sweep runs;
+    the tests pass ``device="cpu"``. ``engine`` pins the Gram backend
+    (default: the kernels on a card, torch on the CPU) and is clamped to
+    the plan's memory budget. ``mst="host_kruskal"`` reads the weights
+    back once and solves on the host. A fault plan runs the masked-Gram
+    path and reports the realized telemetry on ``TrialResult.faults``;
+    a zero-fault plan is bit-identical to none.
+    """
+    if mesh is not None:
+        raise NotImplementedError(f"run_trials(mesh=...) {_MESH_PLANE}")
+    _require_tree_plane(plan)
+    labels = [s.label for s in plan.strategies]
+    if len(set(labels)) != len(labels):
+        raise ValueError(f"duplicate strategy labels: {labels}")
+    if mst not in ("device", "host_kruskal"):
+        raise ValueError(f"unknown mst mode {mst!r}")
+    dev = resolve_device(device)
+    engine = plan.budget_engine(resolve_engine(engine), device=dev)
+    if mst == "host_kruskal":
+        return _host_kruskal_trials(plan, engine, dev)
+    chunk = plan.metrics_chunk()
+    parents, rhos, adj_true, keys = _plan_setup(*_setup_key(plan), str(dev))
+    faults = plan.faults
+    fkeys = (fault_trial_keys(faults, plan.reps, device=dev)
+             if faults is not None else None)
+    point_sums, fault_sums = [], []
+    t0 = time.perf_counter()
+    for n in plan.ns:
+        out = _stacked_weights(keys, parents, rhos, n, plan.strategies,
+                               plan.bucket_for(n), engine, faults, fkeys)
+        if faults is None:
+            w = out
+        else:
+            w, fsum = out
+            fault_sums.append(fsum)
+        point_sums.append(_metric_sums(w, adj_true, chunk))
+        del w, out
+    # (S, len(ns), 3) metric sums, still on the device, and the fault
+    # telemetry sums: THE read-back. host_syncs counts real reads.
+    sums = torch.stack(point_sums, dim=1)
+    bundle = [sums.flatten()]
+    if faults is not None:
+        bundle.append(torch.stack(fault_sums).flatten())
+    host = torch.cat(bundle).cpu().numpy()
+    syncs = 1
+    seconds = time.perf_counter() - t0
+    # the means divide on the host: CUDA divides a tensor by a python
+    # scalar as a product with its reciprocal, which rounds unlike the
+    # CPU's (and XLA's) division
+    m = host[:sums.numel()].reshape(sums.shape) / np.float32(plan.reps)
+    fsums = (host[sums.numel():].reshape(len(plan.ns), -1)
+             if faults is not None else None)
+    return _package_result(
+        plan, m, seconds=seconds, host_syncs=syncs, fault_sums=fsums,
+        tiling={"memory_budget_bytes": plan.effective_memory_budget,
+                "d_tile": engine.d_tile, "n_chunk": engine.n_chunk,
+                "metrics_chunk": chunk})
+
+
+# --------------------------------------------------------------------------
+# Single-dataset evaluation (Figs. 10-11: one big x, several strategies)
+# --------------------------------------------------------------------------
+
+def learned_adjacency(x, strategy: Strategy, *,
+                      engine: GramEngine | None = None,
+                      device=None) -> torch.Tensor:
+    """Device-side tree estimate of one (n, d) dataset: sample ->
+    quantize -> Gram -> weights -> fixed-round Boruvka, as a (d, d) bool
+    adjacency on the data's device (host data goes to ``device``)."""
+    if strategy.structure == "sparse":
+        raise NotImplementedError(f"sparse strategies {_SPARSE_PLANE}")
+    x = as_tensor(x, resolve_device(device, x), torch.float32)
+    return boruvka_mst(estimators.strategy_weights(
+        x, strategy, engine=resolve_engine(engine)), early_exit=False)
+
+
+def evaluate_strategies(x, adj_true, strategies: Sequence[Strategy], *,
+                        engine: GramEngine | None = None,
+                        device=None) -> dict[str, dict[str, float]]:
+    """Score several strategies on ONE dataset against a reference
+    adjacency; the per-strategy metrics come back in one read.
+
+    Returns ``{label: {error, edit_distance, edge_f1}}`` where
+    ``edit_distance`` is the edge symmetric difference |E_hat ^ E_ref|.
+    """
+    x = as_tensor(x, resolve_device(device, x), torch.float32)
+    adj_true = as_tensor(adj_true, x.device).bool()
+    stacked = []
+    for strat in strategies:
+        est = learned_adjacency(x, strat, engine=engine)
+        stacked.append(torch.stack([
+            trees.structure_error(est, adj_true).to(torch.float32),
+            trees.structure_hamming(est, adj_true).to(torch.float32),
+            trees.edge_f1(est, adj_true),
+        ]))
+    m = torch.stack(stacked).cpu().numpy()
+    return {
+        strat.label: {
+            "error": float(m[i, 0]),
+            "edit_distance": float(m[i, 1]),
+            "edge_f1": float(m[i, 2]),
+        }
+        for i, strat in enumerate(strategies)
+    }
+
+
+# --------------------------------------------------------------------------
+# Scalar Monte-Carlo engines (Figs. 5-6, 8, 9) — batched, one read a call
+# --------------------------------------------------------------------------
+
+def _mix(rho: torch.Tensor, x: torch.Tensor, z: torch.Tensor):
+    """rho * x + sqrt(1 - rho^2) * z in f32."""
+    return rho * x + torch.sqrt(1 - rho ** 2) * z
+
+
+def mc_sign_crossover(n: int, rho_e: float, rho_ep: float, reps: int,
+                      seed: int = 0, *, device=None) -> float:
+    """Monte-Carlo Pr(theta_hat_e <= theta_hat_e') for the Fig. 4 shared-
+    node pair — the crossover event of Figs. 5-6 — over ``reps`` trials
+    of n samples each, drawn as ``repro`` draws them (one read)."""
+    dev = resolve_device(device)
+    kk, kj, ks = prng.split(prng.key(seed, device=dev), 3)
+    rho_e = torch.tensor(rho_e, dtype=torch.float32, device=dev)
+    rho_ep = torch.tensor(rho_ep, dtype=torch.float32, device=dev)
+    xk = prng.normal(kk, (reps, n))
+    xj = _mix(rho_e, xk, prng.normal(kj, (reps, n)))
+    xs = _mix(rho_ep, xk, prng.normal(ks, (reps, n)))
+    # theta_hat = agreements / n: comparing the counts is comparing them
+    agree_e = (torch.sign(xj) * torch.sign(xk) > 0).sum(dim=1)
+    agree_ep = (torch.sign(xk) * torch.sign(xs) > 0).sum(dim=1)
+    hits = (agree_e <= agree_ep).sum().cpu().numpy()
+    return float(np.float32(hits) / np.float32(reps))
+
+
+def mc_persymbol_corr_error(n: int, rho: float, rate: int, reps: int, *,
+                            against_empirical: bool = False, seed: int = 0,
+                            device=None) -> float:
+    """Monte-Carlo E|ref - mean(x_q * y_q)| for the R-bit per-symbol
+    quantizer on a correlated Gaussian pair (``reps`` trials of n).
+
+    ``against_empirical=True`` scores against the unquantized empirical
+    correlation (the Fig. 8 relative error); False against the true rho
+    (the Fig. 9 estimation error under a fixed bit budget).
+    """
+    dev = resolve_device(device)
+    q = PerSymbolQuantizer(rate)
+    kx, ke = prng.split(prng.key(seed, device=dev))
+    rho_t = torch.tensor(rho, dtype=torch.float32, device=dev)
+    x = prng.normal(kx, (reps, n))
+    y = _mix(rho_t, x, prng.normal(ke, (reps, n)))
+    est = (q.quantize(x) * q.quantize(y)).mean(dim=1)
+    ref = (x * y).mean(dim=1) if against_empirical else rho_t
+    return float((ref - est).abs().mean().cpu())

@@ -36,6 +36,7 @@ backends over sample chunks. Both are bit-identical on integer paths.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Literal
 
 import numpy as np
@@ -399,6 +400,26 @@ def gram_working_set_bytes(
     else:
         work = 4 * batch * 2 * nc * t  # f32 upcast/decode of both tile slabs
     return oper + work
+
+
+#: environment override of :func:`default_memory_budget` (bytes)
+MEMORY_BUDGET_ENV = "REPRO_MEMORY_BUDGET_BYTES"
+
+
+def default_memory_budget() -> int:
+    """Per-device memory budget in bytes for plan and tile decisions.
+
+    ``REPRO_MEMORY_BUDGET_BYTES`` overrides; else the card's total memory
+    (``torch.cuda.get_device_properties``) when there is a card, so a
+    plan decides alike on the card and on its host's CPU; else an 8 GiB
+    host heuristic.
+    """
+    env = os.environ.get(MEMORY_BUDGET_ENV)
+    if env:
+        return int(env)
+    if torch.cuda.is_available():
+        return int(torch.cuda.get_device_properties(0).total_memory)
+    return 8 << 30
 
 
 _default_engine = GramEngine()

@@ -121,6 +121,11 @@ class PerSymbolQuantizer:
         return self.decode(self.encode(x))
 
 
+def reconstruction_distortion(rate: int) -> float:
+    """Closed-form E[(x-u)^2] = 1 - sigma_u^2 for the R-bit quantizer."""
+    return 1.0 - PerSymbolQuantizer(rate).codebook_variance
+
+
 #: Sentinel bin code marking a masked-out (padded) sample: it matches no
 #: quantizer level, so every Gram backend decodes it to 0.
 MASKED_CODE = -1
@@ -134,6 +139,18 @@ def valid_sample_mask(n_pad: int, n_valid, device=None) -> torch.Tensor:
 
     dev = resolve_device(device, n_valid)
     return torch.arange(n_pad, device=dev) < n_valid
+
+
+def valid_row_mask(n_pad: int, n_rows) -> torch.Tensor:
+    """(..., n_pad, d) bool mask of delivered rows under PER-FEATURE row
+    counts, the fault plane's generalization of
+    :func:`valid_sample_mask`: row i of feature j is valid iff
+    i < n_rows[..., j]. ``n_rows``: the (..., d) counts a ``FaultPlan``
+    draws (0 for a dropped machine's features, a truncated prefix for a
+    straggler's), a tensor whose device the mask takes."""
+    counts = torch.as_tensor(n_rows)
+    rows = torch.arange(n_pad, device=counts.device)
+    return rows[:, None] < counts[..., None, :]
 
 
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)

@@ -9,11 +9,19 @@ The port of ``repro.core.sampler``'s one-shot samplers:
 * ``sample_tree_ggm`` — the host-facing wrapper over edge lists, columns
   in the original node labelling.
 
-The normals come from an explicit ``torch.Generator`` on the target
-device; the port holds its samplers to ``repro``'s law, not to
-``jax.random``'s bits. Rows are drawn in blocks so the (n, d) result is
-the only full-size buffer. The row-keyed bucket-stable samplers arrive
-with the port's trial plane.
+The normals of these come from an explicit ``torch.Generator`` on the
+target device; they are held to ``repro``'s law, not to
+``jax.random``'s bits.
+
+The trial plane's row-keyed samplers (``sample_tree_ggm_rows[_batch]``,
+``sample_ggm_rows[_batch]``) draw row i of trial k from
+``fold_in(keys[k], i)`` with the port's threefry (``core.prng``), so
+they draw ``repro``'s normals (within 2 f32 ulps) and the first m rows
+of an (n, d) draw are bit-equal to the (m, d) draw.
+
+Rows are drawn in blocks so the samples are the only full-size buffer.
+The mixing product runs in full f32: no TF32 on the card, which must
+agree with the CPU to rounding.
 """
 from __future__ import annotations
 
@@ -22,10 +30,14 @@ import torch
 
 from repro_torch._device import resolve_device
 
-from . import trees
+from . import prng, trees
 
 #: rows drawn per block of driving normals
 _ROW_BLOCK = 1 << 16
+#: elements (trials x rows x d) of one block of row-keyed normals: the
+#: threefry words are int64, so a block's transients are a few of these
+#: times 8 bytes
+_ROW_KEYED_BLOCK = 1 << 24
 
 
 def bfs_order(d: int, edges: list[tuple[int, int]], root: int = 0):
@@ -115,3 +127,70 @@ def sample_ggm(generator, n: int, corr, *, device=None) -> torch.Tensor:
         np.asarray(corr, dtype=np.float64) + 1e-12 * np.eye(d))
     return _mix(generator, n,
                 torch.as_tensor(chol.T, dtype=torch.float32, device=dev))
+
+
+# --------------------------------------------------------------------------
+# Row-keyed, bucket-stable samplers (the trial plane's data)
+# --------------------------------------------------------------------------
+
+def _row_normals(keys: torch.Tensor, r0: int, r1: int, d: int):
+    """(t, 2) trial keys -> (t, r1 - r0, d) standard normals, row i of
+    trial k from ``fold_in(keys[k], i)``: ``repro.core.sampler.
+    _row_normals`` rows r0..r1."""
+    rows = torch.arange(r0, r1, device=keys.device)
+    row_keys = prng.fold_in(keys[:, None, :], rows[None, :])
+    return prng.normal(row_keys, (d,))
+
+
+def _mixed_rows(keys: torch.Tensor, n: int, mix_t: torch.Tensor,
+                scale: torch.Tensor | None = None) -> torch.Tensor:
+    """x[k] = (scale[k] * z[k]) @ mix_t[k] with z the row-keyed normals of
+    ``keys``, drawn and mixed in row blocks: (t, n, d) f32."""
+    t, d = keys.shape[0], mix_t.shape[-1]
+    x = torch.empty((t, n, d), dtype=torch.float32, device=keys.device)
+    step = max(1, _ROW_KEYED_BLOCK // max(1, t * d))
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # no TF32
+    try:
+        for r0 in range(0, n, step):
+            r1 = min(n, r0 + step)
+            z = _row_normals(keys, r0, r1, d)
+            if scale is not None:
+                z.mul_(scale[:, None, :])
+            x[:, r0:r1] = torch.matmul(z, mix_t)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    return x
+
+
+def sample_tree_ggm_rows_batch(keys: torch.Tensor, n: int, parents,
+                               rhos) -> torch.Tensor:
+    """Row-keyed tree-GGM trials: (t, 2) keys + (t, d) topological
+    parents/rhos -> (t, n, d) f32 on the keys' device. Row i of trial k
+    depends only on (keys[k], i), so bucket padding cannot change a
+    trial's draws (``repro``'s ``sample_tree_ggm_rows_batch``)."""
+    rhos = torch.as_tensor(rhos, dtype=torch.float32, device=keys.device)
+    M = trees.path_product_mixer(
+        torch.as_tensor(parents, device=keys.device), rhos)
+    return _mixed_rows(keys, n, M.transpose(-1, -2),
+                       trees._innovation_scale(rhos))
+
+
+def sample_tree_ggm_rows(key: torch.Tensor, n: int, parent,
+                         rho) -> torch.Tensor:
+    """:func:`sample_tree_ggm_rows_batch` of one (2,) key: (n, d)."""
+    return sample_tree_ggm_rows_batch(
+        key[None], n, torch.as_tensor(parent)[None],
+        torch.as_tensor(rho)[None])[0]
+
+
+def sample_ggm_rows_batch(keys: torch.Tensor, n: int, chols) -> torch.Tensor:
+    """Row-keyed generic GGM trials: (t, 2) keys + (t, d, d) Cholesky
+    factors L (x = L z) -> (t, n, d) f32, rows stable in n."""
+    chols = torch.as_tensor(chols, dtype=torch.float32, device=keys.device)
+    return _mixed_rows(keys, n, chols.transpose(-1, -2))
+
+
+def sample_ggm_rows(key: torch.Tensor, n: int, chol) -> torch.Tensor:
+    """:func:`sample_ggm_rows_batch` of one (2,) key: (n, d)."""
+    return sample_ggm_rows_batch(key[None], n, torch.as_tensor(chol)[None])[0]

@@ -124,14 +124,19 @@ def path_product_mixer(parent: torch.Tensor, rho: torch.Tensor) -> torch.Tensor:
     Solves x_t = rho_t x_{parent(t)} + c_t z_t, i.e. M = (I - B)^{-1} with
     B[t, parent[t]] = rho_t strictly lower triangular. B is nilpotent, so
     the inverse is the finite product prod_k (I + B^(2^k)): ceil(log2 d)
-    rounds of two f32 matmuls on ``rho``'s device.
+    rounds of two f32 matmuls on ``rho``'s device. Batched over leading
+    axes of (..., d) ``parent``/``rho``. Each entry of each product sums
+    one path's term and zeros, so M is exact to its products' rounding
+    whatever order a matmul sums in.
     """
     rho = torch.as_tensor(rho, dtype=torch.float32)
     parent = torch.as_tensor(parent, device=rho.device).to(torch.int64)
-    d = parent.shape[0]
+    d = parent.shape[-1]
     t = torch.arange(d, device=rho.device)
-    B = torch.zeros((d, d), dtype=torch.float32, device=rho.device)
-    B[t, parent] = torch.where(t > 0, rho, 0.0)
+    B = torch.zeros((*parent.shape, d), dtype=torch.float32,
+                    device=rho.device)
+    B.scatter_(-1, parent[..., None],
+               torch.where(t > 0, rho, 0.0)[..., None])
     M = torch.eye(d, dtype=torch.float32, device=rho.device) + B
     P = B
     for _ in range(max(int(np.ceil(np.log2(max(d, 2)))), 1)):

@@ -203,9 +203,12 @@ def test_strategy_weights_batch_bucketed(samples, s):
         jnp.asarray(xb), s, n_valid=1000))
     if s.method == "sign":
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=2.5e-7)
-    with pytest.raises(NotImplementedError):
-        t_est.strategy_weights_batch(torch.from_numpy(xb), ts,
-                                     n_rows=np.full((2, D), 1000))
+    # fault counts that are all n_valid (a zero-fault realization) give
+    # the bucketed weights bit for bit
+    got_f = t_est.strategy_weights_batch(
+        torch.from_numpy(xb), ts, n_valid=1000,
+        n_rows=torch.full((2, D), 1000, dtype=torch.int32))
+    np.testing.assert_array_equal(got_f.numpy(), got.numpy())
 
 
 @pytest.mark.parametrize("name", ["mac_weights_batch", "budget_payload"])

@@ -485,3 +485,46 @@ def test_cuda_server_matches_cpu(cuda, tmp_path):
     assert t_card == t_cpu
     for k in s_card:
         assert np.array_equal(s_card[k], s_cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_trial_plane_matches_cpu(cuda):
+    """A small sweep (d = 20, the Fig. 3 width, every strategy and both
+    wires) and a faulty one on the card and on the CPU: equal results,
+    one host read, the four trial-plane kernels launched; a zero-fault
+    plan equal to none on the card."""
+    import dataclasses
+
+    from repro_torch.core import FIG3_STRATEGIES, Strategy
+    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.faults import FaultPlan
+
+    packed = (Strategy("sign", wire="packed"),
+              Strategy("persymbol", rate=2, wire="packed"))
+    faults = FaultPlan(dropout=0.2, straggle=0.3, bitflip=0.01, retries=1,
+                       machines=4, seed=1)
+    fields = ("error_rate", "edit_distance", "edge_f1", "buckets",
+              "host_syncs", "faults")
+    before = kernels.launches()
+    for plan in (TrialPlan(d=20, ns=(100, 250), reps=6),
+                 TrialPlan(d=20, ns=(100, 250), reps=6, strategies=packed),
+                 TrialPlan(d=20, ns=(100,), reps=6, strategies=packed,
+                           faults=faults)):
+        card = run_trials(plan, device=cuda)
+        host = run_trials(plan, device="cpu")
+        assert card.host_syncs == 1
+        for f in fields:
+            assert getattr(card, f) == getattr(host, f), f
+        assert ({k: [dataclasses.asdict(r) for r in v]
+                 for k, v in card.comm.items()}
+                == {k: [dataclasses.asdict(r) for r in v]
+                    for k, v in host.comm.items()})
+    after = kernels.launches()
+    assert all(after[k] > before[k] for k in
+               ("sign_corr", "sign_corr_packed", "code_corr",
+                "quantize_fused"))
+    plan = TrialPlan(d=20, ns=(100,), reps=6, strategies=FIG3_STRATEGIES)
+    zero = dataclasses.replace(plan, faults=FaultPlan(machines=4, retries=1))
+    a, b = run_trials(plan, device=cuda), run_trials(zero, device=cuda)
+    for f in ("error_rate", "edit_distance", "edge_f1"):
+        assert getattr(a, f) == getattr(b, f), f

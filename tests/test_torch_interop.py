@@ -115,7 +115,10 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith"
         "(('jax.', 'jaxlib')) or k == 'repro' or k.startswith('repro.'))\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "need = {'repro_torch.core.' + m for m in ('bounds', 'distributed',"
+        " 'experiments', 'faults', 'prng', 'sampler')}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
