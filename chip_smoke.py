@@ -23,7 +23,13 @@ timed at its batched shapes, the paper's Fig. 3 sweep (d = 20, 720
 trials) on the card and the CPU with one device->host copy a sweep,
 sweeps at d = 1024 with their time split, and the fault plane (a
 zero-fault plan bit-identical to none, a mixed plan's telemetry card
-against CPU). Any failed check exits non-zero. The last three
+against CPU). Then the sparse plane (phase 13): the kernels held at its
+shapes; examples/sparse_glasso.py's sweep (d = 16, 384 trials) with a
+fixed penalty, an EBIC path and a StARS path, card against CPU (supports
+may part only at partial correlations that sit at the threshold) with the
+device->host copies counted by cause; a d = 128 sweep with its time
+split and eigh's time a step, card against CPU; and the sparse fault
+checks. Any failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
@@ -1579,9 +1585,10 @@ def card_vs_cpu_sweep(plan, card, host, dev, what):
     return ties
 
 
-def profiled(fn):
-    """(result, wall s, device busy ms, device->host copies) of fn() under
-    torch.profiler: busy is the kernels' and copies' device time."""
+def _profile(fn):
+    """(result, wall s, device busy ms, device->host copies, profile) of
+    fn() under torch.profiler: busy is the kernels' and copies' device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     sync()
@@ -1598,7 +1605,12 @@ def profiled(fn):
                if "CUDA" in str(getattr(e, "device_type", ""))
                and "DtoH" in e.name)
     expect(busy > 0, "the profiler saw no device time")
-    return out, wall, busy / 1e3, dtoh
+    return out, wall, busy / 1e3, dtoh, prof
+
+
+def profiled(fn):
+    """(result, wall s, device busy ms, device->host copies) of fn()."""
+    return _profile(fn)[:4]
 
 
 def check_trial_kernels(dev, reps):
@@ -1946,6 +1958,365 @@ def trial_plane(dev, total, records, reps):
     log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sparse plane
+# ---------------------------------------------------------------------------
+
+#: examples/sparse_glasso.py's plan, uncut: d = 16, three ns, 32 reps of
+#: sign, R2, R4 and original at lam = 0.06 (384 trials), 300 ISTA steps
+SPARSE_SWEEP = dict(d=16, ns=(250, 1000, 4000), tree="sparse", density=0.18,
+                    rho_min=0.25, rho_max=0.45, reps=32, glasso_steps=300)
+SPARSE_LAM = 0.06
+#: the example's path grid
+SPARSE_PATH = dict(n_lams=6, lam_min_ratio=0.08)
+#: the width: d = 128 at d = 16's expected degree (~2.7 edges a node)
+SPARSE_WIDE = dict(d=128, ns=(4096,), tree="sparse", density=0.02,
+                   rho_min=0.25, rho_max=0.45, reps=16, glasso_steps=300)
+#: reps of the width sweep when its solve alone passes SPARSE_SOLVE_LIMIT_S
+SPARSE_WIDE_CUT_REPS = 8
+SPARSE_SOLVE_LIMIT_S = 120.0
+#: (batch, d) of the eigh calls whose time phase 13 logs: the width
+#: sweep's d at three batches, and both sides of d = 32
+EIGH_SHAPES = ((16, 128), (48, 128), (96, 128), (128, 32), (128, 33))
+#: tests/test_faults.py's sparse plan
+SPARSE_FAULTS = dict(d=8, ns=(64,), reps=6, seed0=3, tree="sparse")
+SPARSE_FAULT_PLAN = dict(dropout=0.3, machines=4, seed=8)
+
+
+def _sparse_strategies(methods):
+    from repro_torch.core import Strategy
+
+    table = {"sign": Strategy("sign", structure="sparse", lam=SPARSE_LAM),
+             "R2": Strategy("persymbol", rate=2, structure="sparse",
+                            lam=SPARSE_LAM),
+             "R4": Strategy("persymbol", rate=4, structure="sparse",
+                            lam=SPARSE_LAM),
+             "original": Strategy("original", structure="sparse",
+                                  lam=SPARSE_LAM)}
+    return tuple(table[m] for m in methods)
+
+
+def sparse_card_vs_cpu(plan, card, host, dev, what):
+    """Hold a sparse sweep's card results to its CPU results: fault
+    telemetry, buckets and reads equal; a metric (or a path's per-lam
+    curve or selection count) may differ only as
+    experiments.sparse_sweep_faults allows: the point, solved alone on
+    each device, gives exactly what that device's sweep gave it, and the
+    card's supports part from the CPU's only at entries within
+    glasso.THRESHOLD_BAND of the threshold (or at tied EBIC picks).
+    Returns the points solved again, as (label, n, entries parted)."""
+    from repro_torch.core.experiments import sparse_sweep_faults
+
+    _same_results(card, host, what, fields=("buckets", "host_syncs",
+                                            "faults"), comm=False)
+    parted, faults = sparse_sweep_faults(plan, card, host, device=dev,
+                                         ref_device="cpu")
+    expect(not faults, f"{what}: {faults}")
+    return parted
+
+
+def check_sparse_kernels(plan, dev, what):
+    """The kernels of a phase-13 plan against their plain versions at the
+    shapes its sweep gives them: at each point, the sparse sampler's
+    (reps, n_bucket, d) draws; quantize_fused at each per-symbol rate bit
+    for bit, and every strategy's Gram through the kernels against the
+    torch backend on the same payload (sign Grams bit for bit, code Grams
+    within code_tolerance). Returns the largest code_corr error."""
+    import torch
+    from repro_torch.core import estimators, experiments, sampler
+    from repro_torch.core.gram import GramEngine
+    from repro_torch.core.quantizers import codebook_tensors
+    from repro_torch.kernels import quantize_fused, ref
+
+    chols, _, keys = experiments._sparse_plan_setup(
+        *experiments._sparse_setup_key(plan), str(torch.device(dev)))
+    kernel, plain = GramEngine(backend="kernel"), GramEngine(backend="torch")
+    worst = 0.0
+    for n in plan.ns:
+        x = sampler.sample_ggm_rows_batch(keys, plan.bucket_for(n), chols)
+        shape = f"b={plan.reps} n={x.shape[1]} d={plan.d}"
+        for s in plan.strategies:
+            if s.method == "original":
+                continue
+            if s.method == "persymbol":
+                bounds, _ = codebook_tensors(s.rate, dev)
+                expect(torch.equal(quantize_fused(x, s.rate),
+                                   ref.encode_ref(x, bounds)),
+                       f"{what}: quantize_fused R={s.rate} at {shape}")
+            p = estimators.strategy_payload(x, s, n_valid=n)
+            got = estimators.payload_gram(p, s, n_valid=n, engine=kernel)
+            want = estimators.payload_gram(p, s, n_valid=n, engine=plain)
+            if s.method == "sign":
+                expect(torch.equal(got, want),
+                       f"{what}: sign_corr at {shape}")
+                continue
+            err = (got - want).abs()
+            expect(bool((err <= code_tolerance(x.shape[1], want)).all()),
+                   f"{what}: code_corr R={s.rate} at {shape}: max |err| "
+                   f"{float(err.max())}")
+            worst = max(worst, float(err.max()))
+    log(f"phase 13 {what}: at ns={plan.ns} (b={plan.reps}, d={plan.d}) "
+        f"quantize_fused and sign_corr equal their plain versions, "
+        f"code_corr within code_tolerance (max |err| {worst})")
+    return worst
+
+
+def profiled_copies(fn):
+    """:func:`profiled` with the device->host copies split into those
+    made inside torch.linalg.eigh (its solver status check), the solver's
+    all-done polls (the other scalar reads) and the rest (the read-back)."""
+    out, wall, busy, dtoh, prof = _profile(fn)
+    eigh = polls = 0
+    for e in prof.events():
+        if e.name != "aten::_local_scalar_dense":
+            continue
+        p, inside = e.cpu_parent, False
+        while p is not None and not inside:
+            inside = "eigh" in p.name
+            p = p.cpu_parent
+        eigh += inside
+        polls += not inside
+    return out, wall, busy, {"dtoh": dtoh, "eigh": eigh, "polls": polls,
+                             "read_back": dtoh - eigh - polls}
+
+
+def sparse_sweeps(dev, total):
+    """Part 1: the example's sweep at d = 16 three ways (fixed lam, an
+    EBIC path, a StARS path): cold and warm seconds, warm trials/s, the
+    device->host copies of a warm sweep split by cause, the idle share,
+    and card == CPU under the near-threshold rule."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.experiments import (TrialPlan, clear_compile_caches,
+                                              run_trials)
+    from repro_torch.core.path import PathPlan
+
+    fixed = TrialPlan(strategies=_sparse_strategies(
+        ("sign", "R2", "R4", "original")), **SPARSE_SWEEP)
+    plans = {"fixed": fixed,
+             "ebic": dataclasses.replace(fixed, path=PathPlan(**SPARSE_PATH)),
+             "stars": dataclasses.replace(fixed, path=PathPlan(
+                 select="stars", **SPARSE_PATH))}
+    check_sparse_kernels(fixed, dev, "sparse d=16 kernels")
+    for name, plan in plans.items():
+        clear_compile_caches()
+        (card, cold), counts = counted(total, lambda: timed(
+            lambda: run_trials(plan, device=dev)))
+        warm, _ = counted(total, lambda: run_trials(plan, device=dev))
+        (prof, wall, busy, copies), _ = counted(
+            total, lambda: profiled_copies(lambda: run_trials(plan,
+                                                              device=dev)))
+        host, t_cpu = timed(lambda: run_trials(plan, device="cpu"))
+        what = f"sparse d=16 {name}"
+        expect(card.host_syncs == warm.host_syncs == prof.host_syncs == 1,
+               f"{what}: host_syncs {card.host_syncs}")
+        expect(copies["read_back"] == 1, f"{what}: device->host copies "
+               f"{copies} leave {copies['read_back']} for the read-back")
+        expect(name != "fixed" or copies["polls"] == 0,
+               f"{what}: the fixed-lam solve polled {copies['polls']} times")
+        for res in (warm, prof):
+            _same_results(res, card, f"{what} rerun vs cold",
+                          fields=METRIC_FIELDS + ("buckets", "path"),
+                          comm=False)
+        parted = sparse_card_vs_cpu(plan, card, host, dev, f"{what} card "
+                                    f"vs CPU")
+        log(f"phase 13 {what}: {plan.trials} trials, cold {cold:.4f} s, warm "
+            f"{warm.seconds:.4f} s ({warm.trials_per_s:.1f} trials/s); "
+            f"profiled wall {wall:.4f} s, device busy {busy:.2f} ms, idle "
+            f"{100 * (1 - busy / 1e3 / wall):.1f}%, device->host copies "
+            f"{json.dumps(copies)}; result reads {card.host_syncs}; CPU "
+            f"{t_cpu:.3f} s; card == CPU"
+            f"{' but at the threshold (label, n, entries): ' + json.dumps(parted) if parted else ''}"
+            f"; launches={json.dumps(counts)}")
+        log(f"phase 13 {what} edge_f1={json.dumps(card.edge_f1)}")
+        if card.path is not None:
+            log(f"phase 13 {what} iters={json.dumps(card.path['iters'])} "
+                f"selected_hist={json.dumps(card.path['selected_hist'])}")
+        del card, warm, prof, host
+        torch.cuda.empty_cache()
+
+
+def split_sweep(plan, dev):
+    """run_trials(plan) with its sparse stages wrapped, each synchronised
+    before and after: (result, seconds by stage) — the sampler, the corr
+    stage without it (the Gram kernels), the solve (glasso, support and
+    metric sums), and the rest of run_trials' own seconds (the read-back
+    and the stacking around it)."""
+    from repro_torch.core import experiments, sampler
+    from repro_torch.core.experiments import run_trials
+
+    split = dict(sample=0.0, corr=0.0, solve=0.0)
+    undo = []
+
+    def wrap(owner, name, key):
+        orig = getattr(owner, name)
+
+        def wrapper(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            sync()
+            split[key] += time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, wrapper)
+        undo.append((owner, name, orig))
+
+    wrap(sampler, "sample_ggm_rows_batch", "sample")
+    wrap(experiments, "_stacked_corr", "corr")
+    wrap(experiments, "_sparse_metric_sums", "solve")
+    try:
+        res = run_trials(plan, device=dev)
+    finally:
+        for owner, name, orig in reversed(undo):
+            setattr(owner, name, orig)
+    split["corr"] -= split["sample"]  # the corr stage calls the sampler
+    split["read_back"] = res.seconds - sum(split.values())
+    return res, split
+
+
+def eigh_per_step(dev, b, d, reps):
+    """torch.linalg.eigh of a (b, d, d) f32 batch like the solver's: its
+    CUDA-event ms and the cuSOLVER kernels the profiler names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(b, d, d, generator=gen, device=dev)
+    z = (a + a.transpose(1, 2)) / 2
+    ms = event_ms(lambda: torch.linalg.eigh(z), reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.linalg.eigh(z)
+        sync()
+    names = sorted({e.name for e in prof.events()
+                    if "CUDA" in str(getattr(e, "device_type", ""))
+                    and "emcpy" not in e.name and "emset" not in e.name})
+    return ms, names or ["the profiler recorded no device events"]
+
+
+def sparse_width(dev, total):
+    """Part 2: d = 128 at n = 4096 (sign, R4, original; 16 reps, 300
+    steps, fixed lam): the kernels at its shapes, run_trials with its
+    stage split, eigh's time a step and its cuSOLVER kernels, peak memory,
+    and the timed sweep's card results == the CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.experiments import TrialPlan, run_trials
+
+    plan = TrialPlan(strategies=_sparse_strategies(("sign", "R4",
+                                                    "original")),
+                     **SPARSE_WIDE)
+    check_sparse_kernels(plan, dev, "sparse d=128 kernels")
+    torch.cuda.reset_peak_memory_stats()
+    (card, split), counts = counted(total, lambda: split_sweep(plan, dev))
+    peak = torch.cuda.max_memory_allocated()
+    if split["solve"] > SPARSE_SOLVE_LIMIT_S:
+        log(f"phase 13 width: the solve took {split['solve']:.1f} s > "
+            f"{SPARSE_SOLVE_LIMIT_S} s at reps={plan.reps}: reps cut to "
+            f"{SPARSE_WIDE_CUT_REPS}")
+        plan = dataclasses.replace(plan, reps=SPARSE_WIDE_CUT_REPS)
+        torch.cuda.reset_peak_memory_stats()
+        (card, split), more = counted(total, lambda: split_sweep(plan, dev))
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: counts[k] + more[k] for k in counts}
+    host, t_cpu = timed(lambda: run_trials(plan, device="cpu"))
+    parted = sparse_card_vs_cpu(plan, card, host, dev, "sparse d=128 card "
+                                "vs CPU")
+    b = len(plan.strategies) * plan.reps
+    ms, kernels = eigh_per_step(dev, b, plan.d, reps=5)
+    steps = plan.glasso_steps * len(plan.ns)
+    log(f"phase 13 width d={plan.d} n={plan.ns} reps={plan.reps} "
+        f"({plan.trials} trials): run_trials {card.seconds:.3f} s "
+        f"({card.trials_per_s:.2f} trials/s); stage split, s (each stage "
+        f"synchronised): " + " ".join(f"{k}={v:.4f}" for k, v in
+                                      split.items())
+        + f"; eigh of ({b}, {plan.d}, {plan.d}) f32 {ms:.4f} ms a step "
+        f"({steps} steps: {ms * steps / 1e3:.2f} s), cuSOLVER kernels "
+        f"{json.dumps(kernels)}; peak_bytes={peak}; card == CPU (CPU "
+        f"{t_cpu:.2f} s)"
+        f"{' but at the threshold (label, n, entries): ' + json.dumps(parted) if parted else ''}"
+        f"; launches={json.dumps(counts)}")
+    log(f"phase 13 width edge_f1={json.dumps(card.edge_f1)} precision="
+        f"{json.dumps(card.precision)} recall={json.dumps(card.recall)}")
+    # the fixed-lam d = 16 sweep's solve: 3 points x 4 strategies x 32 reps
+    lanes = len(SPARSE_SWEEP["ns"]) * 4 * SPARSE_SWEEP["reps"]
+    ms16, kernels16 = eigh_per_step(dev, lanes, SPARSE_SWEEP["d"], reps=20)
+    log(f"phase 13 eigh of ({lanes}, 16, 16) f32 {ms16:.4f} ms a step, "
+        f"cuSOLVER kernels {json.dumps(kernels16)}")
+    # torch's dispatch: how eigh's time scales with the batch and where
+    # it leaves the batched tridiagonal solver (sytrd + stedc)
+    scaling = {}
+    for b, d in EIGH_SHAPES:
+        ms, names = eigh_per_step(dev, b, d, reps=5)
+        family = ("sytrd+stedc" if any("stedc" in k for k in names) else
+                  "Jacobi" if any("rotate" in k for k in names) else "other")
+        scaling[f"({b}, {d}, {d})"] = (round(ms, 4), family)
+    log(f"phase 13 eigh ms a call and cuSOLVER family by shape: "
+        f"{json.dumps(scaling)}")
+
+
+def sparse_faults(dev, total):
+    """Part 3: tests/test_faults.py's sparse plan on the card and the CPU
+    (fault telemetry bit-identical, metrics by the near-threshold rule),
+    and a zero-fault plan at d = 16 bit-identical to none on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import experiments
+    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.faults import FaultPlan, fault_trial_keys
+    from repro_torch.core.gram import GramEngine
+
+    plan = TrialPlan(strategies=(dataclasses.replace(
+        _sparse_strategies(("sign",))[0], lam=0.1),),
+        faults=FaultPlan(**SPARSE_FAULT_PLAN), **SPARSE_FAULTS)
+    card, counts = counted(total, lambda: run_trials(plan, device=dev))
+    host = run_trials(plan, device="cpu")
+    expect(card.faults == host.faults and card.faults is not None,
+           f"sparse faults: telemetry card {card.faults} vs CPU "
+           f"{host.faults}")
+    parted = sparse_card_vs_cpu(plan, card, host, dev, "sparse faults card "
+                                "vs CPU")
+    none = TrialPlan(strategies=_sparse_strategies(
+        ("sign", "R2", "R4", "original")), **SPARSE_SWEEP)
+    zero = dataclasses.replace(none, faults=FaultPlan(machines=4, retries=1))
+    n = none.ns[0]
+    chols, _, keys = experiments._sparse_plan_setup(
+        *experiments._sparse_setup_key(none), str(torch.device(dev)))
+    engine = GramEngine()
+    c = experiments._stacked_corr(keys, chols, n, none.strategies,
+                                  none.bucket_for(n), engine)
+    cz, tele = experiments._stacked_corr(
+        keys, chols, n, none.strategies, none.bucket_for(n), engine,
+        zero.faults, fault_trial_keys(zero.faults, none.reps, device=dev))
+    expect(torch.equal(c, cz) and not bool(tele.any()),
+           "the zero-fault sparse statistics differ from no plan's")
+    a, _ = counted(total, lambda: run_trials(none, device=dev))
+    b, _ = counted(total, lambda: run_trials(zero, device=dev))
+    _same_results(b, a, "sparse zero-fault vs no faults",
+                  fields=METRIC_FIELDS + ("buckets", "host_syncs"),
+                  comm=False)
+    log(f"phase 13 sparse faults (d={plan.d}, reps={plan.reps}, "
+        f"{json.dumps(SPARSE_FAULT_PLAN)}): card == CPU in TrialResult."
+        f"faults ({json.dumps(card.faults)}) and metrics"
+        f"{' but at the threshold: ' + json.dumps(parted) if parted else ''}"
+        f"; zero-fault == no faults bit for bit at d=16 (statistics and "
+        f"results); launches={json.dumps(counts)}")
+
+
+def sparse_plane(dev, total):
+    """Phase 13: the sparse plane on the card, parts 1-3 above."""
+    t0 = time.perf_counter()
+    for part in (sparse_sweeps, sparse_width, sparse_faults):
+        t = time.perf_counter()
+        part(dev, total)
+        log(f"phase 13 {part.__name__} took {time.perf_counter() - t:.1f} s")
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+
 def _cuobjdump():
     """cuobjdump from PATH, the CUDA toolkit or Triton's bundle, else None."""
     import shutil
@@ -2075,6 +2446,7 @@ def main() -> int:
     serve_correctness("cuda", work, total)
     log(f"phases 9-11 took {time.perf_counter() - t0:.1f} s")
     trial_plane("cuda", total, records, reps=3)
+    sparse_plane("cuda", total)
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

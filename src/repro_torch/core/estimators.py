@@ -15,15 +15,17 @@ pipeline shares:
 * :func:`payload_gram`    — **central contraction**: payload -> (d, d)
   Gram, straight off the wire bytes where the format allows it;
 * :func:`weights_from_gram` — **central estimate**: Gram + sample count
-  -> Chow-Liu weights (eqs. 1/4/30).
+  -> Chow-Liu weights (eqs. 1/4/30), or :func:`corr_from_gram` -> the
+  correlation statistic of the sparse plane's glasso solve
+  (:func:`strategy_corr`, :func:`strategy_corr_batch`).
 
 The fault plane's per-feature row counts (``n_rows``) and bit flips
 (``flip``) thread the masked-Gram degradation path: each feature column
 is prefix-masked to its own count, the packed sign wire is unpacked to
 ±1/0 int8 under ``n_rows``, and the weights divide by the per-entry
 :func:`effective_counts` with voided entries at weight 0. The MAC /
-bit-budget channels arrive with the wire plane: passing their operands
-raises ``NotImplementedError``.
+bit-budget channels are not ported yet (they arrive with the wire
+plane): passing their operands raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from .glasso import nearest_correlation  # noqa: F401  (callers' import)
 from .gram import GramEngine, resolve_engine
 from .quantizers import (MASKED_CODE, PerSymbolQuantizer, pack_codes,
                          sign_bits, sign_codes, unpack_codes_u8,
@@ -158,20 +161,6 @@ def weights_from_gram(gram: torch.Tensor, n, method, *,
     if n_eff is not None:
         w = torch.where(n_eff >= 2.0, w, 0.0)
     return w
-
-
-def nearest_correlation(S: torch.Tensor, *, eps: float = 1e-4) -> torch.Tensor:
-    """Project a symmetric matrix to a nearby valid correlation matrix:
-    eigen-clip to eigenvalues >= ``eps``, then renormalize the diagonal to
-    1 (the port of ``repro.core.glasso.nearest_correlation``)."""
-    S = torch.as_tensor(S, dtype=torch.float32)
-    S = (S + S.transpose(-1, -2)) / 2.0
-    w, v = torch.linalg.eigh(S)
-    w = torch.clamp(w, min=eps)
-    S = torch.einsum("...ij,...j,...kj->...ik", v, w, v)
-    dinv = 1.0 / torch.sqrt(torch.diagonal(S, dim1=-2, dim2=-1))
-    S = S * dinv[..., :, None] * dinv[..., None, :]
-    return (S + S.transpose(-1, -2)) / 2.0
 
 
 def corr_from_gram(gram: torch.Tensor, n, method) -> torch.Tensor:
@@ -387,6 +376,20 @@ def strategy_weights(x: torch.Tensor, strategy: Strategy, *,
     return weights_from_gram(gram, x.shape[0], strategy)
 
 
+def _batch_gram(x, strategy, n_valid, n_rows, flip, engine):
+    """The batched encode + Gram shared by the weights and corr stages:
+    (Gram, the count it sums over)."""
+    n_pad = x.shape[-2]
+    payload = strategy_payload(x, strategy, n_valid=n_valid, n_rows=n_rows,
+                               flip=flip)
+    gram = payload_gram(payload, strategy, n_valid=n_valid, n_rows=n_rows,
+                        engine=engine)
+    if n_rows is not None:
+        return gram, effective_counts(n_rows)
+    return gram, (n_pad if n_valid is None else torch.as_tensor(
+        n_valid, dtype=torch.float32, device=gram.device))
+
+
 def strategy_weights_batch(x: torch.Tensor, strategy: Strategy, *,
                            n_valid=None, n_rows=None, flip=None,
                            engine: GramEngine | None = None, rates=None,
@@ -405,14 +408,29 @@ def strategy_weights_batch(x: torch.Tensor, strategy: Strategy, *,
     bit-identical to the faultless call.
     """
     _no_wire_plane(rates=rates, delivered=delivered)
-    n_pad = x.shape[-2]
-    payload = strategy_payload(x, strategy, n_valid=n_valid, n_rows=n_rows,
-                               flip=flip)
-    gram = payload_gram(payload, strategy, n_valid=n_valid, n_rows=n_rows,
-                        engine=engine)
-    if n_rows is not None:
-        n = effective_counts(n_rows)
-    else:
-        n = n_pad if n_valid is None else torch.as_tensor(
-            n_valid, dtype=torch.float32, device=gram.device)
+    gram, n = _batch_gram(x, strategy, n_valid, n_rows, flip, engine)
     return weights_from_gram(gram, n, strategy)
+
+
+def strategy_corr(x: torch.Tensor, strategy: Strategy, *,
+                  engine: GramEngine | None = None) -> torch.Tensor:
+    """(n, d) raw samples -> the (d, d) correlation statistic a sparse
+    Strategy's glasso solve ingests: :func:`strategy_payload` ->
+    :func:`payload_gram` -> :func:`corr_from_gram`."""
+    payload = strategy_payload(x, strategy)
+    gram = payload_gram(payload, strategy, engine=engine)
+    return corr_from_gram(gram, x.shape[0], strategy)
+
+
+def strategy_corr_batch(x: torch.Tensor, strategy: Strategy, *,
+                        n_valid=None, n_rows=None, flip=None,
+                        engine: GramEngine | None = None, rates=None,
+                        delivered=None) -> torch.Tensor:
+    """(t, n, d) stacked raw samples -> (t, d, d) correlation statistics
+    of a sparse Strategy: :func:`strategy_weights_batch` with
+    :func:`corr_from_gram` as the tail (the same bucketing; under a fault
+    plan the per-entry :func:`effective_counts`, degenerate entries at
+    the identity's)."""
+    _no_wire_plane(rates=rates, delivered=delivered)
+    gram, n = _batch_gram(x, strategy, n_valid, n_rows, flip, engine)
+    return corr_from_gram(gram, n, strategy)

@@ -22,6 +22,18 @@ a whole :class:`TrialPlan` as batched device work:
   machine dropout, straggler truncation and sign bit flips, drawn from
   ``repro``'s fold_in streams, and the center degrades through the
   masked-Gram path; a zero-fault plan is bit-identical to none.
+* **Sparse plane** (the paper's §7 extension) — strategies with
+  ``structure="sparse"`` sweep random sparse precision ground truths
+  (``tree="sparse"``) through the same sample -> quantize -> Gram chain
+  into correlation statistics, and the MWST stage becomes one batched
+  glasso solve of every point's (S*reps, d, d) stack at once
+  (``glasso.glasso_batch``; point by point, as ``repro`` solves, where
+  all of them do not fit half the memory budget) with the support
+  thresholded on partial correlations; five integer support
+  channels give precision, recall and micro-F1 exactly. A ``path=``
+  plan (``path.PathPlan``) solves a warm-started lambda grid instead and
+  selects by EBIC or StARS on the device; the full path's channels ride
+  the same read-back onto ``TrialResult.path``.
 
 ``mst="host_kruskal"`` reads the weights back once and runs host Kruskal
 and numpy metrics per trial (metric-identical to the device path).
@@ -29,9 +41,12 @@ and numpy metrics per trial (metric-identical to the device path).
 :func:`mc_sign_crossover` / :func:`mc_persymbol_corr_error` are the
 scalar Monte-Carlo engines of Figs. 5-6, 8 and 9.
 
-Not ported yet, each raising ``NotImplementedError``: the sparse plane
-(``tree="sparse"``, sparse strategies, ``path=`` plans) and the mesh and
-wire plane (``run_trials(mesh=...)``). Torch has no trace compile, so
+The glasso solver waits for the host in every step (``torch.linalg.eigh``
+checks its status there) and, for a path plan, polls an all-lanes-done
+flag; ``host_syncs`` counts the sweep's result reads, which stay 1.
+
+Not ported yet, raising ``NotImplementedError``: the mesh and wire plane
+(``run_trials(mesh=...)``). Torch has no trace compile, so
 ``repro``'s compile caches and their warm-up threads have no counterpart;
 the per-plan setup cache (trees and keys, per device) takes their place
 in :func:`compile_cache_size` and :func:`clear_compile_caches`.
@@ -41,27 +56,29 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch._device import as_tensor, resolve_device
 
-from . import estimators, faults as faults_mod, prng, sampler, trees
+from . import estimators, faults as faults_mod, glasso, prng, sampler, trees
+from . import path as path_engine
 from .chow_liu import boruvka_mst, boruvka_mst_batch, kruskal_mst
 from .distributed import CommReport, comm_report
 from .faults import FaultPlan, fault_trial_keys
 from .gram import (GramConfig, GramEngine, default_memory_budget,
                    gram_working_set_bytes, resolve_engine)
+from .path import PathPlan
 from .quantizers import PerSymbolQuantizer
 from .strategy import FIG3_STRATEGIES, Strategy
 
 TREE_KINDS = ("random", "star", "chain", "skeleton")
-#: ground-truth generators of the sparse trial plane (not ported yet)
+#: ground-truth generators of the sparse trial plane: random sparse
+#: precision matrices (``glasso.random_sparse_precision``)
 SPARSE_KINDS = ("sparse",)
 
-_SPARSE_PLANE = "arrives with the port's sparse plane (glasso, path)"
 _MESH_PLANE = "arrives with the port's mesh and wire plane"
 
 
@@ -104,8 +121,12 @@ class TrialPlan:
     (:meth:`budget_engine`) and the MWST stage runs in slabs
     (:meth:`metrics_chunk`) where the monolithic forms would not fit.
 
-    Sparse plans (``tree="sparse"`` with sparse strategies, ``density``)
-    validate as in ``repro`` but do not run yet; ``path`` plans raise.
+    Sparse plans (``tree="sparse"`` with sparse strategies) draw trial
+    ``rep``'s precision from the same rng (``density``, strengths
+    Uniform[rho_min, rho_max]) and solve ``glasso_steps`` ISTA steps,
+    thresholding partial correlations at ``glasso_tol``; ``path`` (a
+    :class:`~repro_torch.core.path.PathPlan`) solves and selects from a
+    lambda grid instead of the strategies' ``lam``.
     """
 
     d: int
@@ -119,10 +140,14 @@ class TrialPlan:
     n_buckets: tuple[int, ...] | str | None = "pow2"
     #: edge density of the sparse ground truth (sparse plans only)
     density: float = 0.2
+    #: partial-correlation support threshold of the sparse metric stage
+    glasso_tol: float = glasso.SUPPORT_TOL
+    #: ISTA iteration budget of the batched glasso solve
+    glasso_steps: int = glasso.DEFAULT_STEPS
     faults: FaultPlan | None = None
     memory_budget_bytes: int | None = None
-    #: regularization-path plan of the sparse plane (not ported yet)
-    path: object | None = None
+    #: regularization-path plan of the sparse plane (None = fixed lam)
+    path: PathPlan | None = None
 
     def __post_init__(self):
         if self.tree not in TREE_KINDS + SPARSE_KINDS:
@@ -170,11 +195,13 @@ class TrialPlan:
                 f"memory_budget_bytes must be positive, "
                 f"got {self.memory_budget_bytes}")
         if self.path is not None:
+            if not isinstance(self.path, PathPlan):
+                raise TypeError(
+                    f"path must be a PathPlan, got {type(self.path)!r}")
             if self.tree not in SPARSE_KINDS:
                 raise ValueError(
                     "path plans ride the sparse plane: TrialPlan(path=...) "
                     "requires tree='sparse' + sparse strategies")
-            raise NotImplementedError(f"TrialPlan(path=...) {_SPARSE_PLANE}")
 
     @property
     def effective_memory_budget(self) -> int:
@@ -258,11 +285,14 @@ class TrialPlan:
             engine, d_tile=min(128, self.d), n_chunk=1024)
 
     def metrics_chunk(self) -> int | None:
-        """Slab size of the MWST stage (``None`` = one batch of all
-        S*reps trials): the per-trial solver scratch (~10 (d, d) f32
-        planes) of a slab must fit half the budget."""
+        """Slab size of the MWST or glasso stage (``None`` = one batch of
+        all S*reps trials): the per-trial solver scratch (~10 (d, d) f32
+        planes, and a path solve's K (d, d) bool supports) of a slab must
+        fit half the budget."""
         trials = len(self.strategies) * self.reps
         per_trial = 40 * self.d * self.d
+        if self.path is not None:
+            per_trial = (40 + self.path.k) * self.d * self.d
         budget = self.effective_memory_budget // 2
         if trials * per_trial <= budget:
             return None
@@ -296,12 +326,14 @@ class TrialResult:
     error_rate: dict[str, list[float]]
     #: label -> [mean edge symmetric difference |E_hat ^ E| per n]
     edit_distance: dict[str, list[float]]
-    #: label -> [edge F1 per n]: mean shared edges / (d - 1)
+    #: label -> [edge F1 per n]: mean shared edges / (d - 1) for trees,
+    #: micro-F1 2*shared/(est+true) for sparse supports
     edge_f1: dict[str, list[float]]
     seconds: float
     #: device->host reads the whole sweep performed: exactly 1
     host_syncs: int
-    #: label -> [edge precision per n] (== recall == F1 for trees)
+    #: label -> [edge precision per n] (== recall == F1 for trees;
+    #: micro-averaged shared/est for sparse supports)
     precision: dict[str, list[float]] = dataclasses.field(
         default_factory=dict)
     #: label -> [edge recall per n]
@@ -321,6 +353,12 @@ class TrialResult:
     #: ``{"memory_budget_bytes", "d_tile", "n_chunk", "metrics_chunk"}``:
     #: the streaming knobs the sweep ran with (None = monolithic)
     tiling: dict = dataclasses.field(default_factory=dict)
+    #: path plans only: ``{"select", "k", "lams" (label -> per-n mean
+    #: grids), "error_rate" / "edge_f1" (label -> per-n per-lam curves),
+    #: "iters" (label -> per-n mean solver steps per lam),
+    #: "selected_hist" (label -> per-n selection counts per lam)}``; the
+    #: headline metrics score the selected support. None otherwise.
+    path: dict | None = None
 
     @property
     def trials_per_s(self) -> float:
@@ -376,24 +414,73 @@ def _setup_key(plan: TrialPlan):
             plan.seed0)
 
 
-def _require_tree_plane(plan: TrialPlan) -> None:
-    if plan.structure == "sparse":
-        raise NotImplementedError(f"sparse trial plans {_SPARSE_PLANE}")
-
-
 def stacked_trees(plan: TrialPlan, *, device=None):
     """``(parents, rhos, adj_true)`` of the plan's ``reps`` ground-truth
     trees, (reps, d), (reps, d) and (reps, d, d), on ``device`` (default
-    cuda). Cached per plan and device with the trial keys."""
-    _require_tree_plane(plan)
+    cuda). Cached per plan and device with the trial keys. Sparse plans
+    have no trees: see :func:`sparse_ground_truth`."""
+    if plan.structure == "sparse":
+        raise ValueError(
+            "sparse plans draw precision-matrix ground truths, not trees; "
+            "use sparse_ground_truth(plan)")
     return _plan_setup(*_setup_key(plan), str(resolve_device(device)))[:3]
 
 
 def trial_keys(plan: TrialPlan, *, device=None) -> torch.Tensor:
     """(reps, 2) keys: one sampling stream per trial (``fold_in(key(seed0),
-    rep)``), from the same cache as :func:`stacked_trees`."""
-    _require_tree_plane(plan)
-    return _plan_setup(*_setup_key(plan), str(resolve_device(device)))[3]
+    rep)``), from the same cache as the plan's ground truths."""
+    dev = str(resolve_device(device))
+    if plan.structure == "sparse":
+        return _sparse_plan_setup(*_sparse_setup_key(plan), dev)[2]
+    return _plan_setup(*_setup_key(plan), dev)[3]
+
+
+@functools.lru_cache(maxsize=None)
+def _sparse_host_setup(d: int, reps: int, density: float, rho_min: float,
+                       rho_max: float, seed0: int):
+    """(chols, adj) of the plan's sparse ground truths as (reps, d, d)
+    numpy arrays: trial ``rep`` draws ``glasso.random_sparse_precision``
+    from ``np.random.default_rng(seed0 + rep)`` (strengths Uniform[rho_min,
+    rho_max]); ``chols`` are the float64 Cholesky factors of its
+    covariance cast to f32, ``adj`` its support."""
+    chols = np.zeros((reps, d, d), np.float32)
+    adj = np.zeros((reps, d, d), bool)
+    for rep in range(reps):
+        rng = np.random.default_rng(seed0 + rep)
+        theta = glasso.random_sparse_precision(
+            d, density, rng, strength=(rho_min, rho_max))
+        chols[rep] = np.linalg.cholesky(np.linalg.inv(theta))
+        a = np.abs(theta) > 1e-8
+        np.fill_diagonal(a, False)
+        adj[rep] = a
+    return chols, adj
+
+
+@functools.lru_cache(maxsize=None)
+def _sparse_plan_setup(d: int, reps: int, density: float, rho_min: float,
+                       rho_max: float, seed0: int, device: str):
+    """Cached device setup of a sparse plan: (chols, adj_true, keys) on
+    ``device``, the keys the tree plane's (``fold_in(key(seed0), rep)``)."""
+    chols, adj = _sparse_host_setup(d, reps, density, rho_min, rho_max,
+                                    seed0)
+    keys = prng.fold_in(prng.key(seed0, device=device),
+                        torch.arange(reps, device=device))
+    return (torch.from_numpy(chols).to(device),
+            torch.from_numpy(adj).to(device), keys)
+
+
+def _sparse_setup_key(plan: TrialPlan):
+    return (plan.d, plan.reps, plan.density, plan.rho_min, plan.rho_max,
+            plan.seed0)
+
+
+def sparse_ground_truth(plan: TrialPlan, *, device=None):
+    """``(chols, adj_true)`` of the sparse plan's ``reps`` ground truths,
+    (reps, d, d) each, on ``device`` (default cuda): the Cholesky mixers
+    the trials sample through and the supports they are scored against.
+    Cached per plan and device with the trial keys."""
+    return _sparse_plan_setup(*_sparse_setup_key(plan),
+                              str(resolve_device(device)))[:2]
 
 
 # --------------------------------------------------------------------------
@@ -449,11 +536,276 @@ def _metric_sums(w: torch.Tensor, adj_true: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# Sparse stages (the §7 extension: glasso over quantized data)
+# --------------------------------------------------------------------------
+
+def _stacked_corr(keys, chols, n_valid: int, strategies, n_pad, engine,
+                  faults=None, fault_keys=None):
+    """The sparse twin of :func:`_stacked_weights`: sample the bucket-
+    shaped data once through the Cholesky mixers and emit every
+    strategy's (reps, d, d) correlation statistic, stacked as (S, reps,
+    d, d) (with a fault plan: ``(corr, telemetry sums)``)."""
+    x = sampler.sample_ggm_rows_batch(keys, n_pad, chols)
+    reps, _, d = x.shape
+    n_rows = flip = tele = None
+    if faults is not None:
+        n_rows, flip, tele = faults.draw_batch(fault_keys, n_pad, n_valid, d)
+    corr = torch.empty((len(strategies), reps, d, d), dtype=torch.float32,
+                       device=x.device)
+    for i, s in enumerate(strategies):
+        corr[i] = estimators.strategy_corr_batch(
+            x, s, n_valid=n_valid, n_rows=n_rows, flip=flip, engine=engine)
+    return corr if faults is None else (corr, tele.sum(dim=0))
+
+
+def _support_metric_channels(est: torch.Tensor,
+                             adj_true: torch.Tensor) -> torch.Tensor:
+    """(..., d, d) bool support estimates + truths -> (..., 5) channels
+    [error, hamming, shared, est_edges, true_edges], all integer-valued
+    f32: precision, recall and micro-F1 come exactly from their sums."""
+    err = trees.structure_error(est, adj_true).to(torch.float32)
+    ham = trees.structure_hamming(est, adj_true).to(torch.float32)
+    shared, n_est, n_true = trees.edge_counts(est, adj_true)
+    return torch.stack([err, ham, shared.to(torch.float32),
+                        n_est.to(torch.float32), n_true.to(torch.float32)],
+                       dim=-1)
+
+
+def _sparse_metric_sums(corr: torch.Tensor, adj_true: torch.Tensor,
+                        lams: tuple, tol: float, n_steps: int,
+                        chunk: int | None = None) -> torch.Tensor:
+    """(P, S, r, d, d) statistics of P sweep points + (r, d, d) truths ->
+    (P, S, 5) support channel sums over the rep axis: one batched glasso
+    solve of all P*S*r trials (the strategies' penalties as a lam
+    vector), in ``chunk``-trial slabs. Trials are independent lanes, so
+    solving the points together gives each trial what a solve of its own
+    point would."""
+    P, S, r, d, _ = corr.shape
+    lam = torch.tensor(lams, dtype=torch.float32,
+                       device=corr.device).repeat_interleave(r).repeat(P)
+    theta = glasso.glasso_batch(corr.reshape(P * S * r, d, d), lam,
+                                n_steps=n_steps, chunk=chunk)
+    est = glasso.support_from_theta(theta, tol).reshape(P, S, r, d, d)
+    return _support_metric_channels(est, adj_true).sum(dim=2)
+
+
+def _sparse_path_metric_sums(corr: torch.Tensor, adj_true: torch.Tensor,
+                             ns: Sequence[int], path: PathPlan, tol: float,
+                             n_steps: int, chunk: int | None = None):
+    """(P, S, r, d, d) statistics of the points at sample counts ``ns`` +
+    (r, d, d) truths -> the path plane's sums over the rep axis, on the
+    device: one warm-started grid solve of all P*S*r trials, then EBIC per
+    trial (at its point's n) or StARS per point and strategy (its reps the
+    subsample batch). Returns (selected (P, S, 5), per_lam (P, S, K, 5),
+    iters (P, S, K), hist (P, S, K), lam_sums (P, S, K)), every one a sum
+    of integer-valued f32 channels but the grids'."""
+    P, S, r, d, _ = corr.shape
+    L = P * S * r
+    flat = corr.reshape(L, d, d)
+    lams = path_engine.path_lambdas(path, flat)                 # (L, K)
+    K = lams.shape[-1]
+    solve = path_engine.glasso_path_batch(
+        flat, lams, n_steps=n_steps, conv_tol=path.conv_tol,
+        support_tol=tol, chunk=chunk)
+    sup = solve.support.reshape(K, P, S, r, d, d)
+    ch = _support_metric_channels(sup, adj_true)              # (K, P, S, r, 5)
+    per_lam = ch.sum(dim=3).permute(1, 2, 0, 3)               # (P, S, K, 5)
+    if path.select == "ebic":
+        n = torch.tensor(ns, dtype=torch.float32,
+                         device=corr.device).repeat_interleave(S * r)
+        idx = path_engine.select_ebic(path_engine.ebic_scores(
+            solve.logdet, solve.tr_s_theta, solve.edges, n, d,
+            path.ebic_gamma))                                   # (L,)
+    else:
+        sup = sup.reshape(K, P * S, r, d, d)
+        xi = torch.stack([path_engine.stars_instability(sup[:, i])
+                          for i in range(P * S)], dim=1)        # (K, P*S)
+        idx = path_engine.select_stars(xi, path.stars_beta) \
+            .repeat_interleave(r)
+    idx = idx.long()
+    sel = torch.take_along_dim(ch.reshape(K, L, 5), idx[None, :, None],
+                               dim=0)[0]
+    hist = torch.nn.functional.one_hot(idx, K).to(torch.float32)
+    iters = solve.iters.reshape(K, P, S, r).sum(dim=3).permute(1, 2, 0)
+    return (sel.reshape(P, S, r, 5).sum(dim=2), per_lam,
+            iters.to(torch.float32), hist.reshape(P, S, r, K).sum(dim=2),
+            lams.reshape(P, S, r, K).sum(dim=2))
+
+
+def _sparse_sums(plan: TrialPlan, corr: torch.Tensor, adj_true: torch.Tensor,
+                 ns: Sequence[int], chunk: int | None) -> list:
+    """The solve stage of a sparse plan over the (P, S, r, d, d)
+    statistics of its points at sample counts ``ns``: the sums that
+    ride the read-back, each with the point axis leading."""
+    if plan.path is None:
+        return [_sparse_metric_sums(
+            corr, adj_true, tuple(s.lam for s in plan.strategies),
+            plan.glasso_tol, plan.glasso_steps, chunk)]
+    return list(_sparse_path_metric_sums(corr, adj_true, ns, plan.path,
+                                         plan.glasso_tol, plan.glasso_steps,
+                                         chunk))
+
+
+def _solve_points_together(plan: TrialPlan) -> bool:
+    """Whether a sparse sweep solves every point's trials in one batch:
+    the solver scratch of all len(ns)*S*reps lanes (``metrics_chunk``'s
+    bytes a trial) and their held (d, d) f32 statistics fit half the
+    budget. Otherwise each point is solved after its own corr stage, in
+    :meth:`TrialPlan.metrics_chunk` slabs, as ``repro`` solves it."""
+    lanes = plan.points * plan.reps
+    k = 0 if plan.path is None else plan.path.k
+    return lanes * (44 + k) * plan.d * plan.d \
+        <= plan.effective_memory_budget // 2
+
+
+class SparsePoint(NamedTuple):
+    """One strategy's trials at one point of a sparse sweep, solved on
+    their own (:func:`sparse_point`)."""
+
+    #: (reps, d, d) supports, or (K, reps, d, d) along a path
+    support: torch.Tensor
+    #: (reps, d, d) precision estimates of a fixed-lam solve; a path's
+    #: (K, reps, d, d) iterates with ``keep_thetas``, else None
+    theta: torch.Tensor | None
+    #: a path's solve and its (reps,) selected indices (None at fixed lam)
+    solve: path_engine.PathSolve | None
+    picks: torch.Tensor | None
+    #: what these trials give as a one-point, one-strategy sweep
+    result: TrialResult
+
+    def mismatches(self, run: TrialResult, j: int) -> list[str]:
+        """The fields in which ``run``'s point ``j`` of this strategy
+        differs from this solve of its own; none when the sweep gave the
+        point what its own solve gives."""
+        mine, (label,) = self.result, self.result.error_rate.keys()
+        out = [f for f in _SPARSE_FIELDS
+               if getattr(run, f)[label][j] != getattr(mine, f)[label][0]]
+        if run.path is not None:
+            out += [f"path.{f}" for f in _PATH_FIELDS
+                    if run.path[f][label][j] != mine.path[f][label][0]]
+        return out
+
+
+_SPARSE_FIELDS = ("error_rate", "edit_distance", "edge_f1", "precision",
+                  "recall")
+_PATH_FIELDS = ("lams", "error_rate", "edge_f1", "iters", "selected_hist")
+
+
+def sparse_point(plan: TrialPlan, n: int, i: int, *, device=None,
+                 keep_thetas: bool = False) -> SparsePoint:
+    """Strategy ``i``'s trials at sample count ``n`` of a sparse plan,
+    solved on their own: the statistics from the sweep's corr stage (its
+    faults included), one solve of just these reps lanes (the strategy's
+    lam, or the plan's path and selection at this n), and the metrics
+    they give as a sweep of their own. :func:`run_trials` solves every
+    point's lanes in one batch; lanes are independent, so
+    :meth:`SparsePoint.mismatches` finds nothing on a sweep that routed
+    each lane's penalty, sample count and selection group right."""
+    if plan.structure != "sparse":
+        raise ValueError("sparse_point takes a sparse plan")
+    dev = resolve_device(device)
+    engine = plan.budget_engine(resolve_engine(None), device=dev)
+    chols, adj_true, keys = _sparse_plan_setup(*_sparse_setup_key(plan),
+                                               str(dev))
+    extra = () if plan.faults is None else (
+        plan.faults, fault_trial_keys(plan.faults, plan.reps, device=dev))
+    corr = _stacked_corr(keys, chols, n, plan.strategies, plan.bucket_for(n),
+                         engine, *extra)
+    corr = (corr if plan.faults is None else corr[0])[i]
+    s = plan.strategies[i]
+    solve = picks = None
+    if plan.path is None:
+        theta = glasso.glasso_batch(corr, s.lam, n_steps=plan.glasso_steps)
+        sup = glasso.support_from_theta(theta, plan.glasso_tol)
+        sums = [_support_metric_channels(sup, adj_true).sum(dim=0)]
+    else:
+        lams = path_engine.path_lambdas(plan.path, corr)          # (r, K)
+        solve = path_engine.glasso_path_batch(
+            corr, lams, n_steps=plan.glasso_steps,
+            conv_tol=plan.path.conv_tol, support_tol=plan.glasso_tol,
+            keep_thetas=keep_thetas)
+        picks = path_engine.path_select(solve, plan.path, n, plan.d).long()
+        sup, theta, K = solve.support, solve.thetas, lams.shape[-1]
+        ch = _support_metric_channels(sup, adj_true)             # (K, r, 5)
+        sel = ch[picks, torch.arange(plan.reps, device=ch.device)]
+        sums = [sel.sum(dim=0), ch.sum(dim=1), solve.iters.sum(dim=1),
+                torch.bincount(picks, minlength=K), lams.sum(dim=0)]
+    host = [p[None, None].to(torch.float32).cpu().numpy() for p in sums]
+    one = dataclasses.replace(plan, strategies=(s,), ns=(n,), faults=None)
+    result = _package_result(one, host[0] / np.float32(plan.reps),
+                             seconds=0.0, host_syncs=1, fault_sums=None,
+                             tiling={}, path_extras=host[1:] or None)
+    return SparsePoint(sup, theta, solve, picks, result)
+
+
+def _own_reference(plan: TrialPlan, ref: TrialResult, i: int, j: int,
+                   device, faults: list):
+    """``ref_point`` for a reference sweep of the port itself on
+    ``device``: the point solved alone there, which must give exactly what
+    ``ref`` gave it."""
+    n = plan.ns[j]
+    own = sparse_point(plan, n, i, device=device, keep_thetas=True)
+    faults += [f"{plan.strategies[i].label} n={n}: the reference sweep's "
+               f"{f} is not the point's own" for f in own.mismatches(ref, j)]
+    if own.solve is None:
+        return own.theta.cpu(), None, None
+    scores = None if plan.path.select == "stars" else path_engine.ebic_scores(
+        own.solve.logdet, own.solve.tr_s_theta, own.solve.edges, n, plan.d,
+        plan.path.ebic_gamma).cpu()
+    return own.theta.cpu(), own.picks.cpu(), scores
+
+
+def sparse_sweep_faults(plan: TrialPlan, run: TrialResult, ref: TrialResult,
+                        ref_point=None, *, device=None, ref_device="cpu"):
+    """Hold a sparse sweep ``run`` to a reference sweep ``ref`` of the
+    same plan (the port's on another device, or ``repro``'s) ->
+    ``(parted, faults)``; no faults means they agree.
+
+    Each point's metrics (and a path's per-lam curves and selection
+    counts) must be equal, or differ where two f32 solvers may part
+    (``ROADMAP.md`` §3). A point that differs is solved on its own on
+    ``device`` (:func:`sparse_point`), which must give exactly what
+    ``run`` gave it; then its supports are held to the reference's own
+    solve of the point by :func:`path.parting_faults`. ``ref_point(i, j)``
+    gives that solve of strategy ``i`` at ``plan.ns[j]`` as (precision
+    estimates, selected indices, EBIC scores); without it the reference
+    is the port's sweep on ``ref_device``, whose points solved alone
+    there must give exactly what ``ref`` gave them. ``parted`` lists
+    (label, n, support entries parted) of the points solved again."""
+    parted, faults = [], []
+    for i, s in enumerate(plan.strategies):
+        for j, n in enumerate(plan.ns):
+            same = all(getattr(run, f)[s.label][j] == getattr(ref, f)[
+                s.label][j] for f in _SPARSE_FIELDS)
+            if plan.path is not None:
+                same = same and all(
+                    run.path[f][s.label][j] == ref.path[f][s.label][j]
+                    for f in ("error_rate", "edge_f1", "selected_hist"))
+            if same:
+                continue
+            where = f"{s.label} n={n}"
+            point = sparse_point(plan, n, i, device=device)
+            faults += [f"{where}: the sweep's {f} is not the point's own"
+                       for f in point.mismatches(run, j)]
+            theta, picks, scores = (
+                _own_reference(plan, ref, i, j, ref_device, faults)
+                if ref_point is None else ref_point(i, j))
+            diff, why = path_engine.parting_faults(
+                point.support, theta, plan.glasso_tol,
+                picks=None if point.picks is None else point.picks.cpu(),
+                ref_picks=picks, ref_scores=scores)
+            faults += [f"{where}: {w}" for w in why]
+            parted.append((s.label, n, diff))
+    return parted, faults
+
+
+# --------------------------------------------------------------------------
 # Setup-cache hygiene
 # --------------------------------------------------------------------------
 
 def _setup_caches():
-    return (_host_setup, _plan_setup, faults_mod._fault_trial_keys)
+    return (_host_setup, _plan_setup, _sparse_host_setup, _sparse_plan_setup,
+            faults_mod._fault_trial_keys)
 
 
 def compile_cache_size() -> int:
@@ -525,27 +877,66 @@ def _fault_stats(plan: TrialPlan,
     return stats
 
 
+def _path_stats(plan: TrialPlan, extras) -> dict | None:
+    """The path plane's host sums (per_lam, iters, hist, lam_sums, each
+    (S, len(ns), K, ...)) -> ``TrialResult.path``, with ``repro``'s f32
+    arithmetic."""
+    if extras is None:
+        return None
+    per_lam, iters, hist, lam_sums = extras
+    reps = np.float32(plan.reps)
+    labels = [s.label for s in plan.strategies]
+
+    def _grid_cols(a: np.ndarray) -> dict[str, list[list[float]]]:
+        return {lab: [[float(v) for v in row] for row in a[i]]
+                for i, lab in enumerate(labels)}
+
+    shared, n_est, n_true = (per_lam[..., 2], per_lam[..., 3],
+                             per_lam[..., 4])
+    return {
+        "select": plan.path.select,
+        "k": plan.path.k,
+        "lams": _grid_cols(lam_sums / reps),
+        "error_rate": _grid_cols(per_lam[..., 0] / reps),
+        "edge_f1": _grid_cols(
+            2.0 * shared / np.maximum(n_est + n_true, np.float32(1e-9))),
+        "iters": _grid_cols(iters / reps),
+        "selected_hist": _grid_cols(hist),
+    }
+
+
 def _package_result(plan: TrialPlan, m: np.ndarray, *, seconds: float,
                     host_syncs: int, fault_sums: np.ndarray | None,
-                    tiling: dict) -> TrialResult:
-    """(S, len(ns), 3) mean metrics -> TrialResult, with ``repro``'s f32
-    arithmetic for the derived metrics: edge F1 == shared / (d - 1) for
-    spanning trees, and precision == recall == F1."""
+                    tiling: dict, path_extras=None) -> TrialResult:
+    """Mean metrics -> TrialResult, with ``repro``'s f32 arithmetic for
+    the derived metrics. Tree plans carry (S, len(ns), 3) channels: edge
+    F1 == shared / (d - 1) for spanning trees, and precision == recall ==
+    F1. Sparse plans carry (S, len(ns), 5) [error, hamming, shared, est,
+    true]: P = shared/est, R = shared/true, F1 = 2*shared/(est+true)."""
     labels = [s.label for s in plan.strategies]
 
     def _cols(a: np.ndarray) -> dict[str, list[float]]:
         return {lab: [float(v) for v in a[i]] for i, lab in enumerate(labels)}
 
-    edge_f1 = _cols(m[:, :, 2] / np.float32(plan.d - 1))
+    if plan.structure == "sparse":
+        shared, n_est, n_true = m[:, :, 2], m[:, :, 3], m[:, :, 4]
+        tiny = np.float32(1e-9)
+        precision = _cols(shared / np.maximum(n_est, tiny))
+        recall = _cols(shared / np.maximum(n_true, tiny))
+        edge_f1 = _cols(2.0 * shared / np.maximum(n_est + n_true, tiny))
+    else:
+        edge_f1 = _cols(m[:, :, 2] / np.float32(plan.d - 1))
+        precision = {lab: list(v) for lab, v in edge_f1.items()}
+        recall = {lab: list(v) for lab, v in edge_f1.items()}
     return TrialResult(
         plan=plan, error_rate=_cols(m[:, :, 0]),
         edit_distance=_cols(m[:, :, 1]), edge_f1=edge_f1,
-        precision={lab: list(v) for lab, v in edge_f1.items()},
-        recall={lab: list(v) for lab, v in edge_f1.items()},
+        precision=precision, recall=recall,
         seconds=seconds, host_syncs=host_syncs,
         comm=_comm_reports(plan, fault_sums), buckets=plan.buckets,
         compile_cache_size=compile_cache_size(),
-        faults=_fault_stats(plan, fault_sums), tiling=tiling)
+        faults=_fault_stats(plan, fault_sums), tiling=tiling,
+        path=_path_stats(plan, path_extras))
 
 
 def _host_kruskal_trials(plan: TrialPlan, engine: GramEngine,
@@ -610,63 +1001,109 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
     per-point metric sums, which stay on the device until the single
     read-back of the (S, len(ns), 3) tensor (with the fault telemetry).
 
+    Sparse plans run the same chain into correlation statistics and solve
+    every point's at once with one batched glasso (or, with
+    ``plan.path``, one warm-started grid solve and on-device selection),
+    giving (S, len(ns), 5) support channel sums; the path's per-lam sums
+    ride the same read-back. Where all points' lanes do not fit half the
+    memory budget, each point is solved after its corr stage instead, in
+    ``plan.metrics_chunk()`` slabs. The solver's ``eigh`` waits for the
+    host in every step, so the sweep makes more device->host copies than
+    reads (``host_syncs``, still 1).
+
     ``device`` (default cuda; raises without it) is where the sweep runs;
     the tests pass ``device="cpu"``. ``engine`` pins the Gram backend
     (default: the kernels on a card, torch on the CPU) and is clamped to
     the plan's memory budget. ``mst="host_kruskal"`` reads the weights
-    back once and solves on the host. A fault plan runs the masked-Gram
-    path and reports the realized telemetry on ``TrialResult.faults``;
-    a zero-fault plan is bit-identical to none.
+    back once and solves on the host (tree plans only). A fault plan runs
+    the masked-Gram path and reports the realized telemetry on
+    ``TrialResult.faults``; a zero-fault plan is bit-identical to none.
     """
     if mesh is not None:
         raise NotImplementedError(f"run_trials(mesh=...) {_MESH_PLANE}")
-    _require_tree_plane(plan)
     labels = [s.label for s in plan.strategies]
     if len(set(labels)) != len(labels):
         raise ValueError(f"duplicate strategy labels: {labels}")
     if mst not in ("device", "host_kruskal"):
         raise ValueError(f"unknown mst mode {mst!r}")
+    sparse = plan.structure == "sparse"
+    if mst == "host_kruskal" and sparse:
+        raise ValueError(
+            "mst='host_kruskal' is a tree-plane escape hatch; sparse "
+            "plans solve glasso, not an MWST")
     dev = resolve_device(device)
     engine = plan.budget_engine(resolve_engine(engine), device=dev)
     if mst == "host_kruskal":
         return _host_kruskal_trials(plan, engine, dev)
     chunk = plan.metrics_chunk()
-    parents, rhos, adj_true, keys = _plan_setup(*_setup_key(plan), str(dev))
+    together = sparse and _solve_points_together(plan)
+    if sparse:
+        chols, adj_true, keys = _sparse_plan_setup(*_sparse_setup_key(plan),
+                                                   str(dev))
+    else:
+        parents, rhos, adj_true, keys = _plan_setup(*_setup_key(plan),
+                                                    str(dev))
     faults = plan.faults
     fkeys = (fault_trial_keys(faults, plan.reps, device=dev)
              if faults is not None else None)
     point_sums, fault_sums = [], []
     t0 = time.perf_counter()
     for n in plan.ns:
-        out = _stacked_weights(keys, parents, rhos, n, plan.strategies,
-                               plan.bucket_for(n), engine, faults, fkeys)
+        n_pad = plan.bucket_for(n)
+        if sparse:
+            out = _stacked_corr(keys, chols, n, plan.strategies, n_pad,
+                                engine, faults, fkeys)
+        else:
+            out = _stacked_weights(keys, parents, rhos, n, plan.strategies,
+                                   n_pad, engine, faults, fkeys)
         if faults is None:
             w = out
         else:
             w, fsum = out
             fault_sums.append(fsum)
-        point_sums.append(_metric_sums(w, adj_true, chunk))
+        if not sparse:
+            point_sums.append(_metric_sums(w, adj_true, chunk))
+        elif together:
+            # the statistics wait for the one solve of every point: each
+            # solver step waits for the host, so one loop over all the
+            # sweep's trials takes len(ns) times fewer of them
+            point_sums.append(w)
+        else:
+            point_sums.append(_sparse_sums(plan, w[None], adj_true, (n,),
+                                           chunk))
         del w, out
-    # (S, len(ns), 3) metric sums, still on the device, and the fault
-    # telemetry sums: THE read-back. host_syncs counts real reads.
-    sums = torch.stack(point_sums, dim=1)
-    bundle = [sums.flatten()]
+    if not sparse:
+        parts = [torch.stack(point_sums, dim=1)]
+    else:
+        if together:
+            point_sums = [_sparse_sums(plan, torch.stack(point_sums),
+                                       adj_true, plan.ns, chunk)]
+        parts = [torch.cat(p).transpose(0, 1) for p in zip(*point_sums)]
+    del point_sums
+    # the metric sums (and the path's per-lam sums, and the fault
+    # telemetry), still on the device: THE read-back. host_syncs counts
+    # result reads.
     if faults is not None:
-        bundle.append(torch.stack(fault_sums).flatten())
-    host = torch.cat(bundle).cpu().numpy()
+        parts.append(torch.stack(fault_sums))
+    host = torch.cat([p.flatten().to(torch.float32) for p in parts]) \
+        .cpu().numpy()
     syncs = 1
     seconds = time.perf_counter() - t0
+    arrays, at = [], 0
+    for p in parts:
+        arrays.append(host[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    fsums = arrays.pop() if faults is not None else None
     # the means divide on the host: CUDA divides a tensor by a python
     # scalar as a product with its reciprocal, which rounds unlike the
     # CPU's (and XLA's) division
-    m = host[:sums.numel()].reshape(sums.shape) / np.float32(plan.reps)
-    fsums = (host[sums.numel():].reshape(len(plan.ns), -1)
-             if faults is not None else None)
+    m = arrays[0] / np.float32(plan.reps)
     return _package_result(
         plan, m, seconds=seconds, host_syncs=syncs, fault_sums=fsums,
         tiling={"memory_budget_bytes": plan.effective_memory_budget,
                 "d_tile": engine.d_tile, "n_chunk": engine.n_chunk,
-                "metrics_chunk": chunk})
+                "metrics_chunk": chunk},
+        path_extras=arrays[1:] or None)
 
 
 # --------------------------------------------------------------------------
@@ -675,31 +1112,46 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
 
 def learned_adjacency(x, strategy: Strategy, *,
                       engine: GramEngine | None = None,
+                      glasso_tol: float = glasso.SUPPORT_TOL,
+                      glasso_steps: int = glasso.DEFAULT_STEPS,
                       device=None) -> torch.Tensor:
-    """Device-side tree estimate of one (n, d) dataset: sample ->
-    quantize -> Gram -> weights -> fixed-round Boruvka, as a (d, d) bool
-    adjacency on the data's device (host data goes to ``device``)."""
-    if strategy.structure == "sparse":
-        raise NotImplementedError(f"sparse strategies {_SPARSE_PLANE}")
+    """Device-side structure estimate of one (n, d) dataset as a (d, d)
+    bool adjacency on the data's device (host data goes to ``device``):
+    quantize -> Gram -> weights -> fixed-round Boruvka for tree
+    strategies, quantize -> Gram -> correlation -> glasso -> partial-
+    correlation support for sparse ones (``glasso_tol``/``glasso_steps``
+    as in :class:`TrialPlan`)."""
     x = as_tensor(x, resolve_device(device, x), torch.float32)
+    engine = resolve_engine(engine)
+    if strategy.structure == "sparse":
+        corr = estimators.strategy_corr(x, strategy, engine=engine)
+        theta = glasso.glasso_batch(corr[None], strategy.lam,
+                                    n_steps=glasso_steps)[0]
+        return glasso.support_from_theta(theta, glasso_tol)
     return boruvka_mst(estimators.strategy_weights(
-        x, strategy, engine=resolve_engine(engine)), early_exit=False)
+        x, strategy, engine=engine), early_exit=False)
 
 
 def evaluate_strategies(x, adj_true, strategies: Sequence[Strategy], *,
                         engine: GramEngine | None = None,
+                        glasso_tol: float = glasso.SUPPORT_TOL,
+                        glasso_steps: int = glasso.DEFAULT_STEPS,
                         device=None) -> dict[str, dict[str, float]]:
     """Score several strategies on ONE dataset against a reference
     adjacency; the per-strategy metrics come back in one read.
 
     Returns ``{label: {error, edit_distance, edge_f1}}`` where
-    ``edit_distance`` is the edge symmetric difference |E_hat ^ E_ref|.
+    ``edit_distance`` is the edge symmetric difference |E_hat ^ E_ref|
+    (``edge_f1`` is the general support formula; only sparse strategies
+    read the glasso knobs).
     """
     x = as_tensor(x, resolve_device(device, x), torch.float32)
     adj_true = as_tensor(adj_true, x.device).bool()
     stacked = []
     for strat in strategies:
-        est = learned_adjacency(x, strat, engine=engine)
+        est = learned_adjacency(x, strat, engine=engine,
+                                glasso_tol=glasso_tol,
+                                glasso_steps=glasso_steps)
         stacked.append(torch.stack([
             trees.structure_error(est, adj_true).to(torch.float32),
             trees.structure_hamming(est, adj_true).to(torch.float32),

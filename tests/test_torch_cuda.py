@@ -528,3 +528,66 @@ def test_cuda_trial_plane_matches_cpu(cuda):
     a, b = run_trials(plan, device=cuda), run_trials(zero, device=cuda)
     for f in ("error_rate", "edit_distance", "edge_f1"):
         assert getattr(a, f) == getattr(b, f), f
+
+
+def _sparse_strategies(methods):
+    from repro_torch.core import Strategy
+
+    return tuple(Strategy(m, rate=r, structure="sparse", lam=0.06)
+                 for m, r in methods)
+
+
+#: examples/sparse_glasso.py's plan at fewer reps
+SPARSE_SWEEP = dict(d=16, tree="sparse", density=0.18, rho_min=0.25,
+                    rho_max=0.45, glasso_steps=300)
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_plane_matches_cpu(cuda):
+    """A d = 16 sparse sweep (the example's width, fixed lam and an EBIC
+    path) on the card and on the CPU: one result read, and metrics equal
+    but as experiments.sparse_sweep_faults allows (each device's sweep
+    equal to its points solved alone, supports parting only at entries
+    whose partial correlations sit at the threshold); a sparse fault
+    plan's telemetry equal."""
+    import dataclasses
+
+    from repro_torch.core.experiments import (TrialPlan, run_trials,
+                                              sparse_sweep_faults)
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.path import PathPlan
+
+    plan = TrialPlan(strategies=_sparse_strategies(
+        (("sign", 1), ("persymbol", 2), ("original", 1))), reps=6,
+        ns=(250, 1000), **SPARSE_SWEEP)
+    before = kernels.launches()
+    for p in (plan, dataclasses.replace(plan, path=PathPlan(n_lams=4)),
+              dataclasses.replace(plan, faults=FaultPlan(
+                  dropout=0.3, bitflip=0.01, machines=4, seed=8))):
+        card = run_trials(p, device=cuda)
+        host = run_trials(p, device="cpu")
+        assert card.host_syncs == 1 and card.faults == host.faults
+        assert card.buckets == host.buckets
+        _, faults = sparse_sweep_faults(p, card, host, device=cuda,
+                                        ref_device="cpu")
+        assert not faults, faults
+    after = kernels.launches()
+    assert all(after[k] > before[k] for k in
+               ("sign_corr", "code_corr", "quantize_fused"))
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_zero_fault_plan_equals_none(cuda):
+    import dataclasses
+
+    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.faults import FaultPlan
+
+    plan = TrialPlan(strategies=_sparse_strategies(
+        (("sign", 1), ("persymbol", 4), ("original", 1))), reps=4,
+        ns=(250, 1000, 4000), **SPARSE_SWEEP)
+    zero = dataclasses.replace(plan, faults=FaultPlan(machines=4, retries=1))
+    a, b = run_trials(plan, device=cuda), run_trials(zero, device=cuda)
+    for f in ("error_rate", "edit_distance", "edge_f1", "precision",
+              "recall"):
+        assert getattr(a, f) == getattr(b, f), f

@@ -192,3 +192,63 @@ def test_faulty_run_trials_matches_repro(mst):
     assert got.faults[0]["dropped_machines"] + got.faults[0][
         "straggling_machines"] > 0
     assert any(r.retry_bytes > 0 for r in got.comm["sign"])
+
+
+# --------------------------------------------------------------------------
+# The sparse plane under faults (tests/test_faults.py's sparse plan)
+# --------------------------------------------------------------------------
+
+SPARSE_FAULTS = dict(dropout=0.3, machines=4, seed=8)
+
+
+def _sparse_fault_plans(faults=SPARSE_FAULTS, **kw):
+    strategies = (j_strategy.Strategy("sign", structure="sparse", lam=0.1),)
+    base = dict(d=8, ns=(64,), reps=6, seed0=3, tree="sparse")
+    base.update(kw)
+    return (je.TrialPlan(strategies=strategies,
+                         faults=j_faults.FaultPlan(**faults), **base),
+            te.TrialPlan(strategies=tuple(_port(s) for s in strategies),
+                         faults=t_faults.FaultPlan(**faults), **base))
+
+
+@pytest.mark.parametrize("faults", [SPARSE_FAULTS, FAULTS["mixed"]],
+                         ids=["dropout", "mixed"])
+def test_sparse_faulty_run_trials_matches_repro(faults):
+    """The fault draws and telemetry bit for bit, the metrics under the
+    near-threshold rule of tests/_sparse_parity.py."""
+    import _sparse_parity
+
+    jp, tp = _sparse_fault_plans(faults)
+    want = je.run_trials(jp)
+    got = te.run_trials(tp, device="cpu")
+    assert got.faults == want.faults and got.faults is not None
+    _sparse_parity.assert_sparse_sweeps_agree(jp, tp, want, got)
+    for label, reports in want.comm.items():
+        for w, g in zip(reports, got.comm[label]):
+            assert dataclasses.asdict(g) == dataclasses.asdict(w)
+    for lab in got.error_rate:
+        assert all(np.isfinite(v) for v in got.error_rate[lab])
+
+
+def test_sparse_zero_fault_plan_is_bit_identical_to_none():
+    _, tp = _sparse_fault_plans(dict(machines=4, retries=1), d=16,
+                                ns=(100, 300), reps=4, glasso_steps=100)
+    tp = dataclasses.replace(tp, strategies=tuple(_port(s) for s in (
+        j_strategy.Strategy("sign", wire="packed", structure="sparse",
+                            lam=0.08),
+        j_strategy.Strategy("persymbol", rate=4, structure="sparse",
+                            lam=0.06),
+        j_strategy.Strategy("original", structure="sparse", lam=0.06))))
+    none = dataclasses.replace(tp, faults=None)
+    chols, _, keys = te._sparse_plan_setup(*te._sparse_setup_key(tp), "cpu")
+    fkeys = t_faults.fault_trial_keys(tp.faults, tp.reps, device="cpu")
+    engine = te.GramEngine()
+    c = te._stacked_corr(keys, chols, 100, tp.strategies, 128, engine)
+    cf, tele = te._stacked_corr(keys, chols, 100, tp.strategies, 128, engine,
+                                tp.faults, fkeys)
+    assert torch.equal(cf, c) and not tele.any()
+    a = te.run_trials(none, device="cpu")
+    b = te.run_trials(tp, device="cpu")
+    for field in ("error_rate", "edit_distance", "edge_f1", "precision",
+                  "recall", "buckets", "host_syncs"):
+        assert getattr(b, field) == getattr(a, field), field

@@ -117,7 +117,7 @@ def test_port_imports_neither_jax_nor_repro():
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
         "assert not bad, bad\n"
         "need = {'repro_torch.core.' + m for m in ('bounds', 'distributed',"
-        " 'experiments', 'faults', 'prng', 'sampler')}\n"
+        " 'experiments', 'faults', 'glasso', 'path', 'prng', 'sampler')}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
