@@ -29,7 +29,14 @@ fixed penalty, an EBIC path and a StARS path, card against CPU (supports
 may part only at partial correlations that sit at the threshold) with the
 device->host copies counted by cause; a d = 128 sweep with its time
 split and eigh's time a step, card against CPU; and the sparse fault
-checks. Any failed check exits non-zero. The last three
+checks. Last, the channel plane (phase 14): sign_corr on MAC-masked
+codes and quantize_fused at R = 1..4 held and timed at b = 32, n = 8192,
+d = 1024; benchmarks/channels.py's plan (gather, MAC superposition and
+bit-budget strategies, pristine and faulty) card against CPU with its
+five checks; the channel strategies at d = 1024 over 16 machines with
+their time split; and learn_structure over a MAC at PRODUCTION (phase
+4's edges exactly) and over a bit budget at d = 4096, n = 2^18. Any
+failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
@@ -568,7 +575,8 @@ CUT_STRATEGIES = (
 
 def run_main_path(dev, d, main_n, cut_n):
     """learn_structure at PRODUCTION and at the cut n; returns the summed
-    launch counts of these runs (counts reset before each, read after)."""
+    launch counts of these runs (counts reset before each, read after)
+    and the PRODUCTION edge list."""
     import torch
     from repro_torch.configs import PRODUCTION
     from repro_torch.core import estimators
@@ -597,6 +605,7 @@ def run_main_path(dev, d, main_n, cut_n):
     expect(counts["sign_corr"] > 0, "the PRODUCTION run launched no "
            "sign_corr")
     expect(is_tree(d, est), "the PRODUCTION result is not a spanning tree")
+    main_edges = est
     # the same run stage by stage, for the breakdown
     payload, t_enc = timed(lambda: estimators.strategy_payload(x, s))
     del x
@@ -629,7 +638,7 @@ def run_main_path(dev, d, main_n, cut_n):
             f"short) {s.label}/{s.wire}: learn_structure_s={t:.4f} "
             f"edit_distance={tree_edit_distance(est, truth)} "
             f"launches={json.dumps(counts)}")
-    return total
+    return total, main_edges
 
 
 def card_vs_cpu(dev, d, n):
@@ -1559,7 +1568,8 @@ def card_vs_cpu_sweep(plan, card, host, dev, what):
                                                   device=where))
                 w = experiments._stacked_weights(
                     keys, parents, rhos, n, (s,), plan.bucket_for(n),
-                    GramEngine(), *extra)
+                    GramEngine(), *(extra or (None, None)),
+                    experiments._rates_operand((s,), n, plan.d, where))
                 w = (w if plan.faults is None else w[0])[0]
                 t = boruvka_mst_batch(w, early_exit=False)
                 ham = ((t != adj).sum(dim=(1, 2)) // 2).cpu().numpy()
@@ -1571,17 +1581,29 @@ def card_vs_cpu_sweep(plan, card, host, dev, what):
                     np.float32(ham.sum()) / np.float32(plan.reps)),
                     f"{what}: recomputed trees of {s.label} n={n} do not "
                     f"give the sweep's edit distance")
-            for k in np.flatnonzero((tc != th).flatten(1).any(1).numpy()):
-                delta = float((wc[k] - wh[k]).abs().max())
-                expect(delta <= TIE_RTOL * float(wh[k].abs().max()),
-                       f"{what}: {s.label} n={n} trial {k}: card and CPU "
-                       f"weights differ by {delta}")
-                gap = float(wh[k][th[k]].sum() - wh[k][tc[k]].sum()) / 2
-                expect(0.0 <= gap <= 2 * (plan.d - 1) * delta,
-                       f"{what}: {s.label} n={n} trial {k}: the card's "
-                       f"tree is {gap} below the CPU's maximum, beyond a "
-                       f"tie at {delta}")
-                ties.append((s.label, n, int(k), gap, delta))
+            ties += trace_ties(wc, tc, wh, th, plan.d,
+                               f"{what}: {s.label} n={n}", (s.label, n))
+    return ties
+
+
+def trace_ties(wa, ta, wb, tb, d, what, tag=()):
+    """Hold each trial whose trees ``ta`` and ``tb`` (of weights ``wa``
+    and ``wb``, (r, d, d) on the host) differ to a tie: the weights agree
+    within TIE_RTOL, and tree ``ta`` falls short of ``tb``'s maximum by
+    no more than the weights' difference can explain. Returns (*tag,
+    trial, weight gap, max |wa - wb|) of each."""
+    import numpy as np
+
+    ties = []
+    for k in np.flatnonzero((ta != tb).flatten(1).any(1).numpy()):
+        delta = float((wa[k] - wb[k]).abs().max())
+        expect(delta <= TIE_RTOL * float(wb[k].abs().max()),
+               f"{what} trial {k}: the weights differ by {delta}")
+        gap = float(wb[k][tb[k]].sum() - wb[k][ta[k]].sum()) / 2
+        expect(0.0 <= gap <= 2 * (d - 1) * delta,
+               f"{what} trial {k}: one tree is {gap} below the other's "
+               f"maximum, beyond a tie at {delta}")
+        ties.append((*tag, int(k), gap, delta))
     return ties
 
 
@@ -1723,44 +1745,51 @@ def check_trial_kernels(dev, reps):
     return out
 
 
+def sweep_card_and_cpu(plan, dev, total, what):
+    """A sweep cold, warm and profiled on the card and once on the CPU:
+    one host read, one device->host copy in the profile of a warm sweep,
+    the reruns equal to the cold run, and card == CPU (but for ties).
+    Returns the cold result."""
+    from repro_torch.core.experiments import run_trials
+
+    card, counts = counted(total, lambda: run_trials(plan, device=dev))
+    warm, _ = counted(total, lambda: run_trials(plan, device=dev))
+    (prof, wall, busy, dtoh), _ = counted(
+        total, lambda: profiled(lambda: run_trials(plan, device=dev)))
+    host, t_cpu = timed(lambda: run_trials(plan, device="cpu"))
+    expect(card.host_syncs == warm.host_syncs == prof.host_syncs == 1,
+           f"{what}: host_syncs {card.host_syncs}")
+    expect(dtoh == 1, f"{what}: a warm sweep made {dtoh} device->host "
+           f"copies, not 1")
+    ties = card_vs_cpu_sweep(plan, card, host, dev, f"{what} card vs CPU")
+    _same_results(warm, card, f"{what} warm vs cold")
+    _same_results(prof, card, f"{what} profiled vs cold")
+    log(f"{what}: {plan.trials} trials, card cold {card.seconds:.4f} s, "
+        f"warm {warm.seconds:.4f} s ({warm.trials_per_s:.1f} trials/s; "
+        f"profiled wall {wall:.4f} s, device busy {busy:.3f} ms, idle "
+        f"{100 * (1 - busy / 1e3 / wall):.1f}%, device->host copies "
+        f"{dtoh}); CPU {t_cpu:.2f} s; card == CPU"
+        f"{' but for ties (label, n, trial, gap, max |dw|): '
+           + json.dumps(ties) if ties else ''}; "
+        f"buckets={card.buckets} launches={json.dumps(counts)}")
+    log(f"{what} error_rate={json.dumps(card.error_rate)}")
+    return card
+
+
 def fig3_sweeps(dev, total):
     """Part 1: the Fig. 3 sweep with pow2 buckets and exact shapes, and
-    the packed wires over the same trials, on the card and on the CPU:
-    equal results, one host read, and one device->host copy in the
-    profile of a warm sweep."""
+    the packed wires over the same trials, on the card and on the CPU
+    (:func:`sweep_card_and_cpu`)."""
     from repro_torch.core import FIG3_STRATEGIES
-    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.experiments import TrialPlan
 
     for strategies, what in ((FIG3_STRATEGIES, "FIG3"),
                              (_packed_strategies(), "packed")):
         for buckets in ("pow2", None):
             plan = TrialPlan(strategies=strategies, n_buckets=buckets,
                              **TRIALS_FIG3)
-            card, counts = counted(total, lambda: run_trials(plan, device=dev))
-            warm, _ = counted(total, lambda: run_trials(plan, device=dev))
-            (prof, wall, busy, dtoh), _ = counted(
-                total, lambda: profiled(lambda: run_trials(plan, device=dev)))
-            host, t_cpu = timed(lambda: run_trials(plan, device="cpu"))
-            name = f"{what} n_buckets={buckets}"
-            expect(card.host_syncs == 1 and warm.host_syncs == 1,
-                   f"{name}: host_syncs {card.host_syncs}")
-            expect(dtoh == 1, f"{name}: a warm sweep made {dtoh} "
-                   f"device->host copies, not 1")
-            ties = card_vs_cpu_sweep(plan, card, host, dev,
-                                     f"{name} card vs CPU")
-            _same_results(warm, card, f"{name} warm vs cold")
-            _same_results(prof, card, f"{name} profiled vs cold")
-            log(f"phase 12 Fig. 3 {name}: {plan.trials} trials, card cold "
-                f"{card.seconds:.4f} s, warm {warm.seconds:.4f} s "
-                f"({warm.trials_per_s:.1f} trials/s; profiled wall "
-                f"{wall:.4f} s, device busy {busy:.3f} ms, idle "
-                f"{100 * (1 - busy / 1e3 / wall):.1f}%, device->host "
-                f"copies {dtoh}); CPU {t_cpu:.2f} s; card == CPU"
-                f"{' but for ties (label, n, trial, gap, max |dw|): '
-                   + json.dumps(ties) if ties else ''}; "
-                f"buckets={card.buckets} launches={json.dumps(counts)}")
-            log(f"phase 12 Fig. 3 {name} error_rate="
-                f"{json.dumps(card.error_rate)}")
+            sweep_card_and_cpu(plan, dev, total, f"phase 12 Fig. 3 {what} "
+                               f"n_buckets={buckets}")
 
 
 def _staged_sweep(plan, dev):
@@ -2317,6 +2346,520 @@ def sparse_plane(dev, total):
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the channel plane
+# ---------------------------------------------------------------------------
+
+#: benchmarks/channels.py, uncut: d = 16 over 4 machines, three ns, 32 reps,
+#: seed0 = 7, B = 6 * 512 * 16 at cap 4, pristine and its faulty scenario
+CHANNELS = dict(d=16, ns=(128, 512, 2048), reps=32, seed0=7)
+CHANNEL_MACHINES, CHANNEL_CAP = 4, 4
+CHANNEL_BUDGET = 6 * 512 * 16
+CHANNEL_FAULTS = dict(dropout=0.15, straggle=0.3, straggle_frac=0.5,
+                      machines=4, seed=1)
+#: benchmarks/bigd.py's width over 16 machines; B = 24 * 8192 * 64 gives
+#: every machine the cap at n = 2048 and (2 x 8, 1 x 8) at n = 8192
+CHANNEL_WIDE = dict(d=1024, ns=(2048, 8192), reps=32)
+WIDE_MACHINES = 16
+WIDE_BUDGET = 24 * 8192 * 64
+WIDE_RATES = {2048: (4,) * 16, 8192: (2,) * 8 + (1,) * 8}
+#: the width's card-vs-CPU cut (TRIALS_FAULTS_CUT's): B = 24 * 1024 * 4
+WIDE_CUT = dict(d=64, ns=(1024,), reps=8, seed0=7)
+WIDE_CUT_BUDGET = 24 * 1024 * 4
+#: (b, n, d, n_valid) of the kernels' checks at the phase's own shapes
+CHANNEL_KERNEL_SHAPE = (32, 8192, 1024, 8000)
+#: learn_structure at full width: sign@mac8 at PRODUCTION, and a budget
+#: over 16 machines at n = 2^18 whose B gives (2 x 8, 1 x 8)
+MAIN_MAC_MACHINES = 8
+MAIN_BUDGET_MACHINES = 16
+MAIN_BUDGET = 24 * CUT_N * (D // MAIN_BUDGET_MACHINES)
+MAIN_BUDGET_RATES = (2,) * 8 + (1,) * 8
+
+
+def _channel_strategies(machines, budget):
+    """(sign, R4, sign over a MAC of ``machines``, R4 capped under a
+    budget of ``budget`` bits over ``machines``)."""
+    from repro_torch.core import BudgetChannel, MACChannel, Strategy
+
+    return (Strategy("sign"), Strategy("persymbol", rate=CHANNEL_CAP),
+            Strategy("sign", channel=MACChannel(machines)),
+            Strategy("persymbol", rate=CHANNEL_CAP, channel=BudgetChannel(
+                budget_bits=budget, machines=machines)))
+
+
+def check_channel_kernels(dev, reps):
+    """The two kernels of the channel plane against their plain versions
+    at its shapes (b = 32 trials, n = 8192, d = 1024): ``sign_corr`` on
+    MAC-masked codes (an interior block dropped whole, one truncated off
+    the 128-sample stage, stragglers' prefixes, the padded tail), and
+    ``quantize_fused`` at R = 1..4, the budget encode's four launches.
+    Returns {kernel: channel record}."""
+    import torch
+    from repro_torch.core import MACChannel, Strategy, estimators, sampler
+    from repro_torch.core.experiments import (TrialPlan, stacked_trees,
+                                              trial_keys)
+    from repro_torch.core.faults import FaultPlan, fault_trial_keys
+    from repro_torch.core.quantizers import codebook_tensors
+    from repro_torch.kernels import quantize_fused, ref, sign_corr
+
+    b, n, d, n_valid = CHANNEL_KERNEL_SHAPE
+    shape = f"b={b} n={n} d={d}"
+    plan = TrialPlan(d=d, ns=(n,), reps=b)
+    parents, rhos, _ = stacked_trees(plan, device=dev)
+    x = sampler.sample_tree_ggm_rows_batch(trial_keys(plan, device=dev), n,
+                                           parents, rhos)
+    s = Strategy("sign", channel=MACChannel(WIDE_MACHINES))
+    fp = FaultPlan(**MIXED_FAULTS)
+    fkeys = fault_trial_keys(fp, b, device=dev)
+    _, flip, _ = fp.draw_batch(fkeys, n, n_valid, d)
+    delivered = fp.draw_rowblock_batch(fkeys, n, n_valid, WIDE_MACHINES)
+    delivered[:, 3] = 0
+    delivered[:, 5] = delivered[:, 5].clamp(max=200)
+    rows = n // WIDE_MACHINES
+    u = estimators.mac_sign_codes(x, s, delivered=delivered, flip=flip)
+    expect(not bool(u[:, 3 * rows:4 * rows].any())
+           and not bool(u[:, 5 * rows + 200:6 * rows].any())
+           and not bool(u[:, n_valid:].any()),
+           "the MAC mask left undelivered rows in the codes")
+    expect(torch.equal(sign_corr(u), ref.sign_corr_ref(u)),
+           f"sign_corr on MAC-masked codes at {shape}")
+    lossless = estimators.mac_sign_codes(x, s, n_valid=n_valid)
+    expect(torch.equal(sign_corr(lossless), ref.sign_corr_ref(lossless)),
+           f"sign_corr on lossless MAC codes at {shape}")
+    del lossless
+    for rate in range(1, CHANNEL_CAP + 1):
+        bounds, _ = codebook_tensors(rate, dev)
+        expect(torch.equal(quantize_fused(x, rate), ref.encode_ref(x, bounds)),
+               f"quantize_fused R={rate} at {shape}")
+    log(f"phase 14 kernels at {shape}: sign_corr on MAC-masked codes "
+        f"(block 3 dropped, block 5 cut at row 200, faults' prefixes, tail "
+        f"from n_valid={n_valid}) and lossless ones, quantize_fused R=1.."
+        f"{CHANNEL_CAP} equal their plain versions")
+
+    out = {}
+    uf = u.to(torch.float32)
+    ut = uf.transpose(1, 2).contiguous()
+    ops = 2 * b * n * d * d
+    rec = make_record("phase 14 channel", "sign_corr", "", "", shape + " MAC",
+                      event_ms(lambda: sign_corr(u), reps),
+                      event_ms(lambda: ref.sign_corr_ref(u), reps),
+                      event_ms(lambda: torch.bmm(ut, uf), reps),
+                      u.numel() + b * d * d * 4, ops, INT8_TENSOR_OPS_PER_S,
+                      0.0)
+    out["sign_corr"] = rec
+    del u, uf, ut
+    times = {"ms": [], "plain_ms": [], "library_ms": []}
+    for rate in range(1, CHANNEL_CAP + 1):
+        bounds, _ = codebook_tensors(rate, dev)
+        times["ms"].append(event_ms(lambda: quantize_fused(x, rate), reps))
+        times["plain_ms"].append(event_ms(lambda: ref.encode_ref(x, bounds),
+                                          reps))
+        times["library_ms"].append(event_ms(
+            lambda: torch.bucketize(x, bounds), reps))
+    log("phase 14 quantize_fused R=1..4 at " + shape + ", ms a launch: "
+        + json.dumps(times))
+    levels = sum((1 << r) - 1 + (1 << r) for r in range(1, CHANNEL_CAP + 1))
+    out["quantize_fused"] = make_record(
+        "phase 14 channel", "quantize_fused", "", "",
+        shape + f" R=1..{CHANNEL_CAP} (the budget encode's launches)",
+        sum(times["ms"]), sum(times["plain_ms"]), sum(times["library_ms"]),
+        CHANNEL_CAP * x.numel() * 5 + levels * 4,
+        sum(range(1, CHANNEL_CAP + 1)) * x.numel(), F32_OPS_PER_S, 0.0)
+    del x
+    torch.cuda.empty_cache()
+    return {k: {f: r[f] for f in ("shape", "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")}
+            for k, r in out.items()}
+
+
+def channel_bench(dev, total):
+    """Part (a): benchmarks/channels.py's plan, uncut, its legacy
+    (gather-only), pristine and faulty sweeps on the card and the CPU, and
+    the bench's five checks."""
+    import dataclasses
+
+    from repro_torch.core.experiments import TrialPlan, clear_compile_caches
+    from repro_torch.core.faults import FaultPlan
+
+    strategies = _channel_strategies(CHANNEL_MACHINES, CHANNEL_BUDGET)
+    pristine = TrialPlan(strategies=strategies, **CHANNELS)
+    plans = {"legacy": dataclasses.replace(pristine,
+                                           strategies=strategies[:1]),
+             "pristine": pristine,
+             "faulty": dataclasses.replace(
+                 pristine, faults=FaultPlan(**CHANNEL_FAULTS))}
+    res = {}
+    for name, plan in plans.items():
+        clear_compile_caches()
+        res[name] = sweep_card_and_cpu(plan, dev, total,
+                                       f"phase 14 channels d=16 {name}")
+    mac, bgt = strategies[2].label, strategies[3].label
+    metrics = ("error_rate", "edit_distance", "edge_f1")
+    checks = {
+        "gather_bit_identical_to_legacy": all(
+            getattr(res["pristine"], f)["sign"]
+            == getattr(res["legacy"], f)["sign"] for f in metrics),
+        # one host read and one device->host copy: sweep_card_and_cpu
+        "mac_one_sync": all(r.host_syncs == 1 for r in res.values()),
+        "budget_bits_leq_B": all(
+            sum(c.machine_bits) == c.logical_bits <= CHANNEL_BUDGET
+            for r in (res["pristine"], res["faulty"]) for c in r.comm[bgt]),
+        "mac_lossless_matches_gather": all(
+            getattr(res["pristine"], f)[mac]
+            == getattr(res["pristine"], f)["sign"] for f in metrics),
+        "faulty_finite": all(v == v for vs in res["faulty"].error_rate.values()
+                             for v in vs),
+    }
+    expect(all(checks.values()), f"benchmarks/channels.py checks {checks}")
+    ledgers = {lab: [(c.rates, c.machine_bits) for c in res["pristine"].comm[
+        lab]] for lab in (mac, bgt)}
+    log(f"phase 14 channels d=16 checks {json.dumps(checks)}; ledgers "
+        f"(rates, machine_bits) {json.dumps(ledgers)}; faults "
+        f"{json.dumps(res['faulty'].faults)}")
+
+
+def _budget_vs_r4(plan, dev, engine):
+    """The d = 1024 plan's first point, where every machine has the cap:
+    the budget's Gram (decoded f32 values, an f32 product) within
+    code_tolerance of R4's (code_corr), and every trial whose two trees
+    differ a tie. Returns (max |Gram difference|, ties)."""
+    import torch
+    from repro_torch.core import estimators, experiments, sampler
+    from repro_torch.core.chow_liu import boruvka_mst_batch
+
+    n = plan.ns[0]
+    n_pad = plan.bucket_for(n)
+    r4, bgt = plan.strategies[1], plan.strategies[3]
+    parents, rhos, adj, keys = experiments._plan_setup(
+        *experiments._setup_key(plan), str(torch.device(dev)))
+    x = sampler.sample_tree_ggm_rows_batch(keys, n_pad, parents, rhos)
+    rates = experiments._rates_operand((bgt,), n, plan.d, dev)[0]
+    expect(bool((rates == r4.rate).all()), f"the budget at n={n} does not "
+           f"give every machine the cap")
+    g_r4 = estimators.payload_gram(estimators.strategy_payload(
+        x, r4, n_valid=n), r4, n_valid=n, engine=engine)
+    g_bgt = engine.gram_batch(estimators.budget_operand(
+        estimators.budget_payload(x, bgt, rates, n_valid=n), bgt, rates))
+    del x
+    err = (g_bgt - g_r4).abs()
+    expect(bool((err <= code_tolerance(n, g_r4)).all()),
+           f"budget vs R4 Grams at n={n}: max |difference| "
+           f"{float(err.max())}")
+    max_err = float(err.max())
+    del g_r4, g_bgt, err
+    w = experiments._stacked_weights(
+        keys, parents, rhos, n, (r4, bgt), n_pad, engine,
+        rates=experiments._rates_operand((r4, bgt), n, plan.d, dev))
+    t = boruvka_mst_batch(w.flatten(0, 1), early_exit=False).view(w.shape)
+    ham = ((t != adj[None]).sum(dim=(2, 3)) // 2).cpu().numpy()
+    ties = trace_ties(w[1].double().cpu(), t[1].cpu(), w[0].double().cpu(),
+                      t[0].cpu(), plan.d, f"budget vs R4 at n={n}",
+                      (bgt.label, n))
+    return max_err, ham, ties
+
+
+def _channel_split(plan, dev):
+    """run_trials' device path on a pristine channel plan stage by stage,
+    each stage synchronised: (S, len(ns), 3) mean metrics and seconds by
+    stage (the Gram of every strategy under "gram", the estimate tails
+    under "estimate")."""
+    import numpy as np
+    import torch
+    from repro_torch.core import estimators as E
+    from repro_torch.core import experiments, sampler
+    from repro_torch.core.gram import GramEngine
+
+    parents, rhos, adj_true, keys = experiments._plan_setup(
+        *experiments._setup_key(plan), str(torch.device(dev)))
+    engine = plan.budget_engine(GramEngine(), device=dev)
+    chunk = plan.metrics_chunk()
+    split = dict.fromkeys(("sample", "gather_encode", "mac_encode_mask",
+                           "budget_encode", "budget_decode", "gram",
+                           "estimate", "boruvka", "read_back"), 0.0)
+
+    def stage(key, fn):
+        out, t = timed(fn)
+        split[key] += t
+        return out
+
+    sums = []
+    for n in plan.ns:
+        n_pad = plan.bucket_for(n)
+        x = stage("sample", lambda: sampler.sample_tree_ggm_rows_batch(
+            keys, n_pad, parents, rhos))
+        rates = experiments._rates_operand(plan.strategies, n, plan.d, dev)
+        w = []
+        for i, s in enumerate(plan.strategies):
+            if s.channel.kind == "mac":
+                u = stage("mac_encode_mask",
+                          lambda: E.mac_sign_codes(x, s, n_valid=n))
+                g = stage("gram", lambda: engine.gram_batch(u))
+                del u
+                w.append(stage("estimate", lambda: E.mac_estimate(
+                    g, s, E.mac_effective_count(s, n_pad, n_valid=n,
+                                                device=dev))))
+            elif s.channel.kind == "budget":
+                r = rates[i]
+                c = stage("budget_encode",
+                          lambda: E.budget_payload(x, s, r, n_valid=n))
+                v = stage("budget_decode", lambda: E.budget_operand(c, s, r))
+                del c
+                g = stage("gram", lambda: engine.gram_batch(v))
+                del v
+                w.append(stage("estimate", lambda: E.weights_from_gram(
+                    g, E.budget_counts(r, n_pad, n_valid=n, device=dev), s)))
+            else:
+                p = stage("gather_encode",
+                          lambda: E.strategy_payload(x, s, n_valid=n))
+                g = stage("gram", lambda: E.payload_gram(
+                    p, s, n_valid=n, engine=engine))
+                del p
+                w.append(stage("estimate", lambda: E.weights_from_gram(
+                    g, torch.as_tensor(n, dtype=torch.float32,
+                                       device=g.device), s)))
+            del g
+        del x
+        sums.append(stage("boruvka", lambda: experiments._metric_sums(
+            torch.stack(w), adj_true, chunk)))
+        del w
+    m = stage("read_back", lambda: torch.stack(sums, dim=1).cpu())
+    return m.numpy() / np.float32(plan.reps), split
+
+
+def channel_width(dev, total):
+    """Part (b): the channel strategies at d = 1024 over 16 machines,
+    pristine and under MIXED_FAULTS: cold and warm seconds, trials/s, the
+    idle share, peak memory and a stage split; lossless MAC == gather
+    sign and a zero-fault plan == none, bit for bit; the logged
+    allocation; the budget at full rate against R4; and card == CPU at
+    the d = 64 cut."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import experiments
+    from repro_torch.core.experiments import (TrialPlan, clear_compile_caches,
+                                              run_trials)
+    from repro_torch.core.faults import FaultPlan, fault_trial_keys
+    from repro_torch.core.gram import GramEngine
+
+    strategies = _channel_strategies(WIDE_MACHINES, WIDE_BUDGET)
+    sign, r4, mac, bgt = (s.label for s in strategies)
+    pristine = TrialPlan(strategies=strategies, **CHANNEL_WIDE)
+    plans = {"pristine": pristine, "mixed": dataclasses.replace(
+        pristine, faults=FaultPlan(**MIXED_FAULTS))}
+    trials = sum(p.trials for p in plans.values())
+    clear_compile_caches()
+    torch.cuda.empty_cache()
+    cold, launches = {}, {}
+    for name, plan in plans.items():
+        (res, t), counts = counted(total, lambda: timed(
+            lambda: run_trials(plan, device=dev)))
+        cold[name] = (res, t)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ("sign_corr", "code_corr", "quantize_fused"):
+        expect(launches[k] > 0, f"the d=1024 channel sweeps launched no {k}")
+    torch.cuda.reset_peak_memory_stats()
+    warm = {name: counted(total, lambda: run_trials(plan, device=dev))[0]
+            for name, plan in plans.items()}
+    peak = torch.cuda.max_memory_allocated()
+    wall = busy = 0.0
+    for name, plan in plans.items():
+        (p, t, b, dtoh), _ = counted(
+            total, lambda: profiled(lambda: run_trials(plan, device=dev)))
+        wall, busy = wall + t, busy + b
+        expect(dtoh == 1, f"a warm d=1024 {name} channel sweep made {dtoh} "
+               f"device->host copies")
+        expect(cold[name][0].host_syncs == 1, "a d=1024 channel sweep read "
+               "the host twice")
+        _same_results(warm[name], cold[name][0], f"d=1024 {name} warm vs cold")
+        _same_results(p, cold[name][0], f"d=1024 {name} profiled vs cold")
+    res = cold["pristine"][0]
+    for f in ("error_rate", "edit_distance", "edge_f1"):
+        expect(getattr(res, f)[mac] == getattr(res, f)[sign],
+               f"lossless MAC {f} differs from gather sign's at d=1024")
+    for n, c in zip(pristine.ns, res.comm[bgt]):
+        expect(c.rates == WIDE_RATES[n], f"the budget's allocation at n={n} "
+               f"is {c.rates}, not {WIDE_RATES[n]}")
+        expect(sum(c.machine_bits) == c.logical_bits <= WIDE_BUDGET,
+               f"the budget's ledger at n={n}: {c}")
+    cold_s = sum(t for _, t in cold.values())
+    warm_s = sum(w.seconds for w in warm.values())
+    log(f"phase 14 channels d={pristine.d} ({trials} trials: "
+        f"{len(strategies)} strategies, ns={pristine.ns}, reps={pristine.reps}, pristine + "
+        f"mixed faults): cold {cold_s:.3f} s ({trials / cold_s:.1f} "
+        f"trials/s, setup included), warm {warm_s:.3f} s "
+        f"({trials / warm_s:.1f} trials/s); profiled warm wall {wall:.3f} s,"
+        f" device busy {busy:.1f} ms, idle "
+        f"{100 * (1 - busy / 1e3 / wall):.1f}%; peak_bytes={peak}; "
+        f"tiling={json.dumps(res.tiling)} launches={json.dumps(launches)}")
+    for name, (r, _) in cold.items():
+        log(f"phase 14 d={pristine.d} {name} error_rate="
+            f"{json.dumps(r.error_rate)} "
+            f"edit_distance={json.dumps(r.edit_distance)}"
+            + (f" faults={json.dumps(r.faults)}" if r.faults else ""))
+    log(f"phase 14 d={pristine.d} budget ledgers (rates, machine_bits): "
+        f"{json.dumps([(c.rates, c.machine_bits) for c in res.comm[bgt]])}")
+
+    # weights: lossless MAC == gather sign; a zero-fault plan == none
+    n = pristine.ns[-1]
+    n_pad = pristine.bucket_for(n)
+    parents, rhos, _, keys = experiments._plan_setup(
+        *experiments._setup_key(pristine), str(torch.device(dev)))
+    engine = pristine.budget_engine(GramEngine(), device=dev)
+    rates = experiments._rates_operand(strategies, n, pristine.d, dev)
+    w = experiments._stacked_weights(keys, parents, rhos, n, strategies,
+                                     n_pad, engine, rates=rates)
+    expect(torch.equal(w[2], w[0]), "lossless MAC weights differ from "
+           "gather sign's at d=1024")
+    zero = FaultPlan(machines=WIDE_MACHINES, retries=1)
+    wz, tele = experiments._stacked_weights(
+        keys, parents, rhos, n, strategies, n_pad, engine, zero,
+        fault_trial_keys(zero, pristine.reps, device=dev), rates)
+    expect(torch.equal(wz, w) and not bool(tele.any()),
+           "the zero-fault plan's channel weights differ from no plan's")
+    del w, wz
+    zero_r, _ = counted(total, lambda: run_trials(
+        dataclasses.replace(pristine, faults=zero), device=dev))
+    _same_results(zero_r, res, "zero-fault vs no faults at d=1024",
+                  fields=("error_rate", "edit_distance", "edge_f1",
+                          "buckets", "host_syncs"), comm=False)
+    err, ham, ties = _budget_vs_r4(pristine, dev, engine)
+    for k, lab in ((0, r4), (1, bgt)):
+        expect(res.edit_distance[lab][0] == float(
+            np.float32(ham[k].sum()) / np.float32(pristine.reps)),
+            f"recomputed {lab} trees at n={pristine.ns[0]} do not give the "
+            f"sweep's edit distance")
+    log(f"phase 14 d={pristine.d} lossless MAC == gather sign and "
+        f"zero-fault == no faults bit for bit (weights and results); budget at n="
+        f"{pristine.ns[0]} (every machine at R={CHANNEL_CAP}) vs R4: max "
+        f"|Gram difference| {err} (code_tolerance), metrics "
+        + ("equal" if not ties else "equal but for ties (label, n, trial, "
+           "gap, max |dw|): " + json.dumps(ties)))
+
+    (m, split), _ = counted(total, lambda: _channel_split(pristine, dev))
+    for i, s in enumerate(strategies):
+        expect(list(map(float, m[i, :, 0])) == res.error_rate[s.label]
+               and list(map(float, m[i, :, 1])) == res.edit_distance[s.label],
+               f"the staged d=1024 channel sweep disagrees with run_trials "
+               f"({s.label})")
+    log(f"phase 14 d={pristine.d} pristine stage split, s (each stage "
+        "synchronised): " + " ".join(f"{k}={v:.4f}" for k, v in split.items()))
+
+    cut = TrialPlan(strategies=_channel_strategies(WIDE_MACHINES,
+                                                   WIDE_CUT_BUDGET),
+                    faults=FaultPlan(**MIXED_FAULTS), **WIDE_CUT)
+    card, _ = counted(total, lambda: run_trials(cut, device=dev))
+    host = run_trials(cut, device="cpu")
+    bgt_cut = cut.strategies[3].label
+    cut_ties = card_vs_cpu_sweep(cut, card, host, dev,
+                                 "the d=64 channel cut card vs CPU")
+    log(f"phase 14 channels cut (d={cut.d}, reps={cut.reps}, ns={cut.ns}, "
+        f"{WIDE_MACHINES} machines, B={WIDE_CUT_BUDGET}): card == CPU in "
+        f"TrialResult.faults and CommReports, and in metrics"
+        f"{' but for ties: ' + json.dumps(cut_ties) if cut_ties else ''}; "
+        f"rates={json.dumps([c.rates for c in card.comm[bgt_cut]])}"
+        f" faults={json.dumps(card.faults)}")
+
+
+def channel_main_path(dev, total, main_edges):
+    """Part (d): learn_structure at full width over the channels:
+    sign@mac8 at PRODUCTION gives phase 4's gather sign edges exactly,
+    and a budget over 16 machines at d = 4096, n = 2^18 with its
+    allocation, edit distance, time, peak memory and stage split."""
+    import torch
+    from repro_torch.configs import PRODUCTION
+    from repro_torch.core import BudgetChannel, MACChannel, Strategy
+    from repro_torch.core import estimators as E
+    from repro_torch.core.chow_liu import (adjacency_to_edges, boruvka_mst,
+                                           learn_structure)
+    from repro_torch.core.gram import GramEngine
+    from repro_torch.core.trees import is_tree, tree_edit_distance
+    from repro_torch.data import GGMDataset
+
+    ds = GGMDataset(d=D, seed=PRODUCTION.seed)
+    truth, _ = ds.structure()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x = ds.sample(MAIN_N, device=dev)
+    s = Strategy(method=PRODUCTION.method,
+                 channel=MACChannel(MAIN_MAC_MACHINES))
+    (est, t_mac), counts = counted(total, lambda: timed(
+        lambda: learn_structure(x, strategy=s)))
+    del x
+    peak = torch.cuda.max_memory_allocated()
+    expect(counts["sign_corr"] > 0, f"{s.label} at PRODUCTION launched no "
+           f"sign_corr")
+    expect(est == main_edges, f"{s.label} at PRODUCTION: the edge list is "
+           f"not phase 4's gather sign edge list")
+    log(f"phase 14 PRODUCTION d={D} n={MAIN_N} {s.label}: learn_structure_s="
+        f"{t_mac:.4f} edges == phase 4's gather sign edges; edit_distance="
+        f"{tree_edit_distance(est, truth)} peak_bytes={peak} "
+        f"launches={json.dumps(counts)}")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x = ds.sample(CUT_N, batch_seed=1, device=dev)
+    sb = Strategy("persymbol", rate=CHANNEL_CAP, channel=BudgetChannel(
+        budget_bits=MAIN_BUDGET, machines=MAIN_BUDGET_MACHINES))
+    expect(sb.channel.allocate(CUT_N, D, sb.rate) == MAIN_BUDGET_RATES,
+           f"the budget's allocation at d={D} n={CUT_N} is "
+           f"{sb.channel.allocate(CUT_N, D, sb.rate)}")
+    (est, t_bgt), counts = counted(total, lambda: timed(
+        lambda: learn_structure(x, strategy=sb)))
+    peak = torch.cuda.max_memory_allocated()
+    expect(counts["quantize_fused"] == sb.rate, f"{sb.label} launched "
+           f"quantize_fused {counts['quantize_fused']} times, not {sb.rate}")
+    expect(is_tree(D, est), f"{sb.label}: not a spanning tree")
+    # the same run stage by stage
+    rates = sb.channel.column_rates(CUT_N, D, sb.rate)
+    codes, t_enc = timed(lambda: E.budget_payload(x, sb, rates))
+    del x
+    vals, t_dec = timed(lambda: E.budget_operand(codes, sb, rates))
+    del codes
+    gram, t_gram = timed(lambda: GramEngine().gram(vals))
+    del vals
+    w, t_w = timed(lambda: E.weights_from_gram(
+        gram, E.budget_counts(rates, CUT_N, device=dev), sb))
+    adj, t_mst = timed(lambda: boruvka_mst(w))
+    expect(adjacency_to_edges(adj) == est,
+           f"the staged {sb.label} run disagrees with learn_structure")
+    del gram, w, adj
+    log(f"phase 14 d={D} n={CUT_N} {sb.label} over "
+        f"{MAIN_BUDGET_MACHINES} machines, rates {MAIN_BUDGET_RATES}: "
+        f"learn_structure_s={t_bgt:.4f} encode_s={t_enc:.4f} "
+        f"decode_s={t_dec:.4f} gram_s={t_gram:.4f} weights_s={t_w:.4f} "
+        f"mwst_s={t_mst:.4f} edit_distance={tree_edit_distance(est, truth)} "
+        f"peak_bytes={peak} launches={json.dumps(counts)}")
+    torch.cuda.empty_cache()
+
+
+def channel_plane(dev, total, records, main_edges, reps):
+    """Phase 14: the channel plane on the card: its two kernels at its
+    shapes, then parts (a), (b) and (d) above. Adds each kernel's channel
+    record to ``records`` and the phase's launches to ``total``."""
+    t0 = time.perf_counter()
+    kernels = check_channel_kernels(dev, reps)
+    for r in records:
+        if r["name"] in kernels:
+            r["channel"] = kernels[r["name"]]
+    mine = {k: 0 for k in total}
+    for part in (channel_bench, channel_width):
+        t = time.perf_counter()
+        part(dev, mine)
+        log(f"phase 14 {part.__name__} took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    channel_main_path(dev, mine, main_edges)
+    log(f"phase 14 channel_main_path took {time.perf_counter() - t:.1f} s")
+    for k in ("sign_corr", "code_corr", "quantize_fused"):
+        expect(mine[k] > 0, f"phase 14 launched no {k}")
+    for k, v in mine.items():
+        total[k] += v
+    log(f"phase 14 launches={json.dumps(mine)}; took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def _cuobjdump():
     """cuobjdump from PATH, the CUDA toolkit or Triton's bundle, else None."""
     import shutil
@@ -2430,7 +2973,7 @@ def main() -> int:
     for r in records:
         if r["name"] in fold:
             r["fold"] = fold[r["name"]]
-    total = run_main_path("cuda", D, MAIN_N, CUT_N)
+    total, main_edges = run_main_path("cuda", D, MAIN_N, CUT_N)
     card_vs_cpu("cuda", 256, 1 << 14)
     records += check_attention_kernels("cuda", gen, 5, SERVE_BATCH,
                                        SERVE_PROMPT, SERVE_GEN)
@@ -2447,6 +2990,7 @@ def main() -> int:
     log(f"phases 9-11 took {time.perf_counter() - t0:.1f} s")
     trial_plane("cuda", total, records, reps=3)
     sparse_plane("cuda", total)
+    channel_plane("cuda", total, records, main_edges, reps=3)
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

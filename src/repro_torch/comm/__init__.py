@@ -1,2 +1,9 @@
-"""Channel plan values (the gather channel of ``repro.comm.channel``)."""
-from .channel import GATHER, Channel, GatherChannel  # noqa: F401
+"""Channel plan values (gather / MAC superposition / budgeted rates, the
+plan half of ``repro.comm.channel``)."""
+from .channel import (  # noqa: F401
+    GATHER,
+    BudgetChannel,
+    Channel,
+    GatherChannel,
+    MACChannel,
+)

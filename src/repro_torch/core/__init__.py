@@ -1,7 +1,11 @@
 """Core library of the port: quantizers, Gram engine, estimators, MWST,
 trees and samplers (the paper's main path), the streaming accumulator,
-the single-device trial plane (sweeps, faults, bounds) and the sparse
-plane (glasso, regularization paths)."""
+the single-device trial plane (sweeps, faults, bounds), the sparse plane
+(glasso, regularization paths) and the single-device channel plane (MAC
+superposition, bit-budget rates)."""
+# the channel plan values, re-exported beside Strategy as repro.core does
+from repro_torch.comm.channel import (BudgetChannel, Channel,  # noqa: F401
+                                      GatherChannel, MACChannel)
 from . import (bounds, chow_liu, distributed, estimators, experiments,  # noqa: F401
                faults, glasso, gram, path, prng, quantizers, sampler,
                strategy, streaming, trees)

@@ -2,11 +2,13 @@
 ``repro.core.distributed``).
 
 :class:`CommReport` sets the paper's logical n*d*R bits beside the bytes
-the gather actually moves, and the retry policy's measured cost.
-:func:`comm_report` fills one in for the gather channel from the encode
-stage's payload layout (``estimators.payload_layout``), without drawing
-a payload. ``WirePlan``'s stages, the mesh runtime and
-``distributed_learn_structure`` arrive with the port's wire plane.
+the wire actually moves, and the retry policy's measured cost.
+:func:`comm_report` fills one in for every channel without drawing a
+payload: the gather wire from the encode stage's payload layout
+(``estimators.payload_layout``), the MAC wire from its (d, d) f32 sum
+statistic, the budget wire from its int8 code payload, each with its
+per-machine ledgers. ``WirePlan``'s stages, the mesh runtime and
+``distributed_learn_structure`` arrive with the port's mesh runtime.
 """
 from __future__ import annotations
 
@@ -77,11 +79,36 @@ class CommReport:
 
 def comm_report(strategy: Strategy, n: int, d: int, *,
                 n_pad: int | None = None) -> CommReport:
-    """Communication accounting of one (n, d) evaluation on the gather
-    wire: ``wire_bytes`` from the payload layout at ``n_pad`` (bucket
-    padding costs real bytes), ``logical_bits`` at the true n."""
-    shape, dtype = estimators.payload_layout(
-        strategy, n if n_pad is None else n_pad, d)
+    """Communication accounting of one (n, d) evaluation: ``wire_bytes``
+    at the bucket ``n_pad`` the sweep ran (padding costs real bytes),
+    ``logical_bits`` at the true n.
+
+    * gather — the payload layout's bytes;
+    * MAC — the center receives one superposed (d, d) f32 statistic; the
+      ``machine_bits`` ledger bills each machine its delivered sign rows
+      (its 1-bit airtime), ``rates`` is 1 for every machine;
+    * budget — the (n_pad, d) int8 code payload, with the allocation's
+      per-machine rates and bits (``sum(machine_bits) == logical_bits <=
+      budget_bits``).
+    """
+    n_wire = n if n_pad is None else n_pad
+    ch = strategy.channel
+    if ch.kind == "mac":
+        b = ch.block_rows(n_wire)
+        delivered = [max(0, min(n - m * b, b)) for m in range(ch.machines)]
+        return CommReport(
+            logical_bits=communication_bits(n, d, strategy.rate),
+            wire_bytes=d * d * 4, collectives=1,
+            rates=(1,) * ch.machines,
+            machine_bits=tuple(r * d for r in delivered))
+    if ch.kind == "budget":
+        rates = ch.allocate(n, d, strategy.rate)
+        d_m = d // ch.machines
+        machine_bits = tuple(n * d_m * r for r in rates)
+        return CommReport(
+            logical_bits=sum(machine_bits), wire_bytes=n_wire * d,
+            collectives=1, rates=rates, machine_bits=machine_bits)
+    shape, dtype = estimators.payload_layout(strategy, n_wire, d)
     itemsize = torch.empty((), dtype=dtype).element_size()
     return CommReport(
         logical_bits=communication_bits(n, d, strategy.rate),

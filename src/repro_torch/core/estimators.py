@@ -1,6 +1,6 @@
 """Statistic estimators used by the central machine (paper §4.2, §5).
 
-The port of the gather half of ``repro.core.estimators``. Every pairwise
+The port of ``repro.core.estimators``. Every pairwise
 (d, d) statistic routes its Gram through
 :class:`repro_torch.core.gram.GramEngine`; pass ``engine=`` to pin a
 backend (``None`` = the default engine, which follows the operands'
@@ -23,16 +23,33 @@ The fault plane's per-feature row counts (``n_rows``) and bit flips
 (``flip``) thread the masked-Gram degradation path: each feature column
 is prefix-masked to its own count, the packed sign wire is unpacked to
 ±1/0 int8 under ``n_rows``, and the weights divide by the per-entry
-:func:`effective_counts` with voided entries at weight 0. The MAC /
-bit-budget channels are not ported yet (they arrive with the wire
-plane): passing their operands raises ``NotImplementedError``.
+:func:`effective_counts` with voided entries at weight 0.
+
+The channel plane (``repro_torch.comm.channel``) swaps the middle stage
+for non-gather strategies; the four ``strategy_*`` entry points dispatch
+on ``strategy.channel.kind``:
+
+* **MAC superposition** (:func:`mac_weights_batch`) — the machines' row
+  blocks of ±1 int8 signs, undelivered rows zeroed (pad rows, a fault
+  realization's dropped or truncated blocks), contracted in one
+  ``sign_corr`` launch: the sum of every machine's partial Gram, exact.
+  The center normalizes by the delivered-row count.
+* **bit budget** (:func:`budget_weights_batch`) — each feature column
+  encoded at its machine's allocated rate (one ``quantize_fused`` launch
+  a rate 1..cap, then a select), decoded at the center through the
+  padded per-rate codebook table, and contracted as f32 values in a full
+  f32 product (the per-rate codebooks differ, so the one-codebook
+  ``code_corr`` kernel does not apply). Rate-0 columns count 0 samples.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+
+from repro_torch._device import resolve_device
 
 from .glasso import nearest_correlation  # noqa: F401  (callers' import)
 from .gram import GramEngine, resolve_engine
@@ -40,21 +57,6 @@ from .quantizers import (MASKED_CODE, PerSymbolQuantizer, pack_codes,
                          sign_bits, sign_codes, unpack_codes_u8,
                          valid_row_mask, valid_sample_mask)
 from .strategy import Strategy
-
-_WIRE_PLANE = "arrives with the port's wire plane"
-
-
-def _no_wire_plane(**kw) -> None:
-    given = [k for k, v in kw.items() if v is not None]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)} {_WIRE_PLANE}")
-
-
-def __getattr__(name: str):
-    # the channel plane's estimators (mac_*, budget_*) are not ported yet
-    if name.startswith(("mac_", "budget_")):
-        raise NotImplementedError(f"estimators.{name} {_WIRE_PLANE}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _dim(n) -> int:
@@ -366,11 +368,250 @@ def payload_gram(payload: torch.Tensor, strategy: Strategy, *, n_valid=None,
     return fn(u if rows is None else rows, u if rows is not None else None)
 
 
+# --------------------------------------------------------------------------
+# Channel plane: MAC superposition + budgeted rates
+# --------------------------------------------------------------------------
+
+def mac_delivered_rows(channel, n_pad: int, n_valid=None, *,
+                       device=None) -> torch.Tensor:
+    """Lossless per-machine delivered-row counts under the MAC row-block
+    partition: machine m owns the padded rows ``[m*b, (m+1)*b)`` (``b =
+    n_pad / machines``), so with ``n_valid`` real samples it delivers
+    ``clip(n_valid - m*b, 0, b)`` of them. (machines,) int32 on
+    ``device`` (default cuda); they sum to ``n_valid``. A FaultPlan's
+    ``draw_rowblock_batch`` counts take their place under faults."""
+    b = channel.block_rows(n_pad)
+    nv = n_pad if n_valid is None else n_valid
+    blocks = torch.arange(channel.machines, dtype=torch.int32,
+                          device=resolve_device(device, nv))
+    return torch.clamp(torch.as_tensor(nv, dtype=torch.int32,
+                                       device=blocks.device) - blocks * b,
+                       0, b)
+
+
+def mac_sign_codes(x: torch.Tensor, strategy: Strategy, *, n_valid=None,
+                   delivered=None, flip=None) -> torch.Tensor:
+    """Encode stage of the MAC plane: raw (..., n, d) samples -> the ±1
+    int8 sign codes the machines contract locally before their partial
+    Grams superpose. Rows a machine did not deliver (pad rows, or the
+    dropped / truncated blocks of a ``delivered`` fault realization) are
+    zeroed: they superpose to nothing. Lossless, the keep mask is the
+    valid-sample prefix, so the codes equal the gather sign payload bit
+    for bit.
+
+    ``delivered``: the (..., machines) per-block delivered-row counts
+    (default :func:`mac_delivered_rows`), a tensor on x's device, so the
+    mask is built on the device with no host read. ``flip`` flips sign
+    bits as on the gather wire.
+    """
+    ch = strategy.channel
+    n_pad = x.shape[-2]
+    b = ch.block_rows(n_pad)
+    u = sign_codes(x)
+    if flip is not None:
+        u = torch.where(flip, -u, u)
+    if delivered is None:
+        delivered = mac_delivered_rows(ch, n_pad, n_valid, device=x.device)
+    rows = torch.arange(n_pad, device=x.device)
+    counts = torch.as_tensor(delivered, dtype=torch.int32, device=x.device)
+    keep = (rows % b) < counts[..., rows // b]          # (..., n_pad)
+    return u.masked_fill_(~keep[..., None], 0)
+
+
+def mac_effective_count(strategy: Strategy, n_pad: int, *, n_valid=None,
+                        delivered=None, device=None) -> torch.Tensor:
+    """Total sample count inside the superposed statistic: the sum of the
+    delivered block rows, (...,) f32 — ``n_valid`` lossless, less when a
+    fault realization dropped summands."""
+    if delivered is None:
+        delivered = mac_delivered_rows(strategy.channel, n_pad, n_valid,
+                                       device=device)
+    return torch.as_tensor(delivered, dtype=torch.int32).sum(dim=-1).to(
+        torch.float32)
+
+
+def mac_estimate(gram: torch.Tensor, strategy: Strategy, n_eff, *,
+                 corr: bool = False) -> torch.Tensor:
+    """Central estimate from the SUPERPOSED sum statistic, which is the
+    masked Gram exactly: the effective count ``n_eff`` ((...,)) goes
+    through the estimate tails' per-entry path, so degenerate trials
+    (count < 2, e.g. every machine dropped) are neutralized as the fault
+    plane's voided entries are."""
+    n = torch.as_tensor(n_eff, dtype=torch.float32,
+                        device=gram.device)[..., None, None]
+    tail = corr_from_gram if corr else weights_from_gram
+    return tail(gram, n, strategy)
+
+
+def mac_weights_batch(x: torch.Tensor, strategy: Strategy, *, n_valid=None,
+                      delivered=None, flip=None,
+                      engine: GramEngine | None = None,
+                      corr: bool = False) -> torch.Tensor:
+    """The single-device MAC path: encode + mask, contract the masked
+    codes in one launch (== the sum of every machine's partial Gram,
+    exactly), estimate from the effective count."""
+    u = mac_sign_codes(x, strategy, n_valid=n_valid, delivered=delivered,
+                       flip=flip)
+    eng = resolve_engine(engine)
+    gram = (eng.gram_batch if u.ndim == 3 else eng.gram)(u)
+    del u
+    n_eff = mac_effective_count(strategy, x.shape[-2], n_valid=n_valid,
+                                delivered=delivered, device=x.device)
+    return mac_estimate(gram, strategy, n_eff, corr=corr)
+
+
+def budget_centroid_table(cap: int) -> np.ndarray:
+    """Host (cap+1, 2^cap) f32 padded codebook table of the mixed-rate
+    decode: row r holds ``PerSymbolQuantizer(r)``'s centroids (zero-
+    padded), row 0 is all zeros (a silent machine decodes to nothing)."""
+    tbl = np.zeros((cap + 1, 1 << cap), np.float32)
+    for r in range(1, cap + 1):
+        cb = PerSymbolQuantizer(r).centroids_np
+        tbl[r, : cb.shape[0]] = cb
+    return tbl
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_centroid_table(cap: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(budget_centroid_table(cap).reshape(-1)).to(device)
+
+
+#: elements of one block of the mixed-rate decode: its transient int32
+#: index is 4 bytes an element of the block, not of the whole payload
+_DECODE_BLOCK = 1 << 24
+
+
+def budget_payload(x: torch.Tensor, strategy: Strategy, rates, *,
+                   n_valid=None, n_rows=None) -> torch.Tensor:
+    """Encode stage of the budget plane: raw (..., n, d) samples + the
+    (d,) per-FEATURE rate vector (``BudgetChannel.column_rates``) ->
+    mixed-rate int8 bin codes. Each column is encoded at its own rate by
+    a select over full-block encodes at rates 1..cap (the strategy's
+    ``rate`` is the cap; one ``quantize_fused`` launch each on the card);
+    rate-0 columns and undelivered rows carry ``MASKED_CODE``.
+    Columnwise and rowwise ops only, so a feature-sliced encode followed
+    by a gather reassembles the payload bit for bit."""
+    n_pad = x.shape[-2]
+    rates = torch.as_tensor(rates, dtype=torch.int32, device=x.device)
+    out = torch.full(x.shape, MASKED_CODE, dtype=torch.int8, device=x.device)
+    for r in range(1, strategy.rate + 1):
+        out = torch.where(rates == r, PerSymbolQuantizer(r).encode(x), out)
+    mask = _payload_mask(n_pad, n_valid, n_rows, x.device)
+    return out if mask is None else out.masked_fill_(~mask, MASKED_CODE)
+
+
+def budget_operand(codes: torch.Tensor, strategy: Strategy,
+                   rates) -> torch.Tensor:
+    """Mixed-rate decode at the center: int8 codes + (d,) rates -> f32
+    centroid values ``tbl[rates, codes]`` through the flattened padded
+    table, with ``MASKED_CODE`` entries 0 (they contract to nothing).
+
+    One int32 index ``rate * 2^cap + code`` an element picks from the
+    flat table (``MASKED_CODE`` picks the all-zero row 0), block by block
+    of ``_DECODE_BLOCK`` elements, so no payload-sized int64 index is
+    ever built."""
+    cap = strategy.rate
+    levels = 1 << cap
+    tbl = _flat_centroid_table(cap, str(codes.device))
+    r = torch.as_tensor(rates, dtype=torch.int32, device=codes.device)
+    base = r.clamp(0, cap) * levels                     # (d,)
+    d = codes.shape[-1]
+    flat = codes.reshape(-1, d)
+    out = torch.empty(flat.shape, dtype=torch.float32, device=codes.device)
+    step = max(1, _DECODE_BLOCK // max(1, d))
+    for r0 in range(0, flat.shape[0], step):
+        c = flat[r0:r0 + step]
+        idx = (base + c.clamp(0, levels - 1)).masked_fill_(
+            c == MASKED_CODE, 0)
+        out[r0:r0 + step] = tbl.index_select(0, idx.view(-1)).view(c.shape)
+    return out.view(codes.shape)
+
+
+def budget_counts(rates, n_pad: int, *, n_valid=None, n_rows=None,
+                  device=None) -> torch.Tensor:
+    """(..., d, d) effective pairwise counts under the rate allocation: a
+    rate-0 column delivered nothing, so its count is 0 and the estimate
+    tails neutralize its entries — the same degradation as a dropped
+    machine. Composes with a fault realization's per-feature ``n_rows``."""
+    dev = resolve_device(None, rates) if device is None else device
+    rates = torch.as_tensor(rates, dtype=torch.int32, device=dev)
+    if n_rows is not None:
+        n_col = torch.as_tensor(n_rows, dtype=torch.int32,
+                                device=rates.device)
+    else:
+        nv = n_pad if n_valid is None else n_valid
+        n_col = torch.as_tensor(nv, dtype=torch.int32,
+                                device=rates.device) * torch.ones_like(rates)
+    return effective_counts(torch.where(rates > 0, n_col, 0))
+
+
+def budget_estimate(codes: torch.Tensor, strategy: Strategy, rates, *,
+                    n_valid=None, n_rows=None,
+                    engine: GramEngine | None = None,
+                    corr: bool = False) -> torch.Tensor:
+    """Central contraction + estimate of the (gathered) mixed-rate
+    payload: decode through :func:`budget_operand`, Gram through the
+    engine (f32 values), normalize by :func:`budget_counts`."""
+    vals = budget_operand(codes, strategy, rates)
+    eng = resolve_engine(engine)
+    gram = (eng.gram_batch if vals.ndim == 3 else eng.gram)(vals)
+    del vals
+    n = budget_counts(rates, codes.shape[-2], n_valid=n_valid, n_rows=n_rows,
+                      device=gram.device)
+    tail = corr_from_gram if corr else weights_from_gram
+    return tail(gram, n, strategy)
+
+
+def budget_weights_batch(x: torch.Tensor, strategy: Strategy, rates, *,
+                         n_valid=None, n_rows=None,
+                         engine: GramEngine | None = None,
+                         corr: bool = False) -> torch.Tensor:
+    """The single-device budget path: mixed-rate encode -> decode -> Gram
+    -> estimate."""
+    codes = budget_payload(x, strategy, rates, n_valid=n_valid,
+                           n_rows=n_rows)
+    return budget_estimate(codes, strategy, rates, n_valid=n_valid,
+                           n_rows=n_rows, engine=engine, corr=corr)
+
+
+def _channel_stat(x, strategy, *, corr, n_valid=None, n_rows=None,
+                  flip=None, engine=None, rates=None, delivered=None):
+    """The statistic of a non-gather channel strategy (None for gather):
+    the head of every ``strategy_*`` entry point. Unbatched callers get
+    the budget allocation at x's own sample count."""
+    ch = strategy.channel
+    if ch.kind == "mac":
+        return mac_weights_batch(x, strategy, n_valid=n_valid,
+                                 delivered=delivered, flip=flip,
+                                 engine=engine, corr=corr)
+    if ch.kind == "budget":
+        if rates is None:
+            raise ValueError("budget-channel strategies need the (d,) "
+                             "per-feature rates operand")
+        return budget_weights_batch(x, strategy, rates, n_valid=n_valid,
+                                    n_rows=n_rows, engine=engine, corr=corr)
+    return None
+
+
+def _own_rates(x: torch.Tensor, strategy: Strategy):
+    """The budget allocation of one unbatched (n, d) dataset (None for
+    the other channels)."""
+    ch = strategy.channel
+    if ch.kind != "budget":
+        return None
+    return ch.column_rates(x.shape[0], x.shape[1], strategy.rate)
+
+
 def strategy_weights(x: torch.Tensor, strategy: Strategy, *,
                      engine: GramEngine | None = None) -> torch.Tensor:
     """(n, d) raw samples -> (d, d) Chow-Liu weight matrix for a Strategy:
     :func:`strategy_payload` -> :func:`payload_gram` ->
-    :func:`weights_from_gram`."""
+    :func:`weights_from_gram`. Non-gather channels dispatch to their
+    planes (a budget allocation at x's sample count)."""
+    w = _channel_stat(x, strategy, corr=False, engine=engine,
+                      rates=_own_rates(x, strategy))
+    if w is not None:
+        return w
     payload = strategy_payload(x, strategy)
     gram = payload_gram(payload, strategy, engine=engine)
     return weights_from_gram(gram, x.shape[0], strategy)
@@ -406,8 +647,17 @@ def strategy_weights_batch(x: torch.Tensor, strategy: Strategy, *,
     :func:`effective_counts`, voided entries (count < 2) at weight 0. A
     zero-fault realization (every count n_valid, no flip) is
     bit-identical to the faultless call.
+
+    ``rates`` / ``delivered`` are the channel plane's operands: the (d,)
+    per-feature rate vector of a budget strategy (required for it) and
+    the (t, machines) delivered-row counts a fault plan draws for a MAC
+    strategy. Gather strategies ignore both.
     """
-    _no_wire_plane(rates=rates, delivered=delivered)
+    w = _channel_stat(x, strategy, corr=False, n_valid=n_valid,
+                      n_rows=n_rows, flip=flip, engine=engine, rates=rates,
+                      delivered=delivered)
+    if w is not None:
+        return w
     gram, n = _batch_gram(x, strategy, n_valid, n_rows, flip, engine)
     return weights_from_gram(gram, n, strategy)
 
@@ -416,7 +666,12 @@ def strategy_corr(x: torch.Tensor, strategy: Strategy, *,
                   engine: GramEngine | None = None) -> torch.Tensor:
     """(n, d) raw samples -> the (d, d) correlation statistic a sparse
     Strategy's glasso solve ingests: :func:`strategy_payload` ->
-    :func:`payload_gram` -> :func:`corr_from_gram`."""
+    :func:`payload_gram` -> :func:`corr_from_gram` (non-gather channels
+    through their planes, as :func:`strategy_weights`)."""
+    corr = _channel_stat(x, strategy, corr=True, engine=engine,
+                         rates=_own_rates(x, strategy))
+    if corr is not None:
+        return corr
     payload = strategy_payload(x, strategy)
     gram = payload_gram(payload, strategy, engine=engine)
     return corr_from_gram(gram, x.shape[0], strategy)
@@ -428,9 +683,13 @@ def strategy_corr_batch(x: torch.Tensor, strategy: Strategy, *,
                         delivered=None) -> torch.Tensor:
     """(t, n, d) stacked raw samples -> (t, d, d) correlation statistics
     of a sparse Strategy: :func:`strategy_weights_batch` with
-    :func:`corr_from_gram` as the tail (the same bucketing; under a fault
-    plan the per-entry :func:`effective_counts`, degenerate entries at
-    the identity's)."""
-    _no_wire_plane(rates=rates, delivered=delivered)
+    :func:`corr_from_gram` as the tail (the same bucketing, fault and
+    channel operands; under a fault plan the per-entry
+    :func:`effective_counts`, degenerate entries at the identity's)."""
+    corr = _channel_stat(x, strategy, corr=True, n_valid=n_valid,
+                         n_rows=n_rows, flip=flip, engine=engine,
+                         rates=rates, delivered=delivered)
+    if corr is not None:
+        return corr
     gram, n = _batch_gram(x, strategy, n_valid, n_rows, flip, engine)
     return corr_from_gram(gram, n, strategy)

@@ -45,6 +45,11 @@ The glasso solver waits for the host in every step (``torch.linalg.eigh``
 checks its status there) and, for a path plan, polls an all-lanes-done
 flag; ``host_syncs`` counts the sweep's result reads, which stay 1.
 
+Strategies of every channel sweep together: a MAC strategy's delivered
+rows come from the plan's fault stream as row blocks
+(``FaultPlan.draw_rowblock_batch``), a budget strategy's allocation at
+each point's true n rides one (S, d) rate upload a point.
+
 Not ported yet, raising ``NotImplementedError``: the mesh and wire plane
 (``run_trials(mesh=...)``). Torch has no trace compile, so
 ``repro``'s compile caches and their warm-up threads have no counterpart;
@@ -487,23 +492,83 @@ def sparse_ground_truth(plan: TrialPlan, *, device=None):
 # Stages
 # --------------------------------------------------------------------------
 
-def _stacked_weights(keys, parents, rhos, n_valid: int, strategies, n_pad,
-                     engine, faults=None, fault_keys=None):
-    """Sample the bucket-shaped data once and emit every strategy's
-    (reps, d, d) weights stacked as (S, reps, d, d). With a fault plan
-    the one fault realization of each trial masks every strategy's
-    payload, and the return is ``(weights, telemetry sums)``."""
-    x = sampler.sample_tree_ggm_rows_batch(keys, n_pad, parents, rhos)
-    reps, _, d = x.shape
+def _needs_rates(strategies) -> bool:
+    """True when the strategy set carries a budget channel, whose stages
+    take the stacked per-feature ``rates`` operand."""
+    return any(s.channel.kind == "budget" for s in strategies)
+
+
+def _rates_operand(strategies, n: int, d: int, device):
+    """The stacked (S, d) int32 per-feature rate vectors of one sweep
+    point on ``device`` (None when no strategy has a budget channel).
+
+    Budget strategies get their channel's greedy allocation at the TRUE
+    sample count n (``BudgetChannel.column_rates``); every other row is
+    a constant fill at its own rate, never read. Built on the host, one
+    upload a point."""
+    if not _needs_rates(strategies):
+        return None
+    rows = [s.channel.column_rates(n, d, s.rate)
+            if s.channel.kind == "budget" else np.full(d, s.rate, np.int32)
+            for s in strategies]
+    return torch.from_numpy(np.stack(rows)).to(device)
+
+
+def _channel_operands(strategies, rates, faults, fault_keys, n_pad: int,
+                      n_valid: int) -> list[dict]:
+    """Per-strategy estimator kwargs of the non-gather channels: budget
+    strategies get their (d,) row of ``rates``; MAC strategies under a
+    fault plan get the (t, machines) delivered-row counts drawn from the
+    same trial fault stream as the feature-block view
+    (``FaultPlan.draw_rowblock_batch``), drawn once for each distinct
+    machine count. Gather strategies get ``{}``."""
+    ops: list[dict] = [{} for _ in strategies]
+    delivered: dict[int, torch.Tensor] = {}
+    for i, s in enumerate(strategies):
+        kind = s.channel.kind
+        if kind == "budget":
+            ops[i] = {"rates": rates[i]}
+        elif kind == "mac" and faults is not None:
+            m = s.channel.machines
+            if m not in delivered:
+                delivered[m] = faults.draw_rowblock_batch(
+                    fault_keys, n_pad, n_valid, m)
+            ops[i] = {"delivered": delivered[m]}
+    return ops
+
+
+def _stacked_stats(x, strategies, n_valid: int, engine, faults, fault_keys,
+                   rates, estimate):
+    """Every strategy's (reps, d, d) statistic of the shared samples ``x``
+    through ``estimate`` (``strategy_weights_batch`` or
+    ``strategy_corr_batch``), stacked as (S, reps, d, d). With a fault
+    plan the one fault realization of each trial masks every strategy's
+    payload, and the return is ``(stats, telemetry sums)``."""
+    reps, n_pad, d = x.shape
     n_rows = flip = tele = None
     if faults is not None:
         n_rows, flip, tele = faults.draw_batch(fault_keys, n_pad, n_valid, d)
-    w = torch.empty((len(strategies), reps, d, d), dtype=torch.float32,
-                    device=x.device)
+    ops = _channel_operands(strategies, rates, faults, fault_keys, n_pad,
+                            n_valid)
+    out = torch.empty((len(strategies), reps, d, d), dtype=torch.float32,
+                      device=x.device)
     for i, s in enumerate(strategies):
-        w[i] = estimators.strategy_weights_batch(
-            x, s, n_valid=n_valid, n_rows=n_rows, flip=flip, engine=engine)
-    return w if faults is None else (w, tele.sum(dim=0))
+        out[i] = estimate(x, s, n_valid=n_valid, n_rows=n_rows, flip=flip,
+                          engine=engine, **ops[i])
+    return out if faults is None else (out, tele.sum(dim=0))
+
+
+def _stacked_weights(keys, parents, rhos, n_valid: int, strategies, n_pad,
+                     engine, faults=None, fault_keys=None, rates=None):
+    """Sample the bucket-shaped data once and emit every strategy's
+    (reps, d, d) weights stacked as (S, reps, d, d) (with a fault plan:
+    ``(weights, telemetry sums)``). ``rates`` is the point's
+    :func:`_rates_operand` (needed when a strategy has a budget
+    channel)."""
+    x = sampler.sample_tree_ggm_rows_batch(keys, n_pad, parents, rhos)
+    return _stacked_stats(x, strategies, n_valid, engine, faults,
+                          fault_keys, rates,
+                          estimators.strategy_weights_batch)
 
 
 def structure_metric_channels(adj_est: torch.Tensor,
@@ -540,22 +605,15 @@ def _metric_sums(w: torch.Tensor, adj_true: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _stacked_corr(keys, chols, n_valid: int, strategies, n_pad, engine,
-                  faults=None, fault_keys=None):
+                  faults=None, fault_keys=None, rates=None):
     """The sparse twin of :func:`_stacked_weights`: sample the bucket-
     shaped data once through the Cholesky mixers and emit every
     strategy's (reps, d, d) correlation statistic, stacked as (S, reps,
-    d, d) (with a fault plan: ``(corr, telemetry sums)``)."""
+    d, d) (with a fault plan: ``(corr, telemetry sums)``; channel
+    operands as there)."""
     x = sampler.sample_ggm_rows_batch(keys, n_pad, chols)
-    reps, _, d = x.shape
-    n_rows = flip = tele = None
-    if faults is not None:
-        n_rows, flip, tele = faults.draw_batch(fault_keys, n_pad, n_valid, d)
-    corr = torch.empty((len(strategies), reps, d, d), dtype=torch.float32,
-                       device=x.device)
-    for i, s in enumerate(strategies):
-        corr[i] = estimators.strategy_corr_batch(
-            x, s, n_valid=n_valid, n_rows=n_rows, flip=flip, engine=engine)
-    return corr if faults is None else (corr, tele.sum(dim=0))
+    return _stacked_stats(x, strategies, n_valid, engine, faults,
+                          fault_keys, rates, estimators.strategy_corr_batch)
 
 
 def _support_metric_channels(est: torch.Tensor,
@@ -707,10 +765,11 @@ def sparse_point(plan: TrialPlan, n: int, i: int, *, device=None,
     engine = plan.budget_engine(resolve_engine(None), device=dev)
     chols, adj_true, keys = _sparse_plan_setup(*_sparse_setup_key(plan),
                                                str(dev))
-    extra = () if plan.faults is None else (
-        plan.faults, fault_trial_keys(plan.faults, plan.reps, device=dev))
+    fkeys = (None if plan.faults is None
+             else fault_trial_keys(plan.faults, plan.reps, device=dev))
     corr = _stacked_corr(keys, chols, n, plan.strategies, plan.bucket_for(n),
-                         engine, *extra)
+                         engine, plan.faults, fkeys,
+                         _rates_operand(plan.strategies, n, plan.d, dev))
     corr = (corr if plan.faults is None else corr[0])[i]
     s = plan.strategies[i]
     solve = picks = None
@@ -954,7 +1013,9 @@ def _host_kruskal_trials(plan: TrialPlan, engine: GramEngine,
     ws, fsums = [], []
     for n in plan.ns:
         out = _stacked_weights(keys, parents, rhos, n, plan.strategies,
-                               plan.bucket_for(n), engine, faults, fkeys)
+                               plan.bucket_for(n), engine, faults, fkeys,
+                               _rates_operand(plan.strategies, n, plan.d,
+                                              dev))
         if faults is None:
             ws.append(out)
         else:
@@ -1050,12 +1111,14 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
     t0 = time.perf_counter()
     for n in plan.ns:
         n_pad = plan.bucket_for(n)
+        # the budget channels' allocation at this n: a host->device upload
+        rates = _rates_operand(plan.strategies, n, plan.d, dev)
         if sparse:
             out = _stacked_corr(keys, chols, n, plan.strategies, n_pad,
-                                engine, faults, fkeys)
+                                engine, faults, fkeys, rates)
         else:
             out = _stacked_weights(keys, parents, rhos, n, plan.strategies,
-                                   n_pad, engine, faults, fkeys)
+                                   n_pad, engine, faults, fkeys, rates)
         if faults is None:
             w = out
         else:
@@ -1071,7 +1134,7 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
         else:
             point_sums.append(_sparse_sums(plan, w[None], adj_true, (n,),
                                            chunk))
-        del w, out
+        del w, out, rates
     if not sparse:
         parts = [torch.stack(point_sums, dim=1)]
     else:

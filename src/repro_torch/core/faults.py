@@ -20,8 +20,8 @@ bit-identical to ``repro``'s, and bucket-stable: the flip mask is keyed
 by sample row. A zero-fault plan draws all-true masks, whose every use is
 the identity: it is bit-identical to no plan.
 
-The MAC channel's row-block view (``draw_rowblock_batch``) arrives with
-the port's wire plane.
+The MAC channel sees the same machine fates as delivered-row counts per
+sample-row block (:meth:`FaultPlan.draw_rowblock_batch`).
 """
 from __future__ import annotations
 
@@ -126,7 +126,10 @@ class FaultPlan:
         (t, m) bool, straggling (t, m) bool, still (t, m, retries+1)
         int32 — machine still missing after rounds 0..j). The fold_in
         order (machine keys -> per-round dropout uniforms -> straggler
-        uniform) is ``repro``'s, which makes the draws its draws."""
+        uniform) is ``repro``'s, which makes the draws its draws. The
+        feature-partition view (:meth:`draw_batch`) and the MAC row-block
+        view (:meth:`draw_rowblock_batch`) both read it, so with equal
+        machine counts they realize the same machine fates."""
         dev = keys.device
         mkeys = prng.fold_in(keys[:, None, :], torch.arange(m, device=dev))
         rkeys = prng.fold_in(mkeys[:, :, None, :],
@@ -187,11 +190,35 @@ class FaultPlan:
         flip = self._flip(keys, n_pad, d) if self.bitflip > 0.0 else None
         return n_rows, flip, tele
 
-    def draw_rowblock_batch(self, keys, n_pad, n_valid, machines):
-        """The MAC channel's row-block view of the fault draws."""
-        raise NotImplementedError(
-            "FaultPlan.draw_rowblock_batch (the MAC channel's view) "
-            "arrives with the port's wire plane")
+    def draw_rowblock_batch(self, keys: torch.Tensor, n_pad: int,
+                            n_valid: int, machines: int) -> torch.Tensor:
+        """The fault realization as the MAC channel sees it: (t, machines)
+        int32 DELIVERED-ROW counts per sample-row block on the keys'
+        device — a dropped machine is a missing summand (count 0), a
+        straggler superposes only the prefix ``ceil(straggle_frac *
+        its_valid_rows)`` of its block.
+
+        Drawn from the same :meth:`_machine_states` stream as
+        :meth:`draw_batch` (same keys, same fold_in order), so when
+        ``machines == n_machines(d)`` both views realize identical
+        machine fates. No telemetry: the sweep takes it from the one
+        :meth:`draw_batch` call, so nothing is counted twice.
+        """
+        if n_pad % machines != 0:
+            raise ValueError(
+                f"machines={machines} must divide n_pad={n_pad}")
+        b = n_pad // machines
+        # machine m's valid rows under the contiguous row-block partition
+        block_valid = torch.clamp(
+            int(n_valid) - torch.arange(machines, dtype=torch.int32,
+                                        device=keys.device) * b, 0, b)
+        n_trunc = torch.minimum(
+            torch.ceil(self.straggle_frac * block_valid.to(torch.float32))
+            .to(torch.int32), block_valid)
+        arrived, straggling, _ = self._machine_states(keys, machines)
+        return torch.where(arrived,
+                           torch.where(straggling, n_trunc, block_valid),
+                           torch.zeros_like(block_valid))
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,11 +4,8 @@ A copy of ``repro.core.strategy``. A :class:`Strategy` pins down one
 point of the paper's design space — quantization method x bit rate x wire
 format x compute placement x MWST solver — as a single frozen, hashable
 value; ``label`` matches the paper-figure legend names ("sign",
-"R1".."R7", "original").
-
-Only the gather channel exists in this port so far: a Strategy whose
-``channel`` is anything else raises ``NotImplementedError`` until the
-wire plane (MAC superposition, bit budgets) is ported.
+"R1".."R7", "original"), with the channel's suffix ("sign@mac4",
+"R4@bgt49152") for the MAC and bit-budget channels.
 """
 from __future__ import annotations
 
@@ -47,8 +44,14 @@ class Strategy:
         reference). Both break ties identically.
       structure: 'tree' (Chow-Liu MWST) or 'sparse' (graphical lasso, §7).
       lam: l1 penalty of the glasso solve (sparse structures only).
-      channel: the wire's channel model; only the lossless gather channel
-        is ported.
+      channel: the wire's channel model (``repro_torch.comm.channel``) —
+        the default :class:`~repro_torch.comm.channel.GatherChannel` is
+        the paper's lossless all-gather;
+        :class:`~repro_torch.comm.channel.MACChannel` superposes machine
+        sign Grams (sign method, int8 wire only);
+        :class:`~repro_torch.comm.channel.BudgetChannel` allocates
+        per-machine rates under a total bit budget (persymbol method,
+        int8 wire; ``rate`` is the per-machine cap).
     """
 
     method: Method = "sign"
@@ -102,10 +105,8 @@ class Strategy:
             raise TypeError(
                 f"channel must be a repro_torch.comm.channel.Channel, got "
                 f"{type(self.channel)!r}")
-        if self.channel.kind != "gather":
-            raise NotImplementedError(
-                f"channel kind {self.channel.kind!r} arrives with the port's "
-                f"wire plane; only the gather channel is ported")
+        # the channel vetoes (method, wire, placement) combinations it
+        # cannot carry, after the normalizations above
         self.channel.validate(self)
 
     @property

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.comm.channel import GATHER
+from repro_torch.comm.channel import GATHER, BudgetChannel, MACChannel
 from repro_torch.core.gram import GramConfig, GramEngine
 from repro_torch.core.strategy import Strategy
 
@@ -23,16 +23,17 @@ _TPU_FIELDS = ("interpret", "block_n", "block_d", "block_b")
 
 
 def _channel_from_fields(fields) -> object:
-    """A channel from ``asdict`` of a ``repro`` channel: the gather
-    channel has no fields; MAC ({machines}) and budget ({budget_bits,
-    machines}) channels wait for the wire plane."""
+    """A channel from ``asdict`` of a ``repro`` channel. ``kind`` is a
+    class attribute, so ``asdict`` leaves it out: the gather channel has
+    no fields, a budget channel has ``budget_bits`` (and ``machines``),
+    a MAC channel ``machines`` alone."""
     fields = dict(fields or {})
-    kind = fields.pop("kind", None)
-    if not fields and kind in (None, "gather"):
+    fields.pop("kind", None)
+    if not fields:
         return GATHER
-    name = kind or ("budget" if "budget_bits" in fields else "mac")
-    raise NotImplementedError(
-        f"the {name!r} channel arrives with the port's wire plane")
+    if "budget_bits" in fields:
+        return BudgetChannel(**fields)
+    return MACChannel(**fields)
 
 
 def strategy_from_fields(fields: dict) -> Strategy:

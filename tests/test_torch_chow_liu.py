@@ -212,9 +212,34 @@ def test_strategy_weights_batch_bucketed(samples, s):
 
 
 @pytest.mark.parametrize("name", ["mac_weights_batch", "budget_payload"])
-def test_channel_plane_estimators_wait_for_the_wire_plane(name):
-    with pytest.raises(NotImplementedError, match="wire plane"):
-        getattr(t_est, name)
+def test_channel_plane_estimators_wait_for_the_wire_plane(samples, name):
+    """The channel plane's estimators are ported: each gives repro's
+    result on repro's samples (MAC weights within the sign tolerance,
+    budget codes bit for bit)."""
+    from repro.comm.channel import BudgetChannel, MACChannel
+
+    x = samples[None, :1000]
+    if name == "mac_weights_batch":
+        s = JStrategy("sign", channel=MACChannel(8))
+        want = np.asarray(j_est.mac_weights_batch(jnp.asarray(x), s,
+                                                  n_valid=900))
+        got = t_est.mac_weights_batch(torch.from_numpy(x),
+                                      strategy_from_fields(
+                                          dataclasses.asdict(s)),
+                                      n_valid=900).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=2.5e-7)
+    else:
+        s = JStrategy("persymbol", rate=3, channel=BudgetChannel(
+            budget_bits=5 * 1000 * D // 2, machines=4))
+        rates = s.channel.column_rates(1000, D, 3)
+        assert sorted(set(rates.tolist())) == [2, 3]
+        want = np.asarray(j_est.budget_payload(jnp.asarray(x), s, rates,
+                                               n_valid=900))
+        got = t_est.budget_payload(torch.from_numpy(x),
+                                   strategy_from_fields(
+                                       dataclasses.asdict(s)), rates,
+                                   n_valid=900).numpy()
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(AttributeError):
         getattr(t_est, "no_such_estimator")
 

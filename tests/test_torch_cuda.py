@@ -591,3 +591,91 @@ def test_cuda_sparse_zero_fault_plan_equals_none(cuda):
     for f in ("error_rate", "edit_distance", "edge_f1", "precision",
               "recall"):
         assert getattr(a, f) == getattr(b, f), f
+
+
+def _channel_strategies():
+    from repro_torch.core import BudgetChannel, MACChannel, Strategy
+
+    return (Strategy("sign"), Strategy("persymbol", rate=4),
+            Strategy("sign", channel=MACChannel(4)),
+            Strategy("persymbol", rate=4, channel=BudgetChannel(
+                budget_bits=6 * 512 * 16, machines=4)))
+
+
+@pytest.mark.cuda
+def test_cuda_channel_sweep_matches_cpu(cuda):
+    """benchmarks/channels.py's strategies (gather, MAC, budget) at fewer
+    reps, pristine and faulty with retries, on the card and the CPU:
+    equal results and ledgers, one host read, lossless MAC == gather
+    sign; sign_corr and quantize_fused launched."""
+    import dataclasses
+
+    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.faults import FaultPlan
+
+    plan = TrialPlan(d=16, ns=(128, 512), reps=8, seed0=7,
+                     strategies=_channel_strategies())
+    fields = ("error_rate", "edit_distance", "edge_f1", "buckets",
+              "host_syncs", "faults")
+    before = kernels.launches()
+    for p in (plan, dataclasses.replace(plan, faults=FaultPlan(
+            dropout=0.15, straggle=0.3, straggle_frac=0.5, bitflip=0.01,
+            retries=1, machines=4, seed=1))):
+        card = run_trials(p, device=cuda)
+        host = run_trials(p, device="cpu")
+        assert card.host_syncs == 1
+        for f in fields:
+            assert getattr(card, f) == getattr(host, f), f
+        assert ({k: [dataclasses.asdict(r) for r in v]
+                 for k, v in card.comm.items()}
+                == {k: [dataclasses.asdict(r) for r in v]
+                    for k, v in host.comm.items()})
+        if p.faults is None:
+            assert card.error_rate["sign@mac4"] == card.error_rate["sign"]
+    after = kernels.launches()
+    assert all(after[k] > before[k] for k in
+               ("sign_corr", "code_corr", "quantize_fused"))
+
+
+@pytest.mark.cuda
+def test_cuda_sign_corr_on_mac_masked_codes(cuda):
+    """sign_corr on MAC codes whose undelivered rows are zero inside the
+    operand: an interior block dropped whole, one cut off the 128-sample
+    stage, a padded tail."""
+    from repro_torch.core import MACChannel, Strategy, estimators
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(3, 2048, 40, generator=gen, device=cuda)
+    s = Strategy("sign", channel=MACChannel(8))
+    delivered = torch.full((3, 8), 256, dtype=torch.int32, device=cuda)
+    delivered[:, 2] = 0
+    delivered[1, 5] = 77
+    delivered[2, 6] = 129
+    delivered[:, 7] = 200
+    u = estimators.mac_sign_codes(x, s, delivered=delivered)
+    assert not u[:, 512:768].any() and not u[:, 7 * 256 + 200:].any()
+    assert not u[1, 5 * 256 + 77:6 * 256].any()
+    before = kernels.launches()["sign_corr"]
+    torch.testing.assert_close(kernels.sign_corr(u), ref.sign_corr_ref(u),
+                               rtol=0, atol=0)
+    assert kernels.launches()["sign_corr"] == before + 1
+    host = estimators.mac_sign_codes(x.cpu(), s, delivered=delivered.cpu())
+    assert torch.equal(u.cpu(), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pad,n_valid,machines", [(1024, 1000, 16),
+                                                    (256, 256, 4),
+                                                    (512, 77, 8)])
+def test_cuda_draw_rowblock_batch_matches_cpu(cuda, n_pad, n_valid,
+                                              machines):
+    from repro_torch.core.faults import FaultPlan, fault_trial_keys
+
+    fp = FaultPlan(dropout=0.3, straggle=0.4, straggle_frac=0.3, retries=2,
+                   machines=machines, seed=5)
+    got = fp.draw_rowblock_batch(fault_trial_keys(fp, 9, device=cuda),
+                                 n_pad, n_valid, machines)
+    want = fp.draw_rowblock_batch(fault_trial_keys(fp, 9, device="cpu"),
+                                  n_pad, n_valid, machines)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)

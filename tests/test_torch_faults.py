@@ -81,8 +81,14 @@ def test_fault_plan_properties_are_repros():
         te.TrialPlan(d=8, ns=(16,), faults=dict(dropout=0.1))
     with pytest.raises(ValueError, match="divide"):
         te.TrialPlan(d=10, ns=(16,), faults=t_faults.FaultPlan(machines=4))
-    with pytest.raises(NotImplementedError, match="wire plane"):
-        t_faults.FaultPlan(machines=4).draw_rowblock_batch(None, 8, 8, 4)
+    # the MAC channel's row-block view is repro's, bit for bit
+    jp, tp = j_faults.FaultPlan(**FAULTS["mixed"]), t_faults.FaultPlan(
+        **FAULTS["mixed"])
+    np.testing.assert_array_equal(
+        tp.draw_rowblock_batch(t_faults.fault_trial_keys(tp, 5, device="cpu"),
+                               64, 50, 4).numpy(),
+        np.asarray(jp.draw_rowblock_batch(j_faults.fault_trial_keys(jp, 5),
+                                          64, jnp.asarray(50, jnp.int32), 4)))
 
 
 @pytest.mark.parametrize("name", sorted(FAULTS))

@@ -250,10 +250,31 @@ def test_strategy_corr_matches_repro(s):
 
 
 def test_strategy_corr_batch_rejects_channel_operands():
+    """The channel operands reach the sparse corr stage: a gather
+    strategy ignores them, a budget strategy needs ``rates`` and takes
+    them as repro does."""
+    from repro.comm.channel import BudgetChannel
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 64, 8)).astype(np.float32)
     ts = strategy_from_fields(dataclasses.asdict(SPARSE[0]))
-    with pytest.raises(NotImplementedError, match="wire plane"):
-        t_est.strategy_corr_batch(torch.zeros(1, 8, 4), ts,
-                                  rates=torch.ones(4))
+    xt = torch.from_numpy(x)
+    assert torch.equal(
+        t_est.strategy_corr_batch(xt, ts, n_valid=60,
+                                  rates=torch.ones(8, dtype=torch.int32)),
+        t_est.strategy_corr_batch(xt, ts, n_valid=60))
+    s = j_strategy.Strategy("persymbol", rate=3, structure="sparse",
+                            lam=0.1, channel=BudgetChannel(
+                                budget_bits=3 * 60 * 8 // 2, machines=4))
+    tb = strategy_from_fields(dataclasses.asdict(s))
+    with pytest.raises(ValueError, match="rates"):
+        t_est.strategy_corr_batch(xt, tb, n_valid=60)
+    rates = s.channel.column_rates(60, 8, 3)
+    want = np.asarray(j_est.strategy_corr_batch(jnp.asarray(x), s,
+                                                n_valid=60, rates=rates))
+    got = t_est.strategy_corr_batch(xt, tb, n_valid=60,
+                                    rates=torch.from_numpy(rates))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
 def _ggm_data(d, n, seed, density=0.2):
