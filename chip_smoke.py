@@ -35,8 +35,12 @@ d = 1024; benchmarks/channels.py's plan (gather, MAC superposition and
 bit-budget strategies, pristine and faulty) card against CPU with its
 five checks; the channel strategies at d = 1024 over 16 machines with
 their time split; and learn_structure over a MAC at PRODUCTION (phase
-4's edges exactly) and over a bit budget at d = 4096, n = 2^18. Any
-failed check exits non-zero. The last three
+4's edges exactly) and over a bit budget at d = 4096, n = 2^18. Last,
+the mesh and wire plane (phase 15): distributed_learn_structure at
+PRODUCTION over a one-rank NCCL mesh (phase 4's edges, weights equal to
+the single-device ones), run_trials over one-rank NCCL meshes equal to
+the mesh-less sweeps bit for bit, and four gloo ranks on the one card
+over a (2, 2) wire mesh. Any failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
@@ -2860,6 +2864,328 @@ def channel_plane(dev, total, records, main_edges, reps):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the mesh and wire plane
+# ---------------------------------------------------------------------------
+
+#: part (c): ranks on the one card, joined by gloo, which moves CUDA
+#: tensors through the host (its transport); the kernels run on the card
+WIRE_RANKS = 4
+WIRE_BACKEND = "cuda:gloo,cpu:gloo"
+#: tests/test_channels.py's _PARITY plan, and Fig. 3's strategies under
+#: the rowblock placement at d = 64
+WIRE_PARITY = dict(d=16, ns=(100, 400), reps=8, seed0=5)
+WIRE_PARITY_FAULTS = dict(machines=4, dropout=0.25, straggle=0.3, seed=11)
+WIRE_ROWBLOCK = dict(d=64, ns=(100, 400), reps=8)
+
+
+def _wire_plans():
+    """Part (c)'s plans: _PARITY pristine and faulty, Fig. 3 rowblock."""
+    import dataclasses
+
+    from repro_torch.core import (FIG3_STRATEGIES, BudgetChannel, FaultPlan,
+                                  MACChannel, Strategy, TrialPlan)
+
+    parity = TrialPlan(strategies=(
+        Strategy("sign"), Strategy("sign", channel=MACChannel(4)),
+        Strategy("persymbol", rate=4, channel=BudgetChannel(
+            budget_bits=4 * 100 * 16, machines=4))), **WIRE_PARITY)
+    return {"parity": parity,
+            "parity-faults": dataclasses.replace(
+                parity, ns=(100,), faults=FaultPlan(**WIRE_PARITY_FAULTS)),
+            "fig3-rowblock": TrialPlan(strategies=tuple(
+                dataclasses.replace(s, placement="rowblock")
+                for s in FIG3_STRATEGIES), **WIRE_ROWBLOCK)}
+
+
+def _same_as_mesh_less(got, alone, what, ranks, wire_plan=None):
+    """A mesh sweep against the mesh-less one on the same device: every
+    result field bit for bit, and the reports but for the collectives,
+    which a wire mesh (``wire_plan``, the sweep's plan) counts: 2 under
+    rowblock, else 1."""
+    import dataclasses
+
+    _same_results(got, alone, what, fields=TRIAL_FIELDS + (
+        "precision", "recall", "path"), comm=False)
+    expect(got.mesh_devices == ranks and got.host_syncs == 1,
+           f"{what}: mesh_devices {got.mesh_devices}, host_syncs "
+           f"{got.host_syncs}")
+    for s in (wire_plan or alone.plan).strategies:
+        want = 0 if wire_plan is None else 1 + (s.placement == "rowblock")
+        for r, a in zip(got.comm[s.label], alone.comm[s.label]):
+            expect(dataclasses.replace(r, collectives=0) == a,
+                   f"{what}: {s.label}'s report {r} is not {a}")
+            expect(r.collectives == want, f"{what}: {s.label} reports "
+                   f"{r.collectives} collectives, not {want}")
+
+
+def _first_collectives(mesh, dev):
+    """One small all-gather over the model axis and sum over the data axis:
+    NCCL's first-call set-up, timed apart from the runs."""
+    import torch
+    from repro_torch.comm.collectives import all_gather, psum
+
+    t = torch.ones(8, device=dev)
+    all_gather(t, mesh.get_group("model"), 0)
+    psum(t, mesh.get_group("data"))
+    return mesh
+
+
+def wire_main_path(dev, total, main_edges):
+    """Part (a): PRODUCTION over a one-rank NCCL mesh (make_host_mesh(1, 1):
+    NCCL on an in-memory store, no launcher). distributed_learn_structure
+    gives phase 4's edges; distributed_weights equals strategy_weights bit
+    for bit, replicated and rowblock (the rectangular sign_corr); at the
+    cut n the packed sign wire is equal too and R = 4's Grams within
+    code_tolerance (its trees through trace_ties). Logs the NCCL set-up,
+    wall seconds, peak bytes and the wire's own ms (the all-gather of the
+    payload) beside learn_structure's."""
+    import torch
+    from repro_torch.configs import PRODUCTION
+    from repro_torch.core import estimators as E
+    from repro_torch.core.chow_liu import (adjacency_to_edges, boruvka_mst,
+                                           learn_structure)
+    from repro_torch.core.distributed import (WirePlan,
+                                              distributed_learn_structure,
+                                              distributed_weights)
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.data import GGMDataset
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh, t_setup = timed(lambda: _first_collectives(
+        make_host_mesh(1, 1, device=dev), dev))
+    log(f"phase 15 (a) NCCL one-rank mesh set-up (process group on an "
+        f"in-memory store, the DeviceMesh, a first all-gather and sum): "
+        f"{t_setup:.4f} s")
+    ds = GGMDataset(d=D, seed=PRODUCTION.seed)
+    torch.cuda.empty_cache()
+    x = ds.sample(MAIN_N, device=dev)
+    s = Strategy(method=PRODUCTION.method)
+    torch.cuda.reset_peak_memory_stats()
+    (est, t_dist), counts = counted(total, lambda: timed(
+        lambda: distributed_learn_structure(x, mesh, strategy=s)))
+    peak = torch.cuda.max_memory_allocated()
+    expect(counts["sign_corr"] > 0, "the one-rank PRODUCTION run launched "
+           "no sign_corr")
+    expect(est == main_edges, "distributed_learn_structure at PRODUCTION: "
+           "the edge list is not phase 4's")
+    _, t_single = timed(lambda: learn_structure(x, strategy=s))
+    plan = WirePlan(s, mesh=mesh)
+    payload = plan.encode(x)
+    wire_ms = event_ms(lambda: plan.wire(payload), 3)
+    del payload
+    same = []
+    for placement in ("replicated", "rowblock"):
+        sp = Strategy(method=PRODUCTION.method, placement=placement)
+        got, counts_p = counted(total, lambda: distributed_weights(
+            x, mesh, strategy=sp))
+        expect(counts_p["sign_corr"] > 0, f"{placement}: no sign_corr")
+        expect(torch.equal(got, E.strategy_weights(x, sp)),
+               f"distributed_weights ({placement}) at PRODUCTION differs "
+               f"from strategy_weights")
+        if placement == "rowblock":
+            expect(adjacency_to_edges(boruvka_mst(got)) == main_edges,
+                   "rowblock at PRODUCTION: not phase 4's edges")
+        del got
+        same.append(placement)
+    del x
+    log(f"phase 15 (a) PRODUCTION d={D} n={MAIN_N} sign/int8 over a "
+        f"one-rank NCCL mesh: distributed_learn_structure_s={t_dist:.4f} "
+        f"learn_structure_s={t_single:.4f} wire_ms={wire_ms:.4f} (the "
+        f"all-gather of the {MAIN_N * D} byte payload) peak_bytes={peak}; "
+        f"edges == phase 4's; weights bit-identical to strategy_weights "
+        f"({', '.join(same)}); launches={json.dumps(counts)}")
+
+    torch.cuda.empty_cache()
+    x = ds.sample(CUT_N, batch_seed=1, device=dev)
+    for fields in (dict(method="sign", wire="packed"),
+                   dict(method="persymbol", rate=4)):
+        for placement in ("replicated", "rowblock"):
+            sp = Strategy(placement=placement, **fields)
+            what = f"phase 15 (a) d={D} n={CUT_N} {sp.label}/{sp.wire} " \
+                   f"{placement}"
+            wp = WirePlan(sp, mesh=mesh)
+            (w_d, t_d), counts_c = counted(total, lambda: timed(
+                lambda: distributed_weights(x, mesh, strategy=sp)))
+            w_s = E.strategy_weights(x, sp)
+            ties = []
+            if sp.method == "sign":
+                expect(torch.equal(w_d, w_s), f"{what}: weights differ")
+            else:
+                own = wp.encode(x)
+                g_d = wp._assemble_gram(wp.wire(own), own_payload=own,
+                                        data_sharded=True)
+                del own
+                g_s = E.payload_gram(E.strategy_payload(x, sp), sp)
+                err = (g_d - g_s).abs()
+                expect(bool((err <= code_tolerance(CUT_N, g_s)).all()),
+                       f"{what}: Grams differ by {float(err.max())}")
+                del g_d, g_s
+                t_a, t_b = boruvka_mst(w_d), boruvka_mst(w_s)
+                ties = trace_ties(w_d[None].double().cpu(), t_a[None].cpu(),
+                                  w_s[None].double().cpu(), t_b[None].cpu(),
+                                  D, what)
+            log(f"{what}: distributed_weights_s={t_d:.4f} "
+                f"{'bit-identical' if not ties and torch.equal(w_d, w_s) else 'within code_tolerance'}"
+                f"{' but for ties ' + json.dumps(ties) if ties else ''}; "
+                f"launches={json.dumps(counts_c)}")
+            del w_d, w_s
+    del x
+    torch.cuda.empty_cache()
+
+
+def wire_trials(dev, total):
+    """Part (b): run_trials over one-rank NCCL meshes — make_trial_mesh(1)
+    and make_trial_mesh(1, model=1) — on phase 12's d = 1024 plans, phase
+    14's d = 1024 channel plan (pristine, MIXED_FAULTS) and phase 13's
+    d = 16 sparse plan (fixed lam, EBIC): each equal to its mesh-less run
+    on the card bit for bit; warm trials/s beside the mesh-less run's."""
+    import dataclasses
+
+    from repro_torch.core import FIG3_STRATEGIES
+    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.path import PathPlan
+    from repro_torch.launch.mesh import make_trial_mesh
+
+    channels = TrialPlan(strategies=_channel_strategies(
+        WIDE_MACHINES, WIDE_BUDGET), **CHANNEL_WIDE)
+    sparse = TrialPlan(strategies=_sparse_strategies(
+        ("sign", "R2", "R4", "original")), **SPARSE_SWEEP)
+    plans = {
+        "d=1024 FIG3": TrialPlan(strategies=FIG3_STRATEGIES, **TRIALS_BIGD),
+        "d=1024 packed": TrialPlan(strategies=_packed_strategies(),
+                                   **TRIALS_BIGD),
+        "channels d=1024": channels,
+        "channels d=1024 mixed": dataclasses.replace(
+            channels, faults=FaultPlan(**MIXED_FAULTS)),
+        "sparse d=16 fixed": sparse,
+        "sparse d=16 ebic": dataclasses.replace(
+            sparse, path=PathPlan(**SPARSE_PATH)),
+    }
+    meshes = {"data": make_trial_mesh(1, device=dev),
+              "wire": make_trial_mesh(1, model=1, device=dev)}
+    launches = {}
+    for name, plan in plans.items():
+        alone = run_trials(plan, device=dev)
+        warm = {"mesh-less": run_trials(plan, device=dev)}
+        _same_as_mesh_less(warm["mesh-less"], alone, f"phase 15 (b) {name} "
+                           f"mesh-less rerun", 1)
+        for m, mesh in meshes.items():
+            for run in ("cold", "warm"):
+                got, counts = counted(total, lambda: run_trials(
+                    plan, mesh=mesh, device=dev))
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                _same_as_mesh_less(got, alone, f"phase 15 (b) {name} {m} "
+                                   f"mesh {run}", 1,
+                                   plan if m == "wire" else None)
+            warm[m] = got
+        log(f"phase 15 (b) {name} ({plan.trials} trials): == mesh-less bit "
+            f"for bit; warm s (trials/s): " + ", ".join(
+                f"{k} {r.seconds:.4f} ({r.trials_per_s:.1f})"
+                for k, r in warm.items()))
+    for k in ("sign_corr", "sign_corr_packed", "code_corr",
+              "quantize_fused"):
+        expect(launches[k] > 0, f"phase 15 (b) launched no {k}")
+    log(f"phase 15 (b) launches={json.dumps(launches)}")
+
+
+def _wire_rank(rank, world, store, out_dir, dev):
+    """One rank of part (c), on ``dev`` (cuda:0 for every rank): the plans
+    over a (2, 2) wire mesh of ``world`` gloo ranks; writes its results
+    and launch counts."""
+    import pickle
+
+    import torch
+    from repro_torch.core.experiments import run_trials
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.mesh import init_rank, make_trial_mesh
+
+    on_card = dev.startswith("cuda")
+    init_rank(rank, world, store, device=dev,
+              backend=WIRE_BACKEND if on_card else "gloo")
+    if not on_card:
+        torch.set_num_threads(1)
+    mesh = make_trial_mesh(2, model=2, device=dev)
+    reset_launches()
+    res = {name: run_trials(plan, mesh=mesh, device=dev)
+           for name, plan in _wire_plans().items()}
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump((res, launches()), f)
+    torch.distributed.destroy_process_group()
+
+
+def wire_ranks_on_one_card(dev, total):
+    """Part (c): WIRE_RANKS processes on the one card
+    (torch.multiprocessing.spawn, a FileStore under build/, gloo on CUDA
+    tensors) run _PARITY pristine and faulty and Fig. 3 rowblock at d = 64
+    over make_trial_mesh(2, model=2). Every rank's results equal the
+    mesh-less card run bit for bit (reports but for the collectives), and
+    the mesh-less card run equals the CPU's but for ties
+    (card_vs_cpu_sweep)."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+    from repro_torch.core.experiments import run_trials
+
+    work = os.path.join(ROOT, "build", "chip_smoke_wire")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    rank_dev = "cuda:0" if str(dev).startswith("cuda") else "cpu"
+    mp.spawn(_wire_rank, args=(WIRE_RANKS, os.path.join(work, "store"),
+                               work, rank_dev), nprocs=WIRE_RANKS)
+    t_spawn = time.perf_counter() - t0
+    ranks = []
+    for r in range(WIRE_RANKS):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    shutil.rmtree(work)
+    launches = {}
+    for _, counts in ranks:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+            total[k] += v
+    for k in ("sign_corr", "code_corr", "quantize_fused"):
+        expect(launches[k] > 0, f"phase 15 (c) launched no {k}")
+    for name, plan in _wire_plans().items():
+        alone = run_trials(plan, device=dev)
+        for r, (res, _) in enumerate(ranks):
+            _same_as_mesh_less(res[name], alone, f"phase 15 (c) {name} rank "
+                               f"{r}", WIRE_RANKS, plan)
+        host = run_trials(plan, device="cpu")
+        ties = card_vs_cpu_sweep(plan, alone, host, dev,
+                                 f"phase 15 (c) {name} card vs CPU")
+        log(f"phase 15 (c) {name}: {WIRE_RANKS} ranks == mesh-less card "
+            f"bit for bit; card == CPU"
+            f"{' but for ties ' + json.dumps(ties) if ties else ''}; "
+            f"rank 0 {ranks[0][0][name].seconds:.4f} s")
+    log(f"phase 15 (c) {WIRE_RANKS} gloo ranks on one card over a (2, 2) "
+        f"wire mesh: spawn to end {t_spawn:.1f} s; launches (all ranks)="
+        f"{json.dumps(launches)}")
+
+
+def wire_plane(dev, total, main_edges):
+    """Phase 15: parts (a), (b) and (c) above; adds the phase's launches
+    to ``total``."""
+    t0 = time.perf_counter()
+    mine = {k: 0 for k in total}
+    for part, args in ((wire_main_path, (main_edges,)), (wire_trials, ()),
+                       (wire_ranks_on_one_card, ())):
+        t = time.perf_counter()
+        part(dev, mine, *args)
+        log(f"phase 15 {part.__name__} took {time.perf_counter() - t:.1f} s")
+    for k, v in mine.items():
+        total[k] += v
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the one-rank NCCL group of (a) and (b)
+    log(f"phase 15 launches={json.dumps(mine)}; took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def _cuobjdump():
     """cuobjdump from PATH, the CUDA toolkit or Triton's bundle, else None."""
     import shutil
@@ -2991,6 +3317,7 @@ def main() -> int:
     trial_plane("cuda", total, records, reps=3)
     sparse_plane("cuda", total)
     channel_plane("cuda", total, records, main_edges, reps=3)
+    wire_plane("cuda", total, main_edges)
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

@@ -20,13 +20,15 @@ beside method, rate, wire and placement.
   stay silent.
 
 On one device the estimators (``core.estimators.mac_*`` / ``budget_*``)
-compute what these channels deliver. The collective each channel
-performs across machines (``transmit`` in ``repro``: an all-gather, or a
-sum over the mesh) arrives with the port's mesh runtime; nothing here
-defines it yet.
+compute what these channels deliver. Across ranks, each channel's
+:meth:`Channel.transmit` performs its collective over a process group
+(``comm.collectives``): the gather, the MAC sum, the budget's int8 code
+gather.
 
-Plan values only (dataclasses + numpy): this module imports nothing of
-the port, so ``core.strategy`` can import it at class-definition time.
+Plan values (dataclasses + numpy): this module imports nothing of the
+port at module level, so ``core.strategy`` can import it at
+class-definition time; the collectives are imported inside
+``transmit``.
 """
 from __future__ import annotations
 
@@ -57,6 +59,18 @@ class Channel:
     def suffix(self) -> str:
         """Label suffix appended to ``Strategy.label`` ('' for gather)."""
         return ""
+
+    def transmit(self, payload, group, *, axis: int, keep=None, fill=0):
+        """THE communication this channel performs: reassemble the ranks'
+        payloads over ``group`` along ``axis``. ``keep``/``fill`` are the
+        fault plane's erasure: a dropped machine's entries arrive as the
+        format's neutral fill (``comm.collectives.neutral_fill``)."""
+        from .collectives import all_gather, erasure_all_gather
+
+        if keep is None:
+            return all_gather(payload, group, axis)
+        return erasure_all_gather(payload, group, keep, axis=axis,
+                                  fill=fill)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +126,12 @@ class MACChannel(Channel):
                 f"padded sample count {n_pad} (pow2 buckets: use a "
                 f"power-of-two machine count)")
         return n_pad // self.machines
+
+    def transmit(self, payload, group, *, axis: int = 0, keep=None, fill=0):
+        """Superpose the ranks' partial statistics: the MAC sum."""
+        from .collectives import superposed_psum
+
+        return superposed_psum(payload, group)
 
 
 @dataclasses.dataclass(frozen=True)

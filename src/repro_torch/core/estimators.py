@@ -78,6 +78,18 @@ def theta_hat_packed(packed, n: int, *, engine: GramEngine | None = None):
     return 0.5 + gram / (2.0 * n)
 
 
+def theta_from_rho(rho) -> torch.Tensor:
+    """theta = 1/2 + arcsin(rho)/pi (eq. 3)."""
+    rho = torch.as_tensor(rho, dtype=torch.float32)
+    return 0.5 + torch.arcsin(torch.clamp(rho, -1.0, 1.0)) / math.pi
+
+
+def rho_from_theta(theta) -> torch.Tensor:
+    """Inverse of eq. (3): rho = sin(pi (theta - 1/2))."""
+    theta = torch.as_tensor(theta, dtype=torch.float32)
+    return torch.sin(math.pi * (theta - 0.5))
+
+
 def binary_entropy(p: torch.Tensor) -> torch.Tensor:
     """h(p) in bits (eq. 5), safe at {0, 1}."""
     # epsilon representable in f32: 1 - 1e-12 rounds to 1.0 in f32
@@ -97,9 +109,58 @@ def mi_gaussian(rho: torch.Tensor) -> torch.Tensor:
     return -0.5 * torch.log1p(-r2)
 
 
+def sample_correlation(u: torch.Tensor, *,
+                       engine: GramEngine | None = None) -> torch.Tensor:
+    """rho_bar_q = (1/n) sum_i u_j^(i) u_k^(i) (eqs. 31/32): the paper's
+    estimator does not renormalize by the sample variances (variables are
+    standardized, Q_jj = 1)."""
+    return resolve_engine(engine).gram(u) / u.shape[0]
+
+
 def rho_squared_unbiased(rho_bar, n):
     """Unbiased estimator of rho^2 (eq. 30): n/(n+1) (rho_bar^2 - 1/n)."""
     return (n / (n + 1.0)) * (torch.square(rho_bar) - 1.0 / n)
+
+
+def sign_method_weights(u_signs: torch.Tensor, *,
+                        engine: GramEngine | None = None) -> torch.Tensor:
+    """Chow-Liu weights of the sign method, hat I(u_j; u_k) (eq. 4), from
+    (n, d) ±1 signs."""
+    return mi_sign(theta_hat(u_signs, engine=engine))
+
+
+def sign_method_weights_packed(packed: torch.Tensor, n: int, *,
+                               engine: GramEngine | None = None
+                               ) -> torch.Tensor:
+    """Sign-method weights straight from the 1-bit packed payload (no
+    unpack): mi_sign(theta_hat_packed(...))."""
+    return mi_sign(theta_hat_packed(packed, n, engine=engine))
+
+
+def persymbol_method_weights(u_centroids: torch.Tensor, *,
+                             engine: GramEngine | None = None
+                             ) -> torch.Tensor:
+    """Per-symbol weights (§5) from (n, d) centroid values: eq. (30) on the
+    quantized sample correlation (eq. 32), through the Gaussian MI."""
+    return weights_from_gram(resolve_engine(engine).gram(u_centroids),
+                             u_centroids.shape[0], "persymbol")
+
+
+def persymbol_code_weights(codes: torch.Tensor, centroids, *,
+                           engine: GramEngine | None = None) -> torch.Tensor:
+    """Per-symbol weights straight from (n, d) int8 bin codes and their
+    codebook: the decode happens inside the Gram (``code_corr`` on the
+    card)."""
+    return weights_from_gram(resolve_engine(engine).code_gram(
+        codes, centroids), codes.shape[0], "persymbol")
+
+
+def gaussian_weights(x: torch.Tensor, *,
+                     engine: GramEngine | None = None) -> torch.Tensor:
+    """Centralized (unquantized) baseline: MI from the sample
+    correlation."""
+    return weights_from_gram(resolve_engine(engine).gram(x), x.shape[0],
+                             "original")
 
 
 def effective_counts(n_rows) -> torch.Tensor:

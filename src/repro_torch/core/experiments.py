@@ -1,5 +1,5 @@
-"""The trial plane: batched Monte-Carlo sweeps on one device (the port of
-``repro.core.experiments``' tree plane).
+"""The trial plane: batched Monte-Carlo sweeps on one device or over a
+mesh of ranks (the port of ``repro.core.experiments``).
 
 The paper's results are Monte-Carlo estimates — Pr(T_hat != T) over many
 (tree, data, method, R, n) trials (Figs. 3-11). :func:`run_trials` runs
@@ -50,11 +50,30 @@ rows come from the plan's fault stream as row blocks
 (``FaultPlan.draw_rowblock_batch``), a budget strategy's allocation at
 each point's true n rides one (S, d) rate upload a point.
 
-Not ported yet, raising ``NotImplementedError``: the mesh and wire plane
-(``run_trials(mesh=...)``). Torch has no trace compile, so
-``repro``'s compile caches and their warm-up threads have no counterpart;
-the per-plan setup cache (trees and keys, per device) takes their place
-in :func:`compile_cache_size` and :func:`clear_compile_caches`.
+Under a mesh (``launch.mesh``; every rank calls ``run_trials`` with the
+same plan) the sweep runs on ``torch.distributed``:
+
+* 1-D ``("data",)`` — the rep axis is sharded over the data axis: rank r
+  takes reps ``[r*reps/D, (r+1)*reps/D)``, whose keys draw exactly the
+  trials the mesh-less sweep draws (row-keyed samplers), and the metric
+  sums and fault telemetry (integer-valued f32) are summed over the axis
+  exactly.
+* 2-D ``("data", "model")`` — the DISTRIBUTED trial plane: reps over
+  data and features over model. Each rank samples its reps' full-feature
+  rows, keeps its feature block and runs the wire runtime
+  (``distributed.WirePlan``: encode -> all-gather -> central; the MAC's
+  row-share partial Grams -> sum; the budget's per-rate encode -> code
+  gather -> table decode).
+
+Sparse plans end the collectives at the correlation statistics, which
+are gathered over the data axis; every rank then solves them as the
+mesh-less sweep does, so metrics equal the mesh-less run's. Every rank
+returns the same result, with one read-back.
+
+Torch has no trace compile, so ``repro``'s compile caches and their
+warm-up threads have no counterpart; the per-plan setup cache (trees and
+keys, per device) takes their place in :func:`compile_cache_size` and
+:func:`clear_compile_caches`.
 """
 from __future__ import annotations
 
@@ -67,11 +86,12 @@ import numpy as np
 import torch
 
 from repro_torch._device import as_tensor, resolve_device
+from repro_torch.comm.collectives import all_gather, psum
 
 from . import estimators, faults as faults_mod, glasso, prng, sampler, trees
 from . import path as path_engine
 from .chow_liu import boruvka_mst, boruvka_mst_batch, kruskal_mst
-from .distributed import CommReport, comm_report
+from .distributed import CommReport, WirePlan, comm_report
 from .faults import FaultPlan, fault_trial_keys
 from .gram import (GramConfig, GramEngine, default_memory_budget,
                    gram_working_set_bytes, resolve_engine)
@@ -83,8 +103,6 @@ TREE_KINDS = ("random", "star", "chain", "skeleton")
 #: ground-truth generators of the sparse trial plane: random sparse
 #: precision matrices (``glasso.random_sparse_precision``)
 SPARSE_KINDS = ("sparse",)
-
-_MESH_PLANE = "arrives with the port's mesh and wire plane"
 
 
 def next_pow2(n: int) -> int:
@@ -364,6 +382,9 @@ class TrialResult:
     #: "selected_hist" (label -> per-n selection counts per lam)}``; the
     #: headline metrics score the selected support. None otherwise.
     path: dict | None = None
+    #: ranks of the mesh the sweep ran under (1 = one device; on a 2-D
+    #: wire mesh data * model)
+    mesh_devices: int = 1
 
     @property
     def trials_per_s(self) -> float:
@@ -859,6 +880,245 @@ def sparse_sweep_faults(plan: TrialPlan, run: TrialResult, ref: TrialResult,
 
 
 # --------------------------------------------------------------------------
+# Mesh stages (the rep-sharded and distributed trial planes)
+# --------------------------------------------------------------------------
+#
+# Every rank of the mesh calls a stage on its shard of the reps (the
+# keys, trees or Cholesky mixers of reps [r*reps/D, (r+1)*reps/D)); the
+# stage sums its integer-valued metric channels and fault telemetry over
+# the data axis, exactly in any order, so every rank returns the mesh-less
+# sweep's sums. ``repro`` jits and caches each one; here they are plain
+# functions that build the point's closure.
+
+def _axis_size(mesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _split(out, faults):
+    """A stage's output -> (result, telemetry sums or None)."""
+    return (out, None) if faults is None else out
+
+
+def _sharded_point_fn(strategies, n_pad: int, engine, mesh, data_axis: str,
+                      faults=None, chunk: int | None = None):
+    """One sweep point with the rep axis sharded over ``data_axis``:
+    ``point(keys, fault_keys, parents, rhos, adj_true, n_valid, rates)``
+    of this rank's reps -> the (S, 3) metric sums summed over the axis
+    (with a fault plan: ``(sums, telemetry sums)``)."""
+    group = mesh.get_group(data_axis)
+
+    def point(keys, fkeys, parents, rhos, adj_true, n_valid, rates):
+        w, tele = _split(_stacked_weights(
+            keys, parents, rhos, n_valid, strategies, n_pad, engine, faults,
+            fkeys, rates), faults)
+        sums = psum(_metric_sums(w, adj_true, chunk), group)
+        return sums if faults is None else (sums, psum(tele, group))
+
+    return point
+
+
+def _check_mac_rowsplit(strategies, n_pad: int, n_model: int) -> None:
+    """Wire-plane MAC strategies split the SAMPLE axis over the model mesh
+    axis (each rank contracts its row share of the superposition), so the
+    bucket must divide evenly."""
+    if n_pad % n_model and any(s.channel.kind == "mac" for s in strategies):
+        raise ValueError(
+            f"MAC channel strategies need the sample bucket to split over "
+            f"the model mesh axis: n_pad={n_pad} is not a multiple of "
+            f"n_model={n_model}")
+
+
+def _mac_wire_stat(s, plan, x, midx, n_model, n_pad, n_valid, flip, fkeys,
+                   faults, engine, delivered_by_m, *, corr):
+    """One MAC-channel strategy's statistic on the wire plane. Every rank
+    masks the FULL sample block down to the delivered machine row blocks
+    (from the shared fault keys, so the ranks agree bit for bit),
+    contracts ITS row share of the superposition (``sign_corr`` on an
+    (n/M, d) share) and ``plan.wire`` — the MAC's ``superposed_psum`` —
+    adds the partial sign Grams over the model axis. They are
+    integer-valued f32 below 2^24, so any row partition sums to the same
+    bits; the center normalizes by the delivered-row count."""
+    delivered = None
+    if faults is not None:
+        m = s.channel.machines
+        if m not in delivered_by_m:
+            delivered_by_m[m] = faults.draw_rowblock_batch(
+                fkeys, n_pad, n_valid, m)
+        delivered = delivered_by_m[m]
+    u = estimators.mac_sign_codes(x, s, n_valid=n_valid, delivered=delivered,
+                                  flip=flip)
+    n_loc = n_pad // n_model
+    part = resolve_engine(engine).gram_batch(
+        u[:, midx * n_loc:(midx + 1) * n_loc])
+    del u
+    gram = plan.wire(part)
+    n_eff = estimators.mac_effective_count(
+        s, n_pad, n_valid=n_valid, delivered=delivered, device=x.device)
+    return plan.central_from_sum(gram, n_eff, corr=corr)
+
+
+def _budget_wire_stat(s, plan, x_loc, midx, d_loc, rates_row, n_valid,
+                      n_rows, n_rows_loc, keep_loc, engine, *, corr):
+    """One budget-channel strategy's statistic on the wire plane. The rank
+    encodes its feature block at the block's allocated rates (its slice
+    of the (d,) rate vector: one ``quantize_fused`` a rate, then a
+    select; a columnwise encode, so the gathered payload is the
+    single-device one bit for bit), the int8 codes are gathered, and the
+    center decodes them through the rate-indexed centroid table."""
+    rates_loc = rates_row[midx * d_loc:(midx + 1) * d_loc]
+    payload = plan.encode(x_loc, n_valid=n_valid, n_rows=n_rows_loc,
+                          rates=rates_loc)
+    full = plan.wire(payload, keep=keep_loc)
+    return estimators.budget_estimate(
+        full, s, rates_row, n_valid=n_valid, n_rows=n_rows, engine=engine,
+        corr=corr)
+
+
+def _wire_stats(strategies, x, n_pad: int, n_valid: int, engine, mesh,
+                data_axis: str, model_axis: str, faults, fkeys, rates, *,
+                corr: bool):
+    """Every strategy's (r, d, d) statistic of this rank's full-feature
+    samples ``x`` through the wire runtime, stacked as (S, r, d, d) (with
+    a fault plan: ``(stats, telemetry sums)``).
+
+    The rank keeps its feature block (its group of the paper's machines)
+    and runs ``WirePlan.encode -> wire -> central`` a strategy; the MAC
+    and budget channels swap the middle (:func:`_mac_wire_stat`,
+    :func:`_budget_wire_stat`). With a fault plan every rank draws the
+    FULL realization from the shared fault keys, masks its own slice
+    machine-side, and the wire erases dropped features
+    (``WirePlan.wire(keep=)``)."""
+    n_model = _axis_size(mesh, model_axis)
+    reps, _, d = x.shape
+    d_loc = d // n_model
+    midx = mesh.get_local_rank(model_axis)
+    cols = slice(midx * d_loc, (midx + 1) * d_loc)
+    x_loc = x[..., cols]
+    n = torch.as_tensor(n_valid, dtype=torch.float32, device=x.device)
+    n_rows = flip = n_rows_loc = flip_loc = keep_loc = tele = None
+    if faults is not None:
+        n_rows, flip, tele = faults.draw_batch(fkeys, n_pad, n_valid, d)
+        n_rows_loc = n_rows[..., cols]
+        if flip is not None:
+            flip_loc = flip[..., cols]
+        keep_loc = n_rows_loc > 0
+    out = torch.empty((len(strategies), reps, d, d), dtype=torch.float32,
+                      device=x.device)
+    delivered_by_m: dict = {}
+    for i, s in enumerate(strategies):
+        plan = WirePlan(s, data_axis=data_axis, model_axis=model_axis,
+                        engine=engine, mesh=mesh)
+        kind = s.channel.kind
+        if kind == "mac":
+            out[i] = _mac_wire_stat(s, plan, x, midx, n_model, n_pad,
+                                    n_valid, flip, fkeys, faults, engine,
+                                    delivered_by_m, corr=corr)
+        elif kind == "budget":
+            out[i] = _budget_wire_stat(s, plan, x_loc, midx, d_loc, rates[i],
+                                       n_valid, n_rows, n_rows_loc, keep_loc,
+                                       engine, corr=corr)
+        else:
+            payload = plan.encode(x_loc, n_valid=n_valid, n_rows=n_rows_loc,
+                                  flip=flip_loc)
+            full = plan.wire(payload, keep=keep_loc)
+            central = plan.central_corr if corr else plan.central
+            out[i] = central(full, n, n_valid=n_valid, n_rows=n_rows,
+                             n_rows_own=n_rows_loc, own_payload=payload)
+    return out if faults is None else (out, tele.sum(dim=0))
+
+
+def _wire_point_fn(strategies, n_pad: int, engine, mesh, data_axis: str,
+                   model_axis: str, faults=None, chunk: int | None = None):
+    """One sweep point on the DISTRIBUTED trial plane — trials sharded
+    over ``data_axis``, features over ``model_axis``: ``point(keys,
+    fault_keys, parents, rhos, adj_true, n_valid, rates)`` -> the (S, 3)
+    metric sums summed over the data axis (every rank of a data row
+    already holds the same weights: the gathered payload, the gathered row
+    blocks or the superposed Gram). The gathered payload is the
+    single-device encode of the unsliced data bit for bit, so the metrics
+    equal the mesh-less sweep's."""
+    _check_mac_rowsplit(strategies, n_pad, _axis_size(mesh, model_axis))
+    group = mesh.get_group(data_axis)
+
+    def point(keys, fkeys, parents, rhos, adj_true, n_valid, rates):
+        x = sampler.sample_tree_ggm_rows_batch(keys, n_pad, parents, rhos)
+        w, tele = _split(_wire_stats(
+            strategies, x, n_pad, n_valid, engine, mesh, data_axis,
+            model_axis, faults, fkeys, rates, corr=False), faults)
+        del x
+        sums = psum(_metric_sums(w, adj_true, chunk), group)
+        return sums if faults is None else (sums, psum(tele, group))
+
+    return point
+
+
+def _sparse_sharded_corr_fn(strategies, n_pad: int, engine, mesh,
+                            data_axis: str, faults=None):
+    """The SPARSE corr stage with the rep axis sharded over
+    ``data_axis``: ``corr_fn(keys, fault_keys, chols, n_valid, rates)``
+    -> the (S, reps, d, d) statistics of every rep, gathered over the
+    axis (with a fault plan: ``(corr, telemetry sums)``). The collectives
+    end here: every rank then solves the statistics as the mesh-less
+    sweep does."""
+    group = mesh.get_group(data_axis)
+
+    def corr_fn(keys, fkeys, chols, n_valid, rates):
+        corr, tele = _split(_stacked_corr(
+            keys, chols, n_valid, strategies, n_pad, engine, faults, fkeys,
+            rates), faults)
+        corr = all_gather(corr, group, 1)
+        return corr if faults is None else (corr, psum(tele, group))
+
+    return corr_fn
+
+
+def _sparse_wire_corr_fn(strategies, n_pad: int, engine, mesh,
+                         data_axis: str, model_axis: str, faults=None):
+    """The SPARSE corr stage on the DISTRIBUTED trial plane: trials over
+    ``data_axis``, features over ``model_axis``, each trial through the
+    wire runtime (``WirePlan.encode -> wire -> central_corr``), the
+    statistics gathered over the data axis as in
+    :func:`_sparse_sharded_corr_fn`."""
+    _check_mac_rowsplit(strategies, n_pad, _axis_size(mesh, model_axis))
+    group = mesh.get_group(data_axis)
+
+    def corr_fn(keys, fkeys, chols, n_valid, rates):
+        x = sampler.sample_ggm_rows_batch(keys, n_pad, chols)
+        corr, tele = _split(_wire_stats(
+            strategies, x, n_pad, n_valid, engine, mesh, data_axis,
+            model_axis, faults, fkeys, rates, corr=True), faults)
+        del x
+        corr = all_gather(corr, group, 1)
+        return corr if faults is None else (corr, psum(tele, group))
+
+    return corr_fn
+
+
+def _mesh_shard(plan: TrialPlan, mesh, data_axis: str, model_axis: str,
+                dev: torch.device) -> tuple[slice, bool]:
+    """(this rank's slice of the reps, whether the mesh runs the wire
+    plane), after ``repro``'s size checks."""
+    shards = _axis_size(mesh, data_axis)
+    if plan.reps % shards != 0:
+        raise ValueError(
+            f"reps={plan.reps} must divide over the {shards}-way "
+            f"{data_axis!r} mesh axis")
+    wire_plane = model_axis in mesh.mesh_dim_names
+    if wire_plane and plan.d % _axis_size(mesh, model_axis) != 0:
+        raise ValueError(
+            f"d={plan.d} must divide over the "
+            f"{_axis_size(mesh, model_axis)}-way {model_axis!r} mesh axis")
+    if mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot run a sweep on "
+                         f"{dev}")
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the mesh")
+    per = plan.reps // shards
+    r = mesh.get_local_rank(data_axis)
+    return slice(r * per, (r + 1) * per), wire_plane
+
+
+# --------------------------------------------------------------------------
 # Setup-cache hygiene
 # --------------------------------------------------------------------------
 
@@ -885,21 +1145,22 @@ def clear_compile_caches() -> int:
 # The sweep engine
 # --------------------------------------------------------------------------
 
-def _comm_reports(plan: TrialPlan, fault_sums: np.ndarray | None = None
-                  ) -> dict[str, list[CommReport]]:
+def _comm_reports(plan: TrialPlan, fault_sums: np.ndarray | None = None,
+                  wire_plane: bool = False) -> dict[str, list[CommReport]]:
     """Per-strategy CommReport per n: logical bits at the true n beside
-    the payload bytes at the bucket the sweep ran (no collectives on one
-    device). Under a fault plan with retries, the retry bytes are
-    measured from the realized retransmission counts: mean machines
-    re-requested a round times the per-machine wire bytes."""
+    the payload bytes at the bucket the sweep ran. Collective counts
+    apply only where the wire runtime ran (``wire_plane``: a 2-D mesh).
+    Under a fault plan with retries, the retry bytes are measured from
+    the realized retransmission counts: mean machines re-requested a
+    round times the per-machine wire bytes."""
     f = plan.faults
     comm: dict[str, list[CommReport]] = {}
     for s in plan.strategies:
         reports = []
         for i, n in enumerate(plan.ns):
-            rep = dataclasses.replace(
-                comm_report(s, n, plan.d, n_pad=plan.bucket_for(n)),
-                collectives=0)
+            rep = comm_report(s, n, plan.d, n_pad=plan.bucket_for(n))
+            if not wire_plane:
+                rep = dataclasses.replace(rep, collectives=0)
             if f is not None and f.retries > 0 and fault_sums is not None:
                 machines = f.n_machines(plan.d)
                 retrans = fault_sums[i, 2:2 + f.retries] / plan.reps
@@ -966,7 +1227,8 @@ def _path_stats(plan: TrialPlan, extras) -> dict | None:
 
 def _package_result(plan: TrialPlan, m: np.ndarray, *, seconds: float,
                     host_syncs: int, fault_sums: np.ndarray | None,
-                    tiling: dict, path_extras=None) -> TrialResult:
+                    tiling: dict, path_extras=None, mesh_devices: int = 1,
+                    wire_plane: bool = False) -> TrialResult:
     """Mean metrics -> TrialResult, with ``repro``'s f32 arithmetic for
     the derived metrics. Tree plans carry (S, len(ns), 3) channels: edge
     F1 == shared / (d - 1) for spanning trees, and precision == recall ==
@@ -992,10 +1254,10 @@ def _package_result(plan: TrialPlan, m: np.ndarray, *, seconds: float,
         edit_distance=_cols(m[:, :, 1]), edge_f1=edge_f1,
         precision=precision, recall=recall,
         seconds=seconds, host_syncs=host_syncs,
-        comm=_comm_reports(plan, fault_sums), buckets=plan.buckets,
-        compile_cache_size=compile_cache_size(),
+        comm=_comm_reports(plan, fault_sums, wire_plane),
+        buckets=plan.buckets, compile_cache_size=compile_cache_size(),
         faults=_fault_stats(plan, fault_sums), tiling=tiling,
-        path=_path_stats(plan, path_extras))
+        path=_path_stats(plan, path_extras), mesh_devices=mesh_devices)
 
 
 def _host_kruskal_trials(plan: TrialPlan, engine: GramEngine,
@@ -1052,8 +1314,9 @@ def _host_kruskal_trials(plan: TrialPlan, engine: GramEngine,
 
 
 def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
-               mesh=None, mst: str = "device", device=None) -> TrialResult:
-    """Run a full Monte-Carlo sweep on one device with ONE host read.
+               mesh=None, data_axis: str = "data", model_axis: str = "model",
+               mst: str = "device", device=None) -> TrialResult:
+    """Run a full Monte-Carlo sweep with ONE host read.
 
     For each n the trial data (reps, n_bucket, d) is sampled once and
     shared by every strategy (methods see the same draws); every
@@ -1072,30 +1335,45 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
     host in every step, so the sweep makes more device->host copies than
     reads (``host_syncs``, still 1).
 
+    ``mesh`` (``launch.mesh.make_trial_mesh``; every rank calls with the
+    same plan) shards the reps over ``data_axis`` (``plan.reps`` must
+    divide over it) and, on a 2-D mesh, the features over ``model_axis``
+    (``plan.d`` must divide over it), each trial running the wire runtime
+    (``distributed.WirePlan``); see the module docstring. Every rank
+    returns the mesh-less sweep's result, with ``mesh_devices`` and the
+    wire's collective counts on ``comm``.
+
     ``device`` (default cuda; raises without it) is where the sweep runs;
     the tests pass ``device="cpu"``. ``engine`` pins the Gram backend
     (default: the kernels on a card, torch on the CPU) and is clamped to
     the plan's memory budget. ``mst="host_kruskal"`` reads the weights
-    back once and solves on the host (tree plans only). A fault plan runs
-    the masked-Gram path and reports the realized telemetry on
+    back once and solves on the host (tree plans, no mesh). A fault plan
+    runs the masked-Gram path and reports the realized telemetry on
     ``TrialResult.faults``; a zero-fault plan is bit-identical to none.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"run_trials(mesh=...) {_MESH_PLANE}")
     labels = [s.label for s in plan.strategies]
     if len(set(labels)) != len(labels):
         raise ValueError(f"duplicate strategy labels: {labels}")
     if mst not in ("device", "host_kruskal"):
         raise ValueError(f"unknown mst mode {mst!r}")
     sparse = plan.structure == "sparse"
-    if mst == "host_kruskal" and sparse:
-        raise ValueError(
-            "mst='host_kruskal' is a tree-plane escape hatch; sparse "
-            "plans solve glasso, not an MWST")
+    if mst == "host_kruskal":
+        if mesh is not None:
+            raise ValueError(
+                "mst='host_kruskal' is the single-process escape hatch; "
+                "run it without a mesh")
+        if sparse:
+            raise ValueError(
+                "mst='host_kruskal' is a tree-plane escape hatch; sparse "
+                "plans solve glasso, not an MWST")
     dev = resolve_device(device)
     engine = plan.budget_engine(resolve_engine(engine), device=dev)
     if mst == "host_kruskal":
         return _host_kruskal_trials(plan, engine, dev)
+    shard, wire_plane = slice(None), False
+    if mesh is not None:
+        shard, wire_plane = _mesh_shard(plan, mesh, data_axis, model_axis,
+                                        dev)
     chunk = plan.metrics_chunk()
     together = sparse and _solve_points_together(plan)
     if sparse:
@@ -1107,6 +1385,9 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
     faults = plan.faults
     fkeys = (fault_trial_keys(faults, plan.reps, device=dev)
              if faults is not None else None)
+    # this rank's reps (all of them without a mesh)
+    keys_r = keys[shard]
+    fkeys_r = fkeys[shard] if faults is not None else None
     point_sums, fault_sums = [], []
     t0 = time.perf_counter()
     for n in plan.ns:
@@ -1114,27 +1395,49 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
         # the budget channels' allocation at this n: a host->device upload
         rates = _rates_operand(plan.strategies, n, plan.d, dev)
         if sparse:
-            out = _stacked_corr(keys, chols, n, plan.strategies, n_pad,
-                                engine, faults, fkeys, rates)
-        else:
-            out = _stacked_weights(keys, parents, rhos, n, plan.strategies,
-                                   n_pad, engine, faults, fkeys, rates)
-        if faults is None:
-            w = out
-        else:
-            w, fsum = out
-            fault_sums.append(fsum)
-        if not sparse:
+            if mesh is None:
+                out = _stacked_corr(keys, chols, n, plan.strategies, n_pad,
+                                    engine, faults, fkeys, rates)
+            else:
+                corr_fn = (
+                    _sparse_wire_corr_fn(plan.strategies, n_pad, engine,
+                                         mesh, data_axis, model_axis, faults)
+                    if wire_plane else
+                    _sparse_sharded_corr_fn(plan.strategies, n_pad, engine,
+                                            mesh, data_axis, faults))
+                # every rank gets every rep's statistics and solves them
+                # as the mesh-less sweep does
+                out = corr_fn(keys_r, fkeys_r, chols[shard], n, rates)
+            w, fsum = _split(out, faults)
+            if together:
+                # the statistics wait for the one solve of every point:
+                # each solver step waits for the host, so one loop over
+                # all the sweep's trials takes len(ns) times fewer of them
+                point_sums.append(w)
+            else:
+                point_sums.append(_sparse_sums(plan, w[None], adj_true,
+                                               (n,), chunk))
+            del w, out
+        elif mesh is None:
+            w, fsum = _split(_stacked_weights(
+                keys, parents, rhos, n, plan.strategies, n_pad, engine,
+                faults, fkeys, rates), faults)
             point_sums.append(_metric_sums(w, adj_true, chunk))
-        elif together:
-            # the statistics wait for the one solve of every point: each
-            # solver step waits for the host, so one loop over all the
-            # sweep's trials takes len(ns) times fewer of them
-            point_sums.append(w)
+            del w
         else:
-            point_sums.append(_sparse_sums(plan, w[None], adj_true, (n,),
-                                           chunk))
-        del w, out, rates
+            point_fn = (
+                _wire_point_fn(plan.strategies, n_pad, engine, mesh,
+                               data_axis, model_axis, faults, chunk)
+                if wire_plane else
+                _sharded_point_fn(plan.strategies, n_pad, engine, mesh,
+                                  data_axis, faults, chunk))
+            sums, fsum = _split(point_fn(
+                keys_r, fkeys_r, parents[shard], rhos[shard],
+                adj_true[shard], n, rates), faults)
+            point_sums.append(sums)
+        if fsum is not None:
+            fault_sums.append(fsum)
+        del rates
     if not sparse:
         parts = [torch.stack(point_sums, dim=1)]
     else:
@@ -1166,7 +1469,9 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
         tiling={"memory_budget_bytes": plan.effective_memory_budget,
                 "d_tile": engine.d_tile, "n_chunk": engine.n_chunk,
                 "metrics_chunk": chunk},
-        path_extras=arrays[1:] or None)
+        path_extras=arrays[1:] or None,
+        mesh_devices=mesh.size() if mesh is not None else 1,
+        wire_plane=wire_plane)
 
 
 # --------------------------------------------------------------------------

@@ -425,5 +425,17 @@ def default_memory_budget() -> int:
 _default_engine = GramEngine()
 
 
+def default_engine() -> GramEngine:
+    """The process-wide engine ``engine=None`` resolves to."""
+    return _default_engine
+
+
+def set_default_engine(engine: GramEngine) -> GramEngine:
+    """Swap the process-wide default engine; returns the previous one."""
+    global _default_engine
+    prev, _default_engine = _default_engine, engine
+    return prev
+
+
 def resolve_engine(engine: GramEngine | None) -> GramEngine:
     return _default_engine if engine is None else engine

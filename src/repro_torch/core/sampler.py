@@ -99,6 +99,26 @@ def sample_tree_ggm_parents(generator, n: int, parent, rho, *,
     return _mix(generator, n, trees._innovation_scale(rho)[:, None] * M.T)
 
 
+def sample_tree_ggm_batch(keys: torch.Tensor, n: int, parents,
+                          rhos) -> torch.Tensor:
+    """Batched trial sampler: one tree GGM per leading index. ``keys``:
+    (t, 2) threefry keys (``core.prng``), each drawing its (n, d) normals
+    as ``jax.random.normal(key, (n, d))``; ``parents``/``rhos``: (t, d)
+    topological arrays. Returns (t, n, d) f32 on the keys' device
+    (``repro``'s ``sample_tree_ggm_batch``)."""
+    rhos = torch.as_tensor(rhos, dtype=torch.float32, device=keys.device)
+    d = rhos.shape[-1]
+    M = trees.path_product_mixer(
+        torch.as_tensor(parents, device=keys.device), rhos)
+    z = prng.normal(keys, (n, d)) * trees._innovation_scale(rhos)[:, None, :]
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # no TF32
+    try:
+        return torch.matmul(z, M.transpose(-1, -2))
+    finally:
+        torch.set_float32_matmul_precision(precision)
+
+
 def sample_tree_ggm(generator, n: int, d: int, edges: list[tuple[int, int]],
                     weights, *, device=None) -> torch.Tensor:
     """Draw ``n`` i.i.d. samples from the tree GGM with unit variances,

@@ -63,6 +63,32 @@ def tree_adjacency(d: int, edges: list[tuple[int, int]]) -> np.ndarray:
     return adj
 
 
+def tree_correlation_matrix(d: int, edges: list[tuple[int, int]],
+                            weights) -> np.ndarray:
+    """Full (d, d) float64 correlation matrix from edge correlations via
+    eq. (24): rho_rs = prod of rho_e over Path(r, s), accumulated along a
+    depth-first walk from every root (unit variances, Q_jj = 1)."""
+    weights = np.asarray(weights, dtype=np.float64)
+    if len(edges) != d - 1 or weights.shape != (d - 1,):
+        raise ValueError(f"a tree on {d} nodes has {d - 1} edges and "
+                         f"weights, got {len(edges)} and {weights.shape}")
+    nbrs: list[list[tuple[int, float]]] = [[] for _ in range(d)]
+    for (j, k), w in zip(edges, weights):
+        nbrs[j].append((k, float(w)))
+        nbrs[k].append((j, float(w)))
+    Q = np.eye(d)
+    for root in range(d):
+        stack = [(root, -1, 1.0)]
+        while stack:
+            node, parent, acc = stack.pop()
+            for child, w in nbrs[node]:
+                if child == parent:
+                    continue
+                Q[root, child] = acc * w
+                stack.append((child, node, acc * w))
+    return Q
+
+
 def topological_parents(
     d: int,
     edges: list[tuple[int, int]],

@@ -679,3 +679,71 @@ def test_cuda_draw_rowblock_batch_matches_cpu(cuda, n_pad, n_valid,
                                   n_pad, n_valid, machines)
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_wire_plan_on_a_one_rank_nccl_mesh(cuda):
+    """distributed_weights over a one-rank NCCL mesh (the WirePlan stages:
+    encode, the all-gather, the central Gram) equals strategy_weights on
+    the same samples bit for bit on the integer wires (replicated, the
+    rowblock's rectangular sign_corr, packed) and gives the same edges as
+    learn_structure; its Gram kernels launch."""
+    from repro_torch.core import estimators
+    from repro_torch.core.chow_liu import learn_structure
+    from repro_torch.core.distributed import (distributed_learn_structure,
+                                              distributed_weights)
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.data import GGMDataset
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(1, 1)
+    assert mesh.device_type == "cuda"
+    x = GGMDataset(d=200, seed=4).sample(4096, device=cuda)
+    for fields, kernel in ((dict(), "sign_corr"),
+                           (dict(placement="rowblock"), "sign_corr"),
+                           (dict(wire="packed"), "sign_corr_packed"),
+                           (dict(wire="packed", placement="rowblock"),
+                            "sign_corr_packed")):
+        s = Strategy("sign", **fields)
+        before = kernels.launches()
+        got = distributed_weights(x, mesh, strategy=s)
+        assert kernels.launches()[kernel] > before[kernel]
+        torch.testing.assert_close(got, estimators.strategy_weights(x, s),
+                                   rtol=0, atol=0)
+        assert distributed_learn_structure(x, mesh, strategy=s) == \
+            learn_structure(x, strategy=s)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_trials_match_mesh_less(cuda):
+    """run_trials over one-rank NCCL meshes — data and wire — equals the
+    mesh-less sweep on the card bit for bit (gather, MAC and budget
+    channels, pristine and faulty, and a sparse plan), with the wire
+    mesh's collectives on the reports."""
+    import dataclasses
+
+    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.launch.mesh import make_trial_mesh
+
+    plan = TrialPlan(d=16, ns=(128, 512), reps=8, seed0=7,
+                     strategies=_channel_strategies())
+    sparse = TrialPlan(d=16, ns=(250,), tree="sparse", density=0.18, reps=8,
+                       glasso_steps=100, strategies=(
+                           Strategy("sign", structure="sparse", lam=0.06),))
+    fields = ("error_rate", "edit_distance", "edge_f1", "precision",
+              "recall", "buckets", "host_syncs", "faults")
+    for p in (plan, dataclasses.replace(plan, faults=FaultPlan(
+            dropout=0.15, straggle=0.3, bitflip=0.01, retries=1,
+            machines=4, seed=1)), sparse):
+        alone = run_trials(p, device=cuda)
+        for model in (None, 1):
+            got = run_trials(p, mesh=make_trial_mesh(1, model=model))
+            assert got.mesh_devices == 1 and got.host_syncs == 1
+            for f in fields:
+                assert getattr(got, f) == getattr(alone, f), f
+            for lab, reports in got.comm.items():
+                for r, a in zip(reports, alone.comm[lab]):
+                    assert dataclasses.replace(r, collectives=0) == a
+                    assert r.collectives == (0 if model is None else 1)

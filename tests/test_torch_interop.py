@@ -123,6 +123,8 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "need = {'repro_torch.core.' + m for m in ('bounds', 'distributed',"
         " 'experiments', 'faults', 'glasso', 'path', 'prng', 'sampler')}\n"
+        "need |= {'repro_torch.comm.collectives', 'repro_torch.launch.mesh',"
+        " 'repro_torch.data.ggm'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -1,5 +1,7 @@
 """The port's trial plane (``repro_torch.core.experiments``) against
-``repro``'s, on the CPU at Fig. 3's width (d = 20).
+``repro``'s, on the CPU at Fig. 3's width (d = 20). The scalar engines
+and bounds are in ``test_torch_mc.py``, the sparse plane's sweeps in
+``test_torch_sparse_trials.py``.
 
 Samples are held to ``repro``'s within ``SAMPLE_TOL`` (the normals are
 within a few ulps, the mixing product sums in another order); the
@@ -15,12 +17,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from repro.core import bounds as j_bounds
 from repro.core import estimators as j_est
 from repro.core import experiments as je
 from repro.core import sampler as j_sampler
 from repro.core import strategy as j_strategy
-from repro_torch.core import bounds as t_bounds
 from repro_torch.core import chow_liu as t_chow_liu
 from repro_torch.core import estimators as t_est
 from repro_torch.core import experiments as te
@@ -236,66 +236,6 @@ def test_chunk_path_under_a_small_memory_budget():
 
 
 # --------------------------------------------------------------------------
-# Single-dataset and scalar engines, bounds
-# --------------------------------------------------------------------------
-
-def test_evaluate_strategies_matches_repro():
-    jp, _ = _plans(J_FIG3, reps=1)
-    par, rho, adj = je.stacked_trees(jp)
-    x = np.asarray(j_sampler.sample_tree_ggm_rows_batch(
-        je.trial_keys(jp), 300, par, rho))[0]
-    want = je.evaluate_strategies(jnp.asarray(x), adj[0], J_FIG3)
-    got = te.evaluate_strategies(x, np.asarray(adj[0]),
-                                 [_port(s) for s in J_FIG3], device="cpu")
-    assert got == want
-    est = te.learned_adjacency(torch.from_numpy(x), _port(J_FIG3[0]))
-    np.testing.assert_array_equal(
-        est.numpy(), np.asarray(je.learned_adjacency(jnp.asarray(x),
-                                                     J_FIG3[0])))
-
-
-@pytest.mark.parametrize("n,rho_e,rho_ep,seed", [(200, 0.6, 0.5, 3),
-                                                 (64, 0.8, 0.75, 0)])
-def test_mc_sign_crossover_matches_repro(n, rho_e, rho_ep, seed):
-    """Every count in it is a sign test on samples within a few ulps of
-    repro's: equal unless a sample sits within ulps of 0 (none here)."""
-    want = je.mc_sign_crossover(n, rho_e, rho_ep, 256, seed=seed)
-    got = te.mc_sign_crossover(n, rho_e, rho_ep, 256, seed=seed,
-                               device="cpu")
-    assert got == want
-    assert 0.0 < got < 1.0
-
-
-@pytest.mark.parametrize("rate", [1, 2, 4])
-@pytest.mark.parametrize("against_empirical", [False, True])
-def test_mc_persymbol_corr_error_matches_repro(rate, against_empirical):
-    """f32 means summed in another order: within rtol 1e-5."""
-    kw = dict(against_empirical=against_empirical, seed=2)
-    want = je.mc_persymbol_corr_error(300, 0.7, rate, 128, **kw)
-    got = te.mc_persymbol_corr_error(300, 0.7, rate, 128, device="cpu",
-                                     **kw)
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-
-
-def test_bounds_are_repros():
-    n = np.array([10, 100, 1000])
-    for fn, args in [("h_alpha_beta", (0.5, 0.8)),
-                     ("theorem1_bound", (n, 20, 0.5, 0.8)),
-                     ("crossover_hoeffding", (n, 0.7, 0.6)),
-                     ("shared_node_probs", (0.7, 0.5)),
-                     ("crossover_chernoff", (n, 0.5, 0.3, 0.2)),
-                     ("chernoff_exponent", (0.5, 0.3, 0.2)),
-                     ("crossover_exact", (40, 0.5, 0.3, 0.2)),
-                     ("theorem2_bound", (0.1, 0.2)),
-                     ("union_bound_recovery", (n, [0.8, 0.7], [0.6, 0.65]))]:
-        np.testing.assert_array_equal(getattr(t_bounds, fn)(*args),
-                                      getattr(j_bounds, fn)(*args))
-    for rate in range(1, 8):
-        assert (t_bounds.persymbol_est_error_bound(rate, 500, 0.6)
-                == j_bounds.persymbol_est_error_bound(rate, 500, 0.6))
-
-
-# --------------------------------------------------------------------------
 # Validation, and the planes that are not ported yet
 # --------------------------------------------------------------------------
 
@@ -315,8 +255,13 @@ def test_trial_plan_validation_is_repros(kw):
 
 
 def test_unported_planes_raise():
-    """Only the mesh and wire plane raises now; the sparse plane's doors
-    (sparse sweeps, path plans, sparse learned adjacencies) run."""
+    """No plane raises now: the sparse plane's doors (sparse sweeps, path
+    plans, sparse learned adjacencies) run, and so does the mesh door —
+    one-rank gloo meshes (a data mesh and a wire mesh) give the mesh-less
+    sweep, tree and sparse, with the wire mesh's collectives on the
+    reports."""
+    from repro_torch.launch.mesh import make_trial_mesh
+
     sparse = Strategy("sign", structure="sparse", lam=0.1)
     plan = te.TrialPlan(d=8, ns=(64,), strategies=(sparse,), tree="sparse",
                         reps=2, glasso_steps=20)
@@ -333,10 +278,20 @@ def test_unported_planes_raise():
         te.TrialPlan(d=D, ns=NS, path=t_path.PathPlan())
     with pytest.raises(ValueError, match="homogeneous"):
         te.TrialPlan(d=D, ns=NS, strategies=(sparse, Strategy()))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        te.run_trials(te.TrialPlan(d=D, ns=NS), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        te.run_trials(plan, mesh=object(), device="cpu")
+    fields = ("error_rate", "edit_distance", "edge_f1", "precision",
+              "recall", "host_syncs", "buckets", "path")
+    for p in (te.TrialPlan(d=D, ns=NS), plan, path):
+        alone = te.run_trials(p, device="cpu")
+        for model in (None, 1):
+            mesh = make_trial_mesh(1, model=model, device="cpu")
+            got = te.run_trials(p, mesh=mesh, device="cpu")
+            for f in fields:
+                assert getattr(got, f) == getattr(alone, f), f
+            assert got.mesh_devices == 1
+            for lab, reports in got.comm.items():
+                for r, a in zip(reports, alone.comm[lab]):
+                    assert r == dataclasses.replace(
+                        a, collectives=0 if model is None else 1)
 
 
 def test_run_trials_needs_cuda_unless_asked(monkeypatch):
@@ -374,235 +329,3 @@ def test_setup_cache_serves_repeated_sweeps_and_clears():
     assert te.compile_cache_size() == size
     assert te.clear_compile_caches() == size
     assert te.compile_cache_size() == 0
-
-
-# --------------------------------------------------------------------------
-# The sparse plane: tests/test_experiments.py's sparse plans
-# --------------------------------------------------------------------------
-
-J_SPARSE = (j_strategy.Strategy("sign", structure="sparse", lam=0.08),
-            j_strategy.Strategy("persymbol", rate=4, structure="sparse",
-                                lam=0.06))
-
-
-def _sparse_plans(strategies=J_SPARSE, **kw):
-    base = dict(d=10, ns=(300, 900), tree="sparse", density=0.25, reps=6,
-                glasso_steps=150)
-    base.update(kw)
-    return (je.TrialPlan(strategies=strategies, **base),
-            te.TrialPlan(strategies=tuple(_port(s) for s in strategies),
-                         **base))
-
-
-@pytest.mark.parametrize("buckets", ["pow2", None])
-def test_sparse_run_trials_matches_repro(buckets):
-    import _sparse_parity
-
-    jp, tp = _sparse_plans(n_buckets=buckets)
-    want = je.run_trials(jp)
-    got = te.run_trials(tp, device="cpu")
-    _sparse_parity.assert_sparse_sweeps_agree(jp, tp, want, got)
-    assert _comm(got) == _comm(want)
-    assert got.path is None and got.buckets == want.buckets
-    for lab in got.edge_f1:
-        for f1, p, r in zip(got.edge_f1[lab], got.precision[lab],
-                            got.recall[lab]):
-            assert abs(f1 - 2 * p * r / max(p + r, 1e-9)) < 1e-5
-
-
-def test_sparse_sweep_with_more_strategies_and_wires():
-    """The sparse plane's four methods and both wires at d = 16."""
-    import _sparse_parity
-
-    strategies = (j_strategy.Strategy("sign", wire="packed",
-                                      structure="sparse", lam=0.06),
-                  j_strategy.Strategy("persymbol", rate=2,
-                                      structure="sparse", lam=0.06),
-                  j_strategy.Strategy("original", structure="sparse",
-                                      lam=0.06))
-    jp, tp = _sparse_plans(strategies, d=16, ns=(250, 1000), reps=4,
-                           density=0.18, rho_min=0.25, rho_max=0.45,
-                           glasso_steps=300)
-    want = je.run_trials(jp)
-    got = te.run_trials(tp, device="cpu")
-    _sparse_parity.assert_sparse_sweeps_agree(jp, tp, want, got)
-    assert _comm(got) == _comm(want)
-
-
-def test_parity_catches_a_planted_lam_order(monkeypatch):
-    """A sweep that hands each strategy's trials another strategy's
-    penalty gives metrics its points solved alone do not: the parity
-    check must fail on it, however close the supports come to repro's."""
-    import _sparse_parity
-
-    strategies = (j_strategy.Strategy("sign", structure="sparse", lam=0.3),
-                  j_strategy.Strategy("persymbol", rate=4,
-                                      structure="sparse", lam=0.03))
-    jp, tp = _sparse_plans(strategies, reps=4)
-    want = je.run_trials(jp)
-    orig = te._sparse_metric_sums
-    monkeypatch.setattr(te, "_sparse_metric_sums",
-                        lambda corr, adj, lams, *a, **k: orig(
-                            corr, adj, lams[::-1], *a, **k))
-    got = te.run_trials(tp, device="cpu")
-    with pytest.raises(AssertionError, match="is not the point's own"):
-        _sparse_parity.assert_sparse_sweeps_agree(jp, tp, want, got)
-
-
-@pytest.mark.parametrize("path", [None, "ebic"])
-def test_sparse_points_solve_apart_when_together_would_not_fit(
-        path, monkeypatch):
-    """A budget that holds one point's S*reps solve but not every point's
-    at once: repro's tiling, one solve a point, repro's metrics, and the
-    combined solve's results bit for bit."""
-    import _sparse_parity
-
-    jp, tp = _sparse_plans()
-    if path is not None:
-        jp = dataclasses.replace(jp, path=je.PathPlan(n_lams=4))
-        tp = dataclasses.replace(tp, path=t_path.PathPlan(n_lams=4))
-    per_trial = (40 + (0 if path is None else 4)) * tp.d ** 2
-    lanes = len(tp.strategies) * tp.reps
-    budget = 3 * lanes * per_trial  # half of it: 1.5 points' scratch
-    jp, tp = (dataclasses.replace(p, memory_budget_bytes=budget)
-              for p in (jp, tp))
-    assert tp.metrics_chunk() is None and not te._solve_points_together(tp)
-    name = "_sparse_metric_sums" if path is None else \
-        "_sparse_path_metric_sums"
-    calls, orig = [], getattr(te, name)
-
-    def spy(corr, *a, **k):
-        calls.append(corr.shape[0])
-        return orig(corr, *a, **k)
-
-    monkeypatch.setattr(te, name, spy)
-    got = te.run_trials(tp, device="cpu")
-    assert calls == [1] * len(tp.ns)
-    monkeypatch.setattr(te, "_solve_points_together", lambda plan: True)
-    together = te.run_trials(tp, device="cpu")
-    assert calls[len(tp.ns):] == [len(tp.ns)]
-    for f in _sparse_parity.METRICS:
-        assert getattr(got, f) == getattr(together, f), f
-    assert got.path == together.path
-    _sparse_parity.assert_sparse_sweeps_agree(jp, tp, je.run_trials(jp), got)
-
-
-def test_sparse_ground_truth_and_keys_are_repros():
-    jp, tp = _sparse_plans(seed0=7)
-    for a, b in zip(je.sparse_ground_truth(jp),
-                    te.sparse_ground_truth(tp, device="cpu")):
-        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
-    np.testing.assert_array_equal(te.trial_keys(tp, device="cpu").numpy(),
-                                  _key_data(je.trial_keys(jp)))
-    chols, adj = te.sparse_ground_truth(tp, device="cpu")
-    assert chols.dtype == torch.float32 and adj.dtype == torch.bool
-
-
-def _sparse_validation_cases():
-    sign = j_strategy.Strategy("sign", structure="sparse", lam=0.1)
-    return [
-        dict(tree="sparse", strategies=(j_strategy.Strategy("sign"), sign)),
-        dict(tree="random", strategies=(sign,)),
-        dict(tree="sparse", strategies=(j_strategy.Strategy("sign"),)),
-        dict(tree="sparse", strategies=(sign,), density=0.0),
-        dict(tree="sparse", strategies=(sign,), density=1.5),
-        dict(strategies=(j_strategy.Strategy("sign"),), path="ebic"),
-    ]
-
-
-@pytest.mark.parametrize("case", range(6))
-def test_sparse_plan_validation_is_repros(case):
-    kw = _sparse_validation_cases()[case]
-    tkw = dict(kw, strategies=tuple(_port(s) for s in kw["strategies"]))
-    with pytest.raises((ValueError, TypeError)) as want:
-        je.TrialPlan(d=10, ns=(100,), **kw)
-    with pytest.raises(want.type) as got:
-        te.TrialPlan(d=10, ns=(100,), **tkw)
-    assert str(got.value) == str(want.value)
-
-
-def test_sparse_plans_reject_host_kruskal_as_repro_does():
-    jp, tp = _sparse_plans()
-    with pytest.raises(ValueError) as want:
-        je.run_trials(jp, mst="host_kruskal")
-    with pytest.raises(ValueError) as got:
-        te.run_trials(tp, mst="host_kruskal", device="cpu")
-    assert str(got.value) == str(want.value)
-
-
-def test_sparse_metrics_chunk_is_repros():
-    for budget in (1 << 16, 1 << 20, None):
-        jp, tp = _sparse_plans(memory_budget_bytes=budget)
-        assert tp.metrics_chunk() == jp.metrics_chunk()
-        jpp = dataclasses.replace(jp, path=je.PathPlan(n_lams=6))
-        tpp = dataclasses.replace(tp, path=t_path.PathPlan(n_lams=6))
-        assert tpp.metrics_chunk() == jpp.metrics_chunk()
-
-
-def test_sparse_evaluate_strategies_matches_repro():
-    from repro.core import glasso as jg
-
-    jp, _ = _sparse_plans(reps=1, d=12, density=0.2)
-    chols, adj = je.sparse_ground_truth(jp)
-    x = np.array(j_sampler.sample_ggm_rows_batch(
-        je.trial_keys(jp), 2000, chols))[0]
-    strategies = J_SPARSE + (j_strategy.Strategy(
-        "original", structure="sparse", lam=0.05),)
-    want = je.evaluate_strategies(jnp.asarray(x), adj[0], strategies,
-                                  glasso_steps=300)
-    got = te.evaluate_strategies(x, np.asarray(adj[0]),
-                                 [_port(s) for s in strategies],
-                                 glasso_steps=300, device="cpu")
-    for s in strategies:
-        est = te.learned_adjacency(torch.from_numpy(x), _port(s),
-                                   glasso_steps=300)
-        ref = je.learned_adjacency(jnp.asarray(x), s, glasso_steps=300)
-        if got[s.label] != want[s.label] or not np.array_equal(
-                est.numpy(), np.asarray(ref)):
-            from repro.core import estimators as je_est
-            corr = je_est.strategy_corr(jnp.asarray(x), s)
-            theta = jg.glasso_batch(corr[None], s.lam, n_steps=300)[0]
-            from repro_torch.core import glasso as tg
-            assert tg.far_mismatches(est, np.asarray(theta)) == 0, s.label
-
-
-def test_sparse_setup_cache_serves_and_clears():
-    te.clear_compile_caches()
-    _, tp = _sparse_plans(ns=(64,), reps=2, glasso_steps=10)
-    te.run_trials(tp, device="cpu")
-    assert te.compile_cache_size() == 2  # the host truths and the bundle
-    te.run_trials(dataclasses.replace(tp, ns=(80,)), device="cpu")
-    te.trial_keys(tp, device="cpu")
-    assert te.compile_cache_size() == 2
-    assert te.clear_compile_caches() == 2
-
-
-def test_support_metric_channels_are_repros_bit_for_bit():
-    rng = np.random.default_rng(11)
-    est = rng.random((3, 5, 9, 9)) < 0.3
-    true = rng.random((5, 9, 9)) < 0.25
-    for a in (est, true):
-        a |= np.swapaxes(a, -1, -2)
-        a[..., np.arange(9), np.arange(9)] = False
-    want = np.asarray(je._support_metric_channels(jnp.asarray(est),
-                                                  jnp.asarray(true)[None]))
-    got = te._support_metric_channels(torch.from_numpy(est),
-                                      torch.from_numpy(true)[None])
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert got.dtype == torch.float32 and got.shape == (3, 5, 5)
-
-
-def test_sparse_tiny_budget_metric_identity():
-    """A budget small enough to slab the glasso solve: repro's slab size,
-    and the unbudgeted sweep's metrics bit for bit."""
-    jp, tp = _sparse_plans(ns=(300,), reps=4, glasso_steps=60,
-                           memory_budget_bytes=1 << 15)
-    assert tp.metrics_chunk() == jp.metrics_chunk() is not None
-    got = te.run_trials(tp, device="cpu")
-    whole = te.run_trials(dataclasses.replace(tp, memory_budget_bytes=None),
-                          device="cpu")
-    assert got.tiling["metrics_chunk"] == tp.metrics_chunk()
-    assert whole.tiling["metrics_chunk"] is None
-    for field in ("error_rate", "edit_distance", "edge_f1", "precision",
-                  "recall"):
-        assert getattr(got, field) == getattr(whole, field), field
