@@ -40,7 +40,15 @@ the mesh and wire plane (phase 15): distributed_learn_structure at
 PRODUCTION over a one-rank NCCL mesh (phase 4's edges, weights equal to
 the single-device ones), run_trials over one-rank NCCL meshes equal to
 the mesh-less sweeps bit for bit, and four gloo ranks on the one card
-over a (2, 2) wire mesh. Any failed check exits non-zero. The last three
+over a (2, 2) wire mesh. Then LM training (phase 16): flash_prefill's
+gradient route against autograd through its plain version; the trainer
+(launch/train.py) on stablelm-3b at full width in bf16 for 6 steps
+(batch 4, 2048 tokens) with a step's time split; the reduced model's
+steps card against CPU; and a resumed run equal to the straight one bit
+for bit. Last, the Gram autotune cache (phase 17): the three kernel paths
+tuned at the main path's buckets, no sweep when warm, the tuned Grams
+against the default's, and run_trials with an autotuning engine equal to
+the untuned sweep. Any failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
@@ -48,6 +56,7 @@ Without CUDA it exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2002,11 +2011,12 @@ SPARSE_SWEEP = dict(d=16, ns=(250, 1000, 4000), tree="sparse", density=0.18,
 SPARSE_LAM = 0.06
 #: the example's path grid
 SPARSE_PATH = dict(n_lams=6, lam_min_ratio=0.08)
-#: the width: d = 128 at d = 16's expected degree (~2.7 edges a node)
+#: the width: d = 128 at d = 16's expected degree (~2.7 edges a node);
+#: 8 reps (16 before phase 16 joined the script, to keep it short)
 SPARSE_WIDE = dict(d=128, ns=(4096,), tree="sparse", density=0.02,
-                   rho_min=0.25, rho_max=0.45, reps=16, glasso_steps=300)
+                   rho_min=0.25, rho_max=0.45, reps=8, glasso_steps=300)
 #: reps of the width sweep when its solve alone passes SPARSE_SOLVE_LIMIT_S
-SPARSE_WIDE_CUT_REPS = 8
+SPARSE_WIDE_CUT_REPS = 4
 SPARSE_SOLVE_LIMIT_S = 120.0
 #: (batch, d) of the eigh calls whose time phase 13 logs: the width
 #: sweep's d at three batches, and both sides of d = 32
@@ -2230,7 +2240,7 @@ def eigh_per_step(dev, b, d, reps):
 
 
 def sparse_width(dev, total):
-    """Part 2: d = 128 at n = 4096 (sign, R4, original; 16 reps, 300
+    """Part 2: d = 128 at n = 4096 (sign, R4, original; 8 reps, 300
     steps, fixed lam): the kernels at its shapes, run_trials with its
     stage split, eigh's time a step and its cuSOLVER kernels, peak memory,
     and the timed sweep's card results == the CPU's."""
@@ -3186,6 +3196,464 @@ def wire_plane(dev, total, main_edges):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: LM training
+# ---------------------------------------------------------------------------
+
+#: (b): stablelm-3b at full width, bf16 parameters, f32 moments
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 6, 2
+#: (a): stablelm-3b's attention (MHA, Dh 80) and a GQA one (32/8, Dh 128)
+GRAD_LAYOUTS = ((32, 32, 80), (32, 8, 128))
+GRAD_B, GRAD_S, GRAD_WINDOW = 2, 1024, 256
+#: (a): max |dq, dk, dv of the kernel route - autograd through the plain
+#: version| over max |plain|. f32: the kernel's output (within
+#: ATTN_F32_ATOL of the plain one) enters D = rowsum(dO * O); bf16: the
+#: kernel rounds P to bf16 before PV, and each gradient is rounded to bf16
+#: (measured on the H100: at most 3.7e-6 and 6.1e-3)
+GRAD_F32_REL = 2e-5
+GRAD_BF16_REL = 2 ** -5
+#: (c): the reduced config in f32, card (kernel) against CPU (plain):
+#: loss and grad norm within TRAIN_RTOL a step; each parameter's
+#: difference within TRAIN_PARAM_REL of its update's norm (AdamW's early
+#: updates are ~lr * sign(g), so an element whose tiny gradient differs in
+#: sign moves 2 lr the other way: an elementwise bound would test that)
+#: (measured on the H100: 6e-7 and 9.4e-5)
+TRAIN_CMP = dict(batch=2, seq=128, steps=3, warmup=1, lr=1e-3)
+TRAIN_RTOL = 1e-5
+TRAIN_PARAM_REL = 1e-3
+
+
+def _grad_route(fn, q, k, v, do, window):
+    import torch
+
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*ts, causal=True, window=window)
+    return (out.detach(), *torch.autograd.grad(out, ts, do))
+
+
+def check_attention_grad(dev, gen):
+    """(a) flash_prefill's autograd.Function (the kernel forward, the
+    chunked PyTorch backward) against autograd through the plain version,
+    on the card: output and dq, dk, dv. Then the backward's time at the
+    training step's shape beside the forward kernel's and SDPA's forward +
+    backward. Launches here are comparisons: not counted."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_prefill, ref
+    from repro_torch.kernels.flash_prefill import flash_prefill_backward
+
+    worst = {}
+    for hq, hkv, dh in GRAD_LAYOUTS:
+        for window in (0, GRAD_WINDOW):
+            for dtype in (torch.float32, torch.bfloat16):
+                def rnd(h):
+                    return torch.randn((GRAD_B, GRAD_S, h, dh), generator=gen,
+                                       device=dev).to(dtype)
+
+                q, k, v, do = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+                got = _grad_route(flash_prefill, q, k, v, do, window)
+                want = _grad_route(ref.flash_prefill_ref, q, k, v, do, window)
+                what = (f"phase 16(a) {hq}/{hkv} heads Dh {dh} window "
+                        f"{window} {str(dtype)[6:]}")
+                out_err = _attn_close(got[0], want[0], what)
+                tol = GRAD_F32_REL if dtype == torch.float32 \
+                    else GRAD_BF16_REL
+                rels = []
+                for name, g, w in zip("qkv", got[1:], want[1:]):
+                    w32 = w.float()
+                    rel = float((g.float() - w32).abs().max()
+                                / w32.abs().max())
+                    expect(g.dtype == dtype and bool(torch.isfinite(g).all())
+                           and rel <= tol, f"{what}: d{name} differs by "
+                           f"{rel} of its max (tolerance {tol})")
+                    rels.append(rel)
+                key = str(dtype)[6:]
+                worst[key] = max(worst.get(key, 0.0), *rels)
+                log(f"{what}: out max |err| {out_err:.3e}; dq, dk, dv max "
+                    f"|err| / max |g|: " + ", ".join(f"{r:.3e}" for r in rels))
+    log(f"phase 16(a) gradient route == autograd through the plain version "
+        f"(B={GRAD_B}, S={GRAD_S}, causal, window 0 and {GRAD_WINDOW}); "
+        f"worst relative error f32 {worst['float32']:.3e} (tolerance "
+        f"{GRAD_F32_REL}), bf16 {worst['bfloat16']:.3e} (tolerance "
+        f"{GRAD_BF16_REL})")
+
+    # the training step's attention: stablelm-3b, B=4, S=2048, bf16
+    from repro_torch.models.arch import get_arch
+
+    cfg = get_arch(TRAIN_ARCH)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.hd)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    out = flash_prefill(q, k, v)
+    fwd = event_ms(lambda: flash_prefill(q, k, v), 3)
+    bwd = event_ms(lambda: flash_prefill_backward(q, k, v, out, do), 3)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        return torch.autograd.grad(o, (qs, ks, vs), do.transpose(1, 2))
+
+    sdpa_ms = event_ms(sdpa, 3)
+    log(f"phase 16(a) attention at the step's shape (B={TRAIN_BATCH}, "
+        f"S={TRAIN_SEQ}, {cfg.n_heads} heads, Dh {cfg.hd}, bf16, causal): "
+        f"flash_prefill forward {fwd:.4f} ms, backward (PyTorch, f32) "
+        f"{bwd:.4f} ms; SDPA forward + backward {sdpa_ms:.4f} ms (library, "
+        f"timed only)")
+    del q, k, v, do, out, qs, ks, vs
+    torch.cuda.empty_cache()
+    return bwd
+
+
+def _step_split(model, optimizer, batch, attn_bwd_ms):
+    """Event times of one more step at the trainer's shape and of its
+    parts: the forward with the loss, the blocks' forward alone (what the
+    recompute runs), the attention backward (n_layers x its time at one
+    layer), clip + AdamW; the rest of the step is the other backward. And
+    one profiled step: device busy share and time by kernel group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import clip_by_global_norm, constant
+
+    cfg = model.cfg
+    step = make_train_step(cfg, InputShape("cli", "train", TRAIN_SEQ,
+                                           TRAIN_BATCH), constant(0.0))
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def forward():
+        h, _ = model(batch["tokens"])
+        return model.lm_loss(h, batch["labels"], batch["mask"])
+
+    def blocks():
+        with torch.no_grad():
+            return model(batch["tokens"])
+
+    grads = torch.autograd.grad(forward(), params)
+
+    def opt():
+        g, _ = clip_by_global_norm(grads, 1.0)
+        optimizer.step(0.0, g)
+
+    parts = {"step": event_ms(lambda: step(model, optimizer, batch), 2),
+             "forward": event_ms(forward, 2),
+             "recompute": event_ms(blocks, 2),
+             "attention_backward": attn_bwd_ms * cfg.n_layers,
+             "optimizer": event_ms(opt, 2)}
+    del grads
+    parts["other_backward"] = parts["step"] - sum(
+        v for k, v in parts.items() if k != "step")
+    log("phase 16(b) a step's split, ms (CUDA events, each part alone): "
+        + " ".join(f"{k}={v:.1f}" for k, v in parts.items()))
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, optimizer, batch)
+        sync()
+        wall = time.perf_counter() - t0
+    groups: dict = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t and "CUDA" in str(getattr(e, "device_type", "")):
+            g = _kernel_group(e.key)
+            groups[g] = groups.get(g, 0.0) + t / 1e3
+    busy = sum(groups.values())
+    expect(busy > 0, "the profiler saw no device time in a train step")
+    log(f"phase 16(b) profiled step: wall {wall * 1e3:.1f} ms, device "
+        f"{busy:.1f} ms (busy {busy / wall / 1e3:.3f}): " + " ".join(
+            f"{g}={t:.1f}ms" for g, t in sorted(groups.items(),
+                                                key=lambda kv: -kv[1])))
+    return parts
+
+
+def train_full_width(dev, total, attn_bwd_ms):
+    """(b) launch.train.main for stablelm-3b at full width in bf16."""
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.train import main as train_main
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    snaps = {}
+
+    def on_step(step, model, optimizer, metrics):
+        if step < 2:
+            snaps[step] = model.layers[0].mixer.wq.detach()[:64].clone()
+
+    argv = ["--arch", TRAIN_ARCH, "--param-dtype", "bf16", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+            str(TRAIN_STEPS), "--warmup", str(TRAIN_WARMUP), "--seed", "0",
+            "--log-every", "1", "--device", dev]
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train_main(argv, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    for k, n in counts.items():
+        total[k] += n
+    peak = torch.cuda.max_memory_allocated()
+    model, cfg = res.model, res.model.cfg
+    expect(model.dtype == torch.bfloat16, "the trainer's params are not bf16")
+    expect(all(map(math.isfinite, res.losses + res.grad_norms)),
+           f"a loss or grad norm is not finite: {res.losses} "
+           f"{res.grad_norms}")
+    expect(res.lrs[0] == 0.0, "the first step's learning rate is not 0")
+    expect(not torch.equal(snaps[0], snaps[1]),
+           "the parameters did not move in step 2")
+    expect(res.losses[-1] < res.losses[0], f"the loss did not fall: "
+           f"{res.losses}")
+    want = cfg.n_layers * 2 * TRAIN_STEPS
+    expect(counts["flash_prefill"] > 0, "the trainer launched no "
+           "flash_prefill")
+    note = "" if counts["flash_prefill"] == want else \
+        f" (NOT {want} = {cfg.n_layers} x 2 x {TRAIN_STEPS})"
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    warm = res.step_s[1:]
+    log(f"phase 16(b) train {cfg.name} (full width: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, Dh "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}) bf16 params "
+        f"{model.param_count()} f32 moments; batch {TRAIN_BATCH} seq "
+        f"{TRAIN_SEQ} {TRAIN_STEPS} steps warm-up {TRAIN_WARMUP}: first "
+        f"step {res.step_s[0]:.4f} s, warm steps "
+        f"{[round(s, 4) for s in warm]} s (median "
+        f"{statistics.median(warm):.4f} s, {toks / statistics.median(warm):.1f}"
+        f" tok/s); data waits {[round(s, 3) for s in res.data_s]} s; run "
+        f"{wall:.1f} s; peak_bytes={peak}; flash_prefill launches "
+        f"{counts['flash_prefill']}{note}")
+    log(f"phase 16(b) losses {res.losses} grad norms {res.grad_norms} lrs "
+        f"{res.lrs}; final loss {res.final_loss:.4f}, unigram entropy bound "
+        f"{res.entropy_bound:.3f} nats")
+    # the split's batch: uniform ids (the split times shapes, not data)
+    ids = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                        device=dev, generator=torch.Generator(
+                            device=dev).manual_seed(TRAIN_STEPS))
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:],
+             "mask": torch.ones((TRAIN_BATCH, TRAIN_SEQ), device=dev)}
+    _step_split(model, res.optimizer, batch, attn_bwd_ms)
+    del res, model, snaps, batch
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(dev):
+    """(c) the reduced config in f32 from the same params, card (kernel)
+    against CPU (plain), step by step."""
+    import copy
+
+    import torch
+    from repro_torch.data import TokenStream, token_batches
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+
+    c = TRAIN_CMP
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    cpu = Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    card = copy.deepcopy(cpu).to(dev)
+    stream = TokenStream(cfg.vocab, c["seq"], c["batch"], seed=0)
+    runs = {}
+    for where, model in (("card", card), ("cpu", cpu)):
+        model.requires_grad_(True)
+        opt = AdamW(model.parameters())
+        step = make_train_step(cfg, InputShape("cli", "train", c["seq"],
+                                               c["batch"]),
+                               linear_warmup_cosine(c["lr"], c["warmup"],
+                                                    c["steps"]))
+        runs[where] = [{k: float(v) for k, v in step(model, opt, b).items()}
+                       for b in token_batches(stream, device=model.device,
+                                              stop=c["steps"])]
+    for i, (a, b) in enumerate(zip(runs["card"], runs["cpu"])):
+        expect(a["lr"] == b["lr"], f"phase 16(c) step {i}: lr differs")
+        for k in ("loss", "grad_norm"):
+            expect(abs(a[k] - b[k]) <= TRAIN_RTOL * abs(b[k]),
+                   f"phase 16(c) step {i}: {k} card {a[k]} CPU {b[k]}")
+    worst_rel = worst_abs = 0.0
+    for (n, pc), (_, ph) in zip(card.named_parameters(),
+                                cpu.named_parameters()):
+        d = (pc.detach().cpu() - ph.detach())
+        upd = (ph.detach() - init[n]).norm()
+        rel = float(d.norm() / upd.clamp_min(1e-30))
+        worst_rel, worst_abs = max(worst_rel, rel), max(
+            worst_abs, float(d.abs().max()))
+        expect(rel <= TRAIN_PARAM_REL, f"phase 16(c) {n}: card - CPU is "
+               f"{rel} of the update's norm")
+    log(f"phase 16(c) train card == CPU ({cfg.name} reduced, f32, "
+        f"{c['steps']} steps, lr {c['lr']}): losses card "
+        f"{[r['loss'] for r in runs['card']]} CPU "
+        f"{[r['loss'] for r in runs['cpu']]}; grad norms card "
+        f"{[r['grad_norm'] for r in runs['card']]} CPU "
+        f"{[r['grad_norm'] for r in runs['cpu']]}; params: worst |card - "
+        f"CPU| / |update| {worst_rel:.3e} (tolerance {TRAIN_PARAM_REL}), "
+        f"max |card - CPU| {worst_abs:.3e}")
+
+
+class _Preempted(Exception):
+    pass
+
+
+def train_resume(dev):
+    """(d) 4 steps straight, and 2 steps + checkpoint + a new process's
+    resume + 2 steps, on the reduced config: parameters and moments bit
+    for bit."""
+    import shutil
+
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.train import train
+
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    kw = dict(reduced=True, steps=4, batch=2, seq=128, warmup=1, lr=1e-3,
+              device=dev, log_every=100)
+    reset_launches()
+    straight = train(TRAIN_ARCH, **kw)
+
+    def preempt(step, *_):
+        if step == 1:
+            raise _Preempted
+
+    try:
+        train(TRAIN_ARCH, ckpt_dir=work, ckpt_every=2, on_step=preempt, **kw)
+        expect(False, "phase 16(d): the run was not preempted")
+    except _Preempted:
+        pass
+    resumed = train(TRAIN_ARCH, ckpt_dir=work, ckpt_every=2, **kw)
+    n = launches()["flash_prefill"]
+    expect(resumed.start == 2, "phase 16(d) did not resume from step 2")
+    expect(resumed.losses == straight.losses[2:], f"phase 16(d): resumed "
+           f"losses {resumed.losses} vs {straight.losses[2:]}")
+    a = list(straight.model.named_parameters())
+    b = list(resumed.model.named_parameters())
+    for (name, x), (_, y) in zip(a, b):
+        expect(torch.equal(x, y), f"phase 16(d): {name} differs after resume")
+    ma = straight.optimizer.state_tree(a)["moments"]
+    mb = resumed.optimizer.state_tree(b)["moments"]
+    for m in ma:
+        for name in ma[m]:
+            expect(torch.equal(ma[m][name], mb[m][name]),
+                   f"phase 16(d): {m} of {name} differs after resume")
+    expect(resumed.optimizer.step_count == 4, "phase 16(d): step count")
+    log(f"phase 16(d) resume: 4 straight steps == 2 + checkpoint + resume + "
+        f"2, parameters and moments bit for bit (losses "
+        f"{straight.losses}); flash_prefill launches {n}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def train_plane(dev, total, gen):
+    t0 = time.perf_counter()
+    attn_bwd_ms = check_attention_grad(dev, gen)
+    train_full_width(dev, total, attn_bwd_ms)
+    train_card_vs_cpu(dev)
+    train_resume(dev)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the Gram autotune cache
+# ---------------------------------------------------------------------------
+
+#: (path, n) tuned at the main path's shapes, d = D
+AUTOTUNE_POINTS = (("int8", MAIN_N), ("packed", CUT_N), ("code", CUT_N))
+
+
+def gram_autotune(dev, total):
+    """Tune the three kernel paths at the main path's buckets, with the
+    cache file under build/; a warm tune runs no sweep, a fresh in-memory
+    cache reloads from the file; the winners' Grams against the default
+    engine's; run_trials with an autotuning engine on phase 12's d = 1024
+    plan equals the untuned sweep."""
+    import shutil
+
+    import torch
+    from repro_torch.core import FIG3_STRATEGIES
+    from repro_torch.core import gram as gm
+    from repro_torch.core.experiments import TrialPlan, run_trials
+    from repro_torch.core.quantizers import PerSymbolQuantizer
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_autotune")
+    shutil.rmtree(work, ignore_errors=True)
+    os.environ[gm.AUTOTUNE_CACHE_ENV] = os.path.join(work,
+                                                     "gram_autotune.json")
+    os.environ.pop(gm.AUTOTUNE_ENV, None)
+    gm.clear_autotune_cache()
+    eng = gm.GramEngine(autotune=True, device=dev)
+    c0 = gm.autotune_sweep_count()
+    wins = {}
+    for path, n in AUTOTUNE_POINTS:
+        (win, t), _ = counted(total, lambda: timed(
+            lambda: eng.tune(path, n, D)))
+        rec = gm.autotune_sweep_log()[-1]
+        wins[path] = win
+        log(f"phase 17 tune {path} n={n} d={D} ({rec['key']}): winner "
+            f"d_tile={win.d_tile} n_chunk={win.n_chunk} in {t:.3f} s; "
+            f"candidates (d_tile/n_chunk: best of 2 ms) " + ", ".join(
+                f"{c.d_tile}/{c.n_chunk}: {s * 1e3:.4f}"
+                for c, s in rec["times"]))
+    expect(gm.autotune_sweep_count() == c0 + 3, "phase 17: not one sweep "
+           "a point")
+    for path, n in AUTOTUNE_POINTS:
+        expect(eng.tune(path, n, D) == wins[path], "phase 17: warm winner")
+    expect(gm.autotune_sweep_count() == c0 + 3, "phase 17: a warm tune swept")
+    gm.clear_autotune_cache()
+    for path, n in AUTOTUNE_POINTS:
+        expect(eng.tune(path, n, D) == wins[path], "phase 17: reloaded "
+               "winner differs")
+    expect(gm.autotune_sweep_count() == c0 + 3,
+           "phase 17: reloading the file swept")
+    log(f"phase 17 warm tunes and a reload from "
+        f"{os.path.relpath(gm.autotune_cache_path(), ROOT)} ran no sweep")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    plain = gm.GramEngine(device=dev)
+    u = _signs(gen, (MAIN_N, D), dev)
+    expect(torch.equal(counted(total, lambda: eng.gram(u))[0], plain.gram(u)),
+           "phase 17: the tuned int8 Gram differs from the default's")
+    del u
+    p = _packed(gen, (D, CUT_N), dev)
+    expect(torch.equal(counted(total, lambda: eng.packed_sign_gram(
+        p, CUT_N))[0], plain.packed_sign_gram(p, CUT_N)),
+        "phase 17: the tuned packed Gram differs from the default's")
+    del p
+    codes = _codes(gen, (CUT_N, D), 4, dev)
+    cb = torch.as_tensor(PerSymbolQuantizer(4).centroids_np, device=dev)
+    got, want = counted(total, lambda: eng.code_gram(codes, cb))[0], \
+        plain.code_gram(codes, cb)
+    err = (got - want).abs()
+    expect(bool((err <= code_tolerance(CUT_N, want)).all()),
+           f"phase 17: the tuned code Gram is off by {float(err.max())}")
+    log(f"phase 17 tuned Grams at the main path's shapes: int8 (n={MAIN_N}) "
+        f"and packed (n={CUT_N}) bit-identical to the default config's; "
+        f"code R=4 (n={CUT_N}) max |diff| {float(err.max())} "
+        f"(bit-identical: {bool(torch.equal(got, want))})")
+    del codes, got, want, err
+    torch.cuda.empty_cache()
+
+    plan = TrialPlan(strategies=FIG3_STRATEGIES, **TRIALS_BIGD)
+    n0 = gm.autotune_sweep_count()
+    (tuned, t), counts = counted(total, lambda: timed(lambda: run_trials(
+        plan, engine=gm.GramEngine(autotune=True, device=dev), device=dev)))
+    swept = gm.autotune_sweep_count() - n0
+    untuned = run_trials(plan, device=dev)
+    _same_results(tuned, untuned, "phase 17 autotuned vs untuned d=1024 sweep")
+    keys = [r for r in gm.autotune_sweep_log()[-swept:]] if swept else []
+    log(f"phase 17 run_trials(engine=GramEngine(autotune=True)) on phase "
+        f"12's d=1024 plan ({plan.trials} trials): {t:.3f} s with {swept} "
+        f"sweeps, equal to the untuned sweep bit for bit; winners " +
+        ", ".join(f"{r['key']}: {r['winner'].d_tile}/{r['winner'].n_chunk}"
+                  for r in keys) + f"; launches={json.dumps(counts)}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.environ.pop(gm.AUTOTUNE_CACHE_ENV, None)
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _cuobjdump():
     """cuobjdump from PATH, the CUDA toolkit or Triton's bundle, else None."""
     import shutil
@@ -3318,6 +3786,8 @@ def main() -> int:
     sparse_plane("cuda", total)
     channel_plane("cuda", total, records, main_edges, reps=3)
     wire_plane("cuda", total, main_edges)
+    train_plane("cuda", total, gen)
+    gram_autotune("cuda", total)
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

@@ -1368,6 +1368,13 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
                 "plans solve glasso, not an MWST")
     dev = resolve_device(device)
     engine = plan.budget_engine(resolve_engine(engine), device=dev)
+    if engine.autotune:
+        # resolve every (bucket, path) point before the sweeps, as repro
+        # pre-tunes before tracing them
+        for b in sorted({plan.bucket_for(n) for n in plan.ns}):
+            for path in sorted({_gram_path(s) for s in plan.strategies}):
+                engine.tune(path, b, plan.d, device=dev,
+                            budget=plan.effective_memory_budget // 2)
     if mst == "host_kruskal":
         return _host_kruskal_trials(plan, engine, dev)
     shard, wire_plane = slice(None), False

@@ -20,7 +20,8 @@ trial plane) runs its whole budget and never polls.
 The iterate travels as (theta, w, v) with theta == (v * w) @ v.T: the
 gradient's Theta^-1 is ``(v / w) @ v.T``, not an LU inverse, so a lane's
 iterates do not depend on the other lanes of its batch and
-``chunk``-slabbed solves equal the whole batch. Support recovery
+``chunk``-slabbed solves equal the whole batch (on a card the per-lane
+sums are fixed trees of adds too, :func:`_lane_sum`). Support recovery
 thresholds the normalized partial correlations
 |Theta_jk| / sqrt(Theta_jj * Theta_kk).
 
@@ -81,12 +82,38 @@ def _compose(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (v * w[..., None, :]) @ v.transpose(-1, -2)
 
 
+def _tree_sum(x: torch.Tensor, dims: int) -> torch.Tensor:
+    """Sum over the last ``dims`` axes as a fixed pairwise tree of
+    elementwise adds (zero-padded to a power of two): each lane's sum is
+    the same whatever else its batch holds."""
+    x = x.reshape(*x.shape[:x.dim() - dims], -1)
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = torch.nn.functional.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _lane_sum(x: torch.Tensor, dims: int) -> torch.Tensor:
+    """Sum over the last ``dims`` axes of each lane of a batch. CUDA's
+    reduction kernels choose their order from the whole tensor's shape,
+    so a lane's sum (and through the monotone guard, its iterates) would
+    depend on how many lanes share its batch: on a card the sum is
+    :func:`_tree_sum`. The CPU's reductions sum each lane alone."""
+    if x.device.type == "cuda":
+        return _tree_sum(x, dims)
+    return x.sum(dim=tuple(range(-dims, 0)))
+
+
 def _objective(w_theta, theta, S, lam, off):
     """(b,) -logdet + tr(S Theta) + lam*||Theta||_1,off from the iterate's
     eigenvalues (already floored, so the logdet is finite)."""
-    return (-torch.log(w_theta).sum(dim=-1)
-            + (S * theta).sum(dim=(-2, -1))
-            + lam * torch.where(off, theta.abs(), 0.0).sum(dim=(-2, -1)))
+    return (-_lane_sum(torch.log(w_theta), 1)
+            + _lane_sum(S * theta, 2)
+            + lam * _lane_sum(torch.where(off, theta.abs(), 0.0), 2))
 
 
 def _carry_init(S: torch.Tensor, lam: torch.Tensor, step_scale: float,

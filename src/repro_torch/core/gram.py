@@ -32,11 +32,25 @@ Two streaming knobs bound the transient working set at large d:
 ``d_tile`` assembles the (d, d) output from (d_tile, d_tile) blocks, and
 ``n_chunk`` accumulates the integer-exact paths of the torch/numpy
 backends over sample chunks. Both are bit-identical on integer paths.
+
+``autotune=True`` picks (d_tile, n_chunk) per (platform, backend, path,
+shape bucket) by timing :func:`candidate_configs` on first use, as
+``repro``'s autotune layer does. Winners persist in a JSON file
+(``REPRO_TORCH_GRAM_AUTOTUNE_CACHE``, default
+``~/.cache/repro_torch/gram_autotune.json``, apart from ``repro``'s: the
+two packages' configs have different fields), keyed by platform (``cpu``
+or ``cuda:<device name>``); a warm process runs no sweep.
+``REPRO_TORCH_GRAM_AUTOTUNE=0`` disables sweeping (cached winners still
+load). ``run_trials`` tunes an autotuning engine before its sweeps. A
+candidate that fails raises: a kernel that does not build or launch is
+never passed over.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import time
 from typing import Literal
 
 import numpy as np
@@ -48,6 +62,11 @@ from repro_torch.kernels.sign_corr import code_corr, sign_corr, sign_corr_packed
 
 Backend = Literal["auto", "kernel", "torch", "numpy"]
 _BACKENDS = ("kernel", "torch", "numpy")
+
+#: Env var: set to "0" to disable autotune sweeps (cached winners still load)
+AUTOTUNE_ENV = "REPRO_TORCH_GRAM_AUTOTUNE"
+#: Env var: path of the persistent autotune JSON cache
+AUTOTUNE_CACHE_ENV = "REPRO_TORCH_GRAM_AUTOTUNE_CACHE"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,12 +156,16 @@ class GramEngine:
         chunks). Never applied to float values.
       device: where host (numpy) operands are placed; tensors stay on
         their own device. ``None`` = cuda.
+      autotune: look up (sweeping on first use) a tuned
+        :class:`GramConfig` per (path, shape bucket), overriding
+        ``d_tile`` / ``n_chunk``; see the module docstring.
     """
 
     backend: Backend = "auto"
     d_tile: int | None = None
     n_chunk: int | None = None
     device: str | None = None
+    autotune: bool = False
 
     def resolve(self, *operands) -> str:
         b = self.backend
@@ -152,6 +175,35 @@ class GramEngine:
         if b not in _BACKENDS:
             raise ValueError(f"unknown gram backend {b!r}")
         return b
+
+    def _base_config(self) -> GramConfig:
+        return GramConfig(self.d_tile, self.n_chunk)
+
+    def _tune_target(self, device=None, *operands):
+        """(backend, device) a call or a tune resolves to; the numpy
+        backend runs on the host whatever the device."""
+        if self.backend == "numpy":
+            return "numpy", None
+        dev = resolve_device(self.device if device is None else device,
+                             *operands)
+        if self.backend == "auto":
+            return ("kernel" if dev.type == "cuda" else "torch"), dev
+        return self.resolve(*operands), dev
+
+    def tune(self, path: str, n: int, d: int, *, budget: int | None = None,
+             device=None) -> GramConfig:
+        """Resolve (sweeping on first use) the tuned config of one (path,
+        shape) point on ``device`` (default: the engine's); ``budget``
+        keeps the candidates whose :func:`gram_working_set_bytes` fits.
+        path: f32 | int8 | code | packed."""
+        return tuned_config(path, n, d, self, budget=budget, device=device)
+
+    def _tuned(self, path: str, n: int, d: int, *operands) -> "GramEngine":
+        """A copy with the tuned streaming knobs for this call's bucket."""
+        cfg = tuned_config(path, n, d, self,
+                           device=self._tune_target(None, *operands)[1])
+        return dataclasses.replace(self, autotune=False, d_tile=cfg.d_tile,
+                                   n_chunk=cfg.n_chunk)
 
     def _operands(self, backend: str, *ops):
         """Operands in the backend's array type (``None`` passes)."""
@@ -186,6 +238,13 @@ class GramEngine:
         return self._value_gram(u, v)
 
     def _value_gram(self, u, v):
+        if self.autotune:
+            ops = (u,) if v is None else (u, v)
+            exact = all(_is_int(a) or getattr(a, "dtype", None)
+                        == torch.bfloat16 for a in ops)
+            return self._tuned("int8" if exact else "f32", u.shape[-2],
+                               max(u.shape[-1], ops[-1].shape[-1]),
+                               u, v)._value_gram(u, v)
         backend = self.resolve(u, v)
         u, v = self._operands(backend, u, v)
         vv = u if v is None else v
@@ -253,6 +312,11 @@ class GramEngine:
             v = None if rhs is None else _binary_codes_to_signs(rhs)
             scale = np.float32(c) * np.float32(c)  # one f32 rounding
             return self._value_gram(u, v) * float(scale)
+        if self.autotune:
+            rr = codes if rhs is None else rhs
+            return self._tuned("code", codes.shape[-2],
+                               max(codes.shape[-1], rr.shape[-1]), codes,
+                               rhs)._code_gram(codes, centroids, rhs)
         backend = self.resolve(codes, rhs)
         codes, rhs = self._operands(backend, codes, rhs)
         rr = codes if rhs is None else rhs
@@ -311,6 +375,11 @@ class GramEngine:
         if rhs is not None and packed.shape[-1] != rhs.shape[-1]:
             raise ValueError(f"packed operands disagree on byte width: "
                              f"{packed.shape} vs {rhs.shape}")
+        if self.autotune:
+            rr = packed if rhs is None else rhs
+            return self._tuned("packed", n, max(packed.shape[-2],
+                                                rr.shape[-2]), packed,
+                               rhs)._packed_gram(packed, n, rhs)
         backend = self.resolve(packed, rhs)
         packed, rhs = self._operands(backend, packed, rhs)
         rr = packed if rhs is None else rhs
@@ -420,6 +489,223 @@ def default_memory_budget() -> int:
     if torch.cuda.is_available():
         return int(torch.cuda.get_device_properties(0).total_memory)
     return 8 << 30
+
+
+# ---------------------------------------------------------------------------
+# Autotune layer: per-(platform, backend, path, shape bucket) tile sweeps
+# ---------------------------------------------------------------------------
+
+_tuned: dict[str, GramConfig] = {}
+_cache_loaded_from: str | None = None
+_sweep_count = 0
+_sweep_log: list[dict] = []
+#: the d_tile candidates of every sweep (those below the bucket's d)
+_D_TILES = (128, 256, 512, 1024)
+#: the sweep's sample count is capped here (tiles carry across n buckets)
+SWEEP_N_CAP = 4096
+
+
+def autotune_enabled() -> bool:
+    return os.environ.get(AUTOTUNE_ENV, "1") != "0"
+
+
+def autotune_cache_path() -> str:
+    return os.environ.get(AUTOTUNE_CACHE_ENV) or os.path.join(
+        os.path.expanduser("~"), ".cache", "repro_torch",
+        "gram_autotune.json")
+
+
+def autotune_sweep_count() -> int:
+    """Timing sweeps run by this process: a warm cache (in memory or in
+    the file) keeps it flat across repeat calls."""
+    return _sweep_count
+
+
+def autotune_sweep_log() -> list[dict]:
+    """Every sweep of this process, in order: {"key", "winner", "times":
+    [(GramConfig, best-of-2 seconds)]}."""
+    return list(_sweep_log)
+
+
+def clear_autotune_cache(*, remove_file: bool = False) -> None:
+    """Drop the in-memory tuned configs (and optionally the JSON file).
+    The sweep counter is not reset: callers diff it around calls."""
+    global _cache_loaded_from
+    _tuned.clear()
+    _cache_loaded_from = None
+    if remove_file:
+        try:
+            os.remove(autotune_cache_path())
+        except OSError:
+            pass
+
+
+def _pow2_bucket(x: int) -> int:
+    b = 8
+    while b < x:
+        b <<= 1
+    return b
+
+
+def _platform(dev: torch.device | None) -> str:
+    if dev is None or dev.type == "cpu":
+        return "cpu"
+    return f"cuda:{torch.cuda.get_device_name(dev)}"
+
+
+def _tune_key(path: str, n: int, d: int, backend: str, dev) -> str:
+    return (f"{_platform(dev)}:{backend}:{path}"
+            f":n{_pow2_bucket(n)}:d{_pow2_bucket(d)}")
+
+
+def _load_cache_file() -> None:
+    global _cache_loaded_from
+    path = autotune_cache_path()
+    if _cache_loaded_from == path:
+        return
+    _cache_loaded_from = path
+    try:
+        with open(path) as f:
+            data = json.load(f)
+        for key, fields in data.get("entries", {}).items():
+            _tuned.setdefault(key, GramConfig(**fields))
+    except (OSError, ValueError, TypeError):
+        pass  # absent, corrupt or foreign cache: resweep
+
+
+def _store_cache_file() -> None:
+    path = autotune_cache_path()
+    try:
+        entries = {}
+        try:  # merge-on-write: keep other processes' winners
+            with open(path) as f:
+                entries = json.load(f).get("entries", {})
+        except (OSError, ValueError):
+            pass
+        entries.update({k: dataclasses.asdict(c) for k, c in _tuned.items()})
+        parent = os.path.dirname(path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"version": 1, "entries": dict(sorted(entries.items()))},
+                      f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # read-only file system: the in-memory cache still serves
+
+
+def candidate_configs(path: str, n: int, d: int, backend: str = "torch", *,
+                      budget: int | None = None) -> list[GramConfig]:
+    """The configs a sweep times for one (path, shape, backend) point; the
+    first is the all-default config.
+
+    The torch and numpy backends get ``repro``'s ``xla`` set: d_tile below
+    d, and with n > 4096 the integer paths' n_chunk = 4096. The kernel
+    backend varies d_tile, the one knob its kernels take from the engine
+    (their tiles are their own), on the paths a kernel runs: f32 values
+    contract in ``torch.matmul`` there, where d_tile is a memory knob
+    only. ``budget`` drops candidates whose working set exceeds it
+    (keeping the thriftiest if none fits).
+    """
+    cands = [GramConfig()]
+    d_tiles = [t for t in _D_TILES if t < d]
+    if backend == "kernel":
+        if path != "f32":
+            cands += [GramConfig(d_tile=t) for t in d_tiles]
+    else:
+        cands += [GramConfig(d_tile=t) for t in d_tiles]
+        if path in ("int8", "packed") and n > 4096:
+            for t in d_tiles or [d]:
+                cands.append(GramConfig(d_tile=None if t == d else t,
+                                        n_chunk=4096))
+    uniq = list(dict.fromkeys(cands))
+    if budget is not None:
+        def ws(c):
+            return gram_working_set_bytes(path, n, d, backend=backend,
+                                          config=c)
+        uniq = [c for c in uniq if ws(c) <= budget] or [min(uniq, key=ws)]
+    return uniq
+
+
+def _sweep_operands(path: str, n: int, d: int, backend: str, dev) -> tuple:
+    """``repro``'s sweep operands: zero or one codes of the bucket's
+    shape, on the device (numpy for the numpy backend)."""
+    if path == "packed":
+        ops = (np.zeros((d, max(1, -(-n // 8))), np.uint8),)
+    elif path == "code":
+        ops = (np.zeros((n, d), np.int8),
+               np.linspace(-1.0, 1.0, 8, dtype=np.float32))
+    elif path == "int8":
+        ops = (np.ones((n, d), np.int8),)
+    else:
+        ops = (np.ones((n, d), np.float32),)
+    if backend == "numpy":
+        return ops
+    return tuple(torch.from_numpy(o).to(dev) for o in ops)
+
+
+def _sync(dev) -> None:
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _time_config(engine: GramEngine, cfg: GramConfig, path: str, ops: tuple,
+                 n: int, dev) -> float:
+    """Best of two timed calls after a warm one, in seconds."""
+    eng = dataclasses.replace(engine, autotune=False, d_tile=cfg.d_tile,
+                              n_chunk=cfg.n_chunk)
+    if path == "packed":
+        fn = lambda: eng.packed_sign_gram(ops[0], n)  # noqa: E731
+    elif path == "code":
+        fn = lambda: eng.code_gram(ops[0], ops[1])  # noqa: E731
+    else:
+        fn = lambda: eng.gram(ops[0])  # noqa: E731
+    fn()
+    _sync(dev)
+    best = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def tuned_config(path: str, n: int, d: int, engine: GramEngine, *,
+                 budget: int | None = None, device=None) -> GramConfig:
+    """The tuned config for (platform, backend, path, shape bucket) on
+    ``device`` (default: the engine's).
+
+    In-memory cache, then the JSON file, then a timing sweep over
+    :func:`candidate_configs` at the bucketed shape (n capped at
+    ``SWEEP_N_CAP``), persisted for later processes. With sweeps
+    disabled, the engine's own config.
+    """
+    global _sweep_count
+    if not autotune_enabled():
+        return engine._base_config()
+    backend, dev = engine._tune_target(device)
+    key = _tune_key(path, n, d, backend, dev)
+    hit = _tuned.get(key)
+    if hit is None:
+        _load_cache_file()
+        hit = _tuned.get(key)
+    if hit is not None:
+        return hit
+    nb, db = min(_pow2_bucket(n), SWEEP_N_CAP), _pow2_bucket(d)
+    _sweep_count += 1
+    ops = _sweep_operands(path, nb, db, backend, dev)
+    best_cfg, best_t, times = None, float("inf"), []
+    for cfg in candidate_configs(path, nb, db, backend, budget=budget):
+        t = _time_config(engine, cfg, path, ops, nb, dev)
+        times.append((cfg, t))
+        if t < best_t:
+            best_cfg, best_t = cfg, t
+    _tuned[key] = best_cfg
+    _sweep_log.append({"key": key, "winner": best_cfg, "times": times})
+    _store_cache_file()
+    return best_cfg
 
 
 _default_engine = GramEngine()

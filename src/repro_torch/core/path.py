@@ -140,7 +140,8 @@ def _path_scan(S, lam_grid, n_steps, step_scale, eps, conv_tol, support_tol,
         theta, w, v, iters = _glasso._glasso_run(
             theta, w, v, eta0, obj, S, lam, n_steps, eps, conv_tol, active)
         sup = _glasso.support_from_theta(theta, support_tol)
-        out = (sup, torch.log(w).sum(dim=-1), (S * theta).sum(dim=(-2, -1)),
+        out = (sup, _glasso._lane_sum(torch.log(w), 1),
+               _glasso._lane_sum(S * theta, 2),
                sup.sum(dim=(-2, -1), dtype=torch.int32) // 2, iters)
         outs.append(out + ((theta,) if keep_thetas else ()))
     return tuple(torch.stack(o) for o in zip(*outs))

@@ -47,10 +47,9 @@ def strategy_from_fields(fields: dict) -> Strategy:
 def engine_from_fields(fields: dict, *, device=None):
     """The port's GramEngine (or GramConfig) from ``asdict`` of a ``repro``
     GramEngine / GramConfig. Backends map pallas -> kernel, xla -> torch;
-    TPU tile edges are dropped; autotune is not ported yet."""
+    TPU tile edges are dropped; ``autotune`` carries across (the port keeps
+    its own cache of winners)."""
     fields = dict(fields)
-    if fields.pop("autotune", False):
-        raise NotImplementedError("the Gram autotune cache is not ported yet")
     for k in _TPU_FIELDS:
         fields.pop(k, None)
     if "backend" not in fields:
@@ -86,6 +85,59 @@ def _layer_index(cfg) -> list[tuple[str, int]]:
             for i in range(len(cfg.pattern))]
 
 
+#: (port module path within a layer, ``repro`` path within a sublayer)
+_LAYER_LEAVES = (("mixer_norm.scale", ("mixer_norm", "scale")),
+                 ("ff_norm.scale", ("ff_norm", "scale")),
+                 *((f"mixer.{n}", ("mixer", n)) for n in ("wq", "wk", "wv",
+                                                          "wo")),
+                 *((f"ff.{n}", ("ff", n)) for n in ("wgate", "wi",
+                                                    "w_down")))
+
+
+def _host_array(a) -> np.ndarray:
+    """``a`` as numpy; numpy's bf16 extension type widens to f32 (exact),
+    which torch can read."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _named_from_tree(cfg, tree: dict) -> dict:
+    """{port parameter name: array} from a tree in ``repro``'s params
+    layout (the blocks stacked over ``n_rep``)."""
+    out = {"embed": _host_array(tree["embed"]),
+           "final_norm.scale": _host_array(tree["final_norm"]["scale"])}
+    if not cfg.tie_embeddings:
+        out["unembed"] = _host_array(tree["unembed"])
+    for i, (key, rep) in enumerate(_layer_index(cfg)):
+        for name, (mod, leaf) in _LAYER_LEAVES:
+            out[f"layers.{i}.{name}"] = _host_array(
+                tree["blocks"][key][mod][leaf])[rep]
+    return out
+
+
+def lm_tree_from_named(cfg, named: dict) -> dict:
+    """{port parameter name: tensor} (parameters, gradients or moments)
+    in ``repro``'s params layout as numpy, the layers stacked over
+    ``n_rep`` again; bf16 comes back as f32 (exactly)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tree = {"embed": host(named["embed"]),
+            "final_norm": {"scale": host(named["final_norm.scale"])},
+            "blocks": {}}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = host(named["unembed"])
+    for key in dict(_layer_index(cfg)):
+        layers = [i for i, (k, _) in enumerate(_layer_index(cfg)) if k == key]
+        blk: dict = {}
+        for name, (mod, leaf) in _LAYER_LEAVES:
+            blk.setdefault(mod, {})[leaf] = np.stack(
+                [host(named[f"layers.{i}.{name}"]) for i in layers])
+        tree["blocks"][key] = blk
+    return tree
+
+
 def lm_params_from_numpy(cfg, tree: dict, *, device=None,
                          dtype: torch.dtype = torch.float32):
     """A loaded ``Transformer`` from ``repro``'s params pytree as numpy.
@@ -94,34 +146,45 @@ def lm_params_from_numpy(cfg, tree: dict, *, device=None,
     are tied, ``final_norm.scale`` and ``blocks.l<i>.{mixer_norm.scale,
     mixer.{wq,wk,wv,wo}, ff_norm.scale, ff.{wgate,wi,w_down}}`` with a
     leading ``n_rep`` axis, which is unstacked into the port's one module
-    per layer.
+    per layer. The parameters come back frozen, as ``Transformer`` makes
+    them.
     """
     from repro_torch.models.transformer import Transformer
 
     model = Transformer(cfg, device=device, dtype=dtype)
-    dev = model.device
-
-    def put(param, a):
-        a = np.asarray(a)
-        if tuple(param.shape) != a.shape:
-            raise ValueError(f"shape {a.shape} does not fit the port's "
-                             f"{tuple(param.shape)}")
-        param.copy_(torch.tensor(a, device=dev, dtype=dtype))
-
+    arrays = _named_from_tree(cfg, tree)
     with torch.no_grad():
-        put(model.embed, tree["embed"])
-        if model.unembed is not None:
-            put(model.unembed, tree["unembed"])
-        put(model.final_norm.scale, tree["final_norm"]["scale"])
-        for blk, (key, rep) in zip(model.layers, _layer_index(cfg)):
-            p = tree["blocks"][key]
-            put(blk.mixer_norm.scale, p["mixer_norm"]["scale"][rep])
-            put(blk.ff_norm.scale, p["ff_norm"]["scale"][rep])
-            for name in ("wq", "wk", "wv", "wo"):
-                put(getattr(blk.mixer, name), p["mixer"][name][rep])
-            for name in ("wgate", "wi", "w_down"):
-                put(getattr(blk.ff, name), p["ff"][name][rep])
+        for name, param in model.named_parameters():
+            a = np.asarray(arrays[name])
+            if tuple(param.shape) != a.shape:
+                raise ValueError(f"{name}: shape {a.shape} does not fit the "
+                                 f"port's {tuple(param.shape)}")
+            param.copy_(torch.tensor(a, device=model.device, dtype=dtype))
     return model
+
+
+def lm_params_to_numpy(model) -> dict:
+    """``model``'s parameters in ``repro``'s params layout, as numpy."""
+    return lm_tree_from_named(model.cfg, dict(model.named_parameters()))
+
+
+def opt_state_from_numpy(cfg, model, optimizer, tree: dict) -> None:
+    """Load ``repro``'s ``OptState`` (``opt_state._asdict()`` as numpy:
+    {"step", "moments": {name: a params-layout tree}}) into the port's
+    ``optimizer`` over ``model``'s parameters, in place."""
+    named = list(model.named_parameters())
+    optimizer.load_state_tree(named, {
+        "step": tree["step"],
+        "moments": {m: _named_from_tree(cfg, tree["moments"][m])
+                    for m in optimizer.moment_names}})
+
+
+def opt_state_to_numpy(cfg, model, optimizer) -> dict:
+    """The port's optimizer state in ``repro``'s ``OptState`` layout."""
+    st = optimizer.state_tree(list(model.named_parameters()))
+    return {"step": np.int32(st["step"]),
+            "moments": {m: lm_tree_from_named(cfg, named)
+                        for m, named in st["moments"].items()}}
 
 
 def kv_cache_from_numpy(cfg, tree: dict, *, device=None,

@@ -1,11 +1,21 @@
-"""Full-sequence GQA flash attention (prefill): wrapper and launch count.
+"""Full-sequence GQA flash attention (prefill and training): wrapper,
+launch count and gradient.
 
 ``repro``'s LM prefill calls its Pallas ``flash_prefill`` on every
 attention layer when it runs on its accelerator; the port calls this
-wrapper on every attention layer of ``Transformer.prefill``. The kernel
-(``csrc/flash_prefill.cu``) keeps the online softmax in f32 and writes
-q's dtype. The wrapper takes the plain version from ``ref`` for a CPU
-tensor; for a CUDA tensor it launches the kernel or raises.
+wrapper on every attention layer of ``Transformer.prefill`` and of the
+training ``Transformer.forward``. The kernel (``csrc/flash_prefill.cu``)
+keeps the online softmax in f32 and writes q's dtype. The wrapper takes
+the plain version from ``ref`` for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.
+
+When q, k or v needs a gradient the wrapper runs as a
+``torch.autograd.Function``: the same forward on detached inputs, and
+:func:`flash_prefill_backward`, the gradient of the same attention in
+PyTorch, one query chunk at a time (``repro`` differentiates its jnp
+``_flash_attn`` the same way; it has no backward kernel). Under
+``torch.utils.checkpoint`` the forward runs again in the backward, and
+so launches the kernel again.
 """
 from __future__ import annotations
 
@@ -51,6 +61,15 @@ def check_operands(what: str, q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(k.shape)} disagree on batch or head size")
 
 
+def largest_divisor(n: int, cap: int) -> int:
+    """Largest divisor of ``n`` that is <= cap (chunked loops over
+    sequences whose length need not be a power of two)."""
+    for c in range(min(cap, n), 0, -1):
+        if n % c == 0:
+            return c
+    return 1
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
     """GQA attention of every query row over the keys it sees.
@@ -59,15 +78,103 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     each with a unit-stride last axis and any other strides. Key j is
     visible to query i when ``i >= j`` (``causal``) and ``j > i - window``
     (``window > 0``). Returns (B, Sq, Hq, Dh) in q's dtype; a row that
-    sees no key is 0.
+    sees no key is 0. Differentiable in q, k and v.
     """
     check_operands("flash_prefill", q, k, v, 4)
-    b, sq, hq, dh = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    hq, hkv = q.shape[2], k.shape[2]
     if hkv == 0 or hq % hkv != 0:
         raise ValueError(f"flash_prefill: {hkv} KV heads do not divide "
                          f"{hq} query heads")
     window = int(window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashPrefill.apply(q, k, v, bool(causal), window)
+    return _forward(q, k, v, bool(causal), window)
+
+
+class _FlashPrefill(torch.autograd.Function):
+    """The kernel's forward (the plain version on the CPU) and the
+    PyTorch gradient of the same attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_backward(q, k, v, out, dout,
+                                            causal=ctx.causal,
+                                            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+#: query rows a backward chunk holds (``repro``'s ``_flash_attn`` q_chunk)
+Q_CHUNK = 1024
+
+
+def flash_prefill_backward(q, k, v, out, dout, *, causal: bool = True,
+                           window: int = 0):
+    """(dq, dk, dv) of :func:`flash_prefill` given its output ``out`` and
+    the output's cotangent ``dout``, in the inputs' dtypes.
+
+    One chunk of ``largest_divisor(Sq, Q_CHUNK)`` query rows at a time,
+    in f32: recompute the scores of the keys the chunk can see under the
+    same mask and their softmax P (a key outside that range has P = 0
+    exactly), D = rowsum(dO * O), dV += P^T dO, dS = P * (dO V^T - D),
+    dQ = dS K / sqrt(Dh), dK += dS^T Q / sqrt(Dh), each summed over the
+    GQA group into its KV head. The peak is O(B * Hq * chunk * Skv).
+    """
+    f32 = torch.float32
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    root = math.sqrt(dh)
+    qg = q.reshape(b, sq, hkv, g, dh)
+    og = out.reshape(b, sq, hkv, g, dh)
+    dog = dout.reshape(b, sq, hkv, g, dh)
+    kf, vf = k.to(f32), v.to(f32)
+    dq = torch.zeros((b, sq, hkv, g, dh), dtype=f32, device=q.device)
+    dk = torch.zeros((b, skv, hkv, dh), dtype=f32, device=q.device)
+    dv = torch.zeros((b, skv, hkv, dh), dtype=f32, device=q.device)
+    qc = largest_divisor(sq, Q_CHUNK)
+    for i0 in range(0, sq, qc):
+        i1 = i0 + qc
+        lo = max(0, i0 - window + 1) if window else 0
+        hi = min(skv, i1) if causal else skv
+        if hi <= lo:
+            continue    # no row of the chunk sees a key: its gradient is 0
+        qi, doi = qg[:, i0:i1].to(f32), dog[:, i0:i1].to(f32)
+        kc, vc = kf[:, lo:hi], vf[:, lo:hi]
+        qpos = torch.arange(i0, i1, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        valid = torch.ones((qc, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= qpos >= kpos
+        if window:
+            valid &= kpos > qpos - window
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kc) / root
+        p = torch.softmax(s.masked_fill_(~valid, -1e30), dim=-1)
+        del s
+        p.mul_(valid.any(-1, keepdim=True))
+        dsum = (doi * og[:, i0:i1].to(f32)).sum(-1).permute(0, 2, 3, 1)
+        dv[:, lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", p, doi)
+        ds = torch.einsum("bqhgd,bkhd->bhgqk", doi, vc)
+        ds.sub_(dsum[..., None]).mul_(p)
+        del p
+        dq[:, i0:i1] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kc) / root
+        dk[:, lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qi) / root
+    return (dq.reshape(b, sq, hq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, causal=causal, window=window)
     if dh not in HEAD_DIMS:

@@ -1,0 +1,196 @@
+"""Training driver: AdamW on the synthetic token stream, with checkpoints
+and resume.
+
+The port of ``repro.launch.train`` for one device: the same flags, log
+lines and schedule (linear warm-up, then cosine decay), through
+``steps.make_train_step``. Every attention layer runs the
+``flash_prefill`` kernel, twice a step (the forward and its recompute
+under the blocks' checkpoints), and its PyTorch gradient. Weights are
+random draws from ``--seed`` on the device (the same distributions as
+``repro``'s ``init_params``, not the same numbers). A checkpoint holds
+the parameters and the optimizer's state and step; ``--ckpt-dir`` resumes
+from its latest one, and the resumed run equals the straight run bit for
+bit (the stream's batch i is a function of (seed, i)).
+
+  python -m repro_torch.launch.train --arch stablelm-3b --reduced \\
+      --device cpu --steps 20 --batch 2 --seq 64
+  python -m repro_torch.launch.train --arch stablelm-3b --param-dtype bf16 \\
+      --steps 6 --warmup 2 --batch 4 --seq 2048 --log-every 1
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from repro_torch.data import TokenStream, token_batches
+from repro_torch.models.arch import get_arch
+from repro_torch.models.transformer import Transformer
+from repro_torch.optim import AdamW, linear_warmup_cosine
+
+from .shapes import InputShape
+from .steps import make_train_step
+
+
+#: token batches drawn ahead in worker threads: a (4, 2048) batch at
+#: vocab 50304 takes ~10 s of numpy, several device steps
+PREFETCH = 4
+
+
+@dataclasses.dataclass
+class TrainResult:
+    model: Transformer
+    optimizer: torch.optim.Optimizer
+    start: int                  # the step the run began at (resume)
+    losses: list                # per step run, host floats
+    grad_norms: list
+    lrs: list
+    step_s: list                # wall s of each step, synchronised
+    data_s: list                # wall s waiting for each batch
+    final_loss: float           # mean of the last 10 losses
+    entropy_bound: float        # the stream's unigram entropy (nats)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def state_tree(model: Transformer, optimizer) -> dict:
+    """What a checkpoint holds: {"params": {name: tensor}, "opt":
+    optimizer.state_tree}."""
+    named = list(model.named_parameters())
+    return {"params": dict(named), "opt": optimizer.state_tree(named)}
+
+
+@torch.no_grad()
+def restore(model: Transformer, optimizer, directory: str, step: int
+            ) -> None:
+    """Load checkpoint ``step`` of ``directory`` into ``model`` and
+    ``optimizer`` in place (through host memory, so the device never
+    holds two copies)."""
+    named = list(model.named_parameters())
+    tree = load_checkpoint(directory, step, state_tree(model, optimizer),
+                           to_numpy=True)
+    for name, p in named:
+        p.copy_(torch.as_tensor(tree["params"][name]))
+    optimizer.load_state_tree(named, tree["opt"])
+
+
+def train(arch: str, *, reduced: bool = False, steps: int = 100,
+          batch: int = 8, seq: int = 256, lr: float = 3e-4,
+          warmup: int = 20, seed: int = 0, param_dtype: str = "f32",
+          device=None, ckpt_dir: str = "", ckpt_every: int = 100,
+          log_every: int = 10, on_step: Callable | None = None
+          ) -> TrainResult:
+    """Train ``arch`` for ``steps`` steps (see the module docstring).
+    ``on_step(step, model, optimizer, metrics)`` runs after each step and
+    its checkpoint."""
+    cfg = get_arch(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    dtype = torch.float32 if param_dtype == "f32" else torch.bfloat16
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = Transformer(cfg, device=dev, dtype=dtype, generator=gen)
+    model.requires_grad_(True)
+    shape = InputShape("cli", "train", seq, batch)
+    optimizer = AdamW(model.parameters())
+    schedule = linear_warmup_cosine(lr, warmup, steps)
+    step_fn = make_train_step(cfg, shape, schedule)
+    n_params = model.param_count()
+    print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
+          f"(active {n_params/1e6:.1f}M) device={dev} dtype={dtype}",
+          flush=True)
+
+    start = 0
+    if ckpt_dir:
+        last = latest_step(ckpt_dir)
+        if last is not None:
+            restore(model, optimizer, ckpt_dir, last)
+            start = last
+            print(f"resumed from step {start}", flush=True)
+
+    stream = TokenStream(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                         seed=seed)
+    res = TrainResult(model, optimizer, start, [], [], [], [], [], 0.0,
+                      0.0)
+    batches = token_batches(stream, start, device=dev, prefetch=PREFETCH,
+                            stop=steps)
+    t_log = time.time()
+    try:
+        for step in range(start, steps):
+            t0 = time.perf_counter()
+            b = next(batches)
+            t1 = time.perf_counter()
+            metrics = step_fn(model, optimizer, b)
+            res.losses.append(float(metrics["loss"]))
+            res.grad_norms.append(float(metrics["grad_norm"]))
+            _sync(dev)
+            res.step_s.append(time.perf_counter() - t1)
+            res.data_s.append(t1 - t0)
+            res.lrs.append(float(metrics["lr"]))
+            if (step + 1) % log_every == 0:
+                dt = time.time() - t_log
+                print(f"step {step+1:5d} loss {res.losses[-1]:.4f} "
+                      f"gnorm {res.grad_norms[-1]:.3f} "
+                      f"lr {res.lrs[-1]:.2e} "
+                      f"({dt/log_every:.2f}s/step)", flush=True)
+                t_log = time.time()
+            if ckpt_dir and (step + 1) % ckpt_every == 0:
+                save_checkpoint(ckpt_dir, step + 1,
+                                state_tree(model, optimizer))
+            if on_step is not None:
+                on_step(step, model, optimizer, metrics)
+    finally:
+        batches.close()
+
+    res.entropy_bound = stream.unigram_entropy_bound()
+    res.final_loss = float(np.mean(res.losses[-10:])) if res.losses \
+        else float("nan")
+    print(f"final loss {res.final_loss:.4f} "
+          f"(unigram entropy bound {res.entropy_bound:.3f} nats)",
+          flush=True)
+    return res
+
+
+def main(argv=None, *, on_step: Callable | None = None) -> TrainResult:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--data-par", type=int, default=1)
+    ap.add_argument("--model-par", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--param-dtype", choices=["f32", "bf16"], default="f32")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.data_par > 1 or args.model_par > 1:
+        raise NotImplementedError(
+            "--data-par/--model-par above 1 need the LM mesh (sharded "
+            "params and batches), which the port does not have yet "
+            "(ROADMAP.md item 13.5)")
+    return train(args.arch, reduced=args.reduced, steps=args.steps,
+                 batch=args.batch, seq=args.seq, lr=args.lr,
+                 warmup=args.warmup, seed=args.seed,
+                 param_dtype=args.param_dtype, device=args.device,
+                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                 log_every=args.log_every, on_step=on_step)
+
+
+if __name__ == "__main__":
+    main()

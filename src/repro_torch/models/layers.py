@@ -7,8 +7,9 @@ The port of the dense subset of ``repro.models.layers``. Weights keep
 weights and activations in the parameter dtype, norm statistics and
 softmax in f32. Attention goes through the port's kernel wrappers:
 ``flash_prefill`` for the full sequence (the route ``repro`` takes on its
-accelerator), ``decode_attention`` for one token against the cache.
-Modules hold no autograd state: serving runs under ``torch.no_grad``.
+accelerator; differentiable), ``decode_attention`` for one token against
+the cache. Parameters are made frozen; ``module.requires_grad_()`` makes
+them trainable. Serving runs under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -42,9 +43,39 @@ def dense_param(shape, *, device, dtype, generator=None, scale: float = 1.0
                         generator=generator, std=scale / math.sqrt(fan_in))
 
 
+def _rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    rms = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xf * rms).to(x.dtype) * scale
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """``repro``'s explicit VJP of ``_rmsnorm_core``: f32 inside this op,
+    dx cast to x's dtype and dscale to the scale's (autograd through the
+    forward would round differently in bf16)."""
+
+    @staticmethod
+    def forward(ctx, scale, x, eps: float):
+        ctx.save_for_backward(scale, x)
+        ctx.eps = eps
+        return _rmsnorm(scale, x, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        scale, x = ctx.saved_tensors
+        xf, dyf = x.to(torch.float32), dy.to(torch.float32)
+        rms = torch.rsqrt(xf.square().mean(-1, keepdim=True) + ctx.eps)
+        xhat = xf * rms
+        dscale = (dyf * xhat).sum(dim=tuple(range(x.dim() - 1)))
+        g = dyf * scale.to(torch.float32)
+        dx = rms * (g - xhat * (g * xhat).mean(-1, keepdim=True))
+        return dscale.to(scale.dtype), dx.to(x.dtype), None
+
+
 class RMSNorm(nn.Module):
     """x / rms(x) * scale, the statistics in f32, cast back to x's dtype
-    before the scale (as ``repro``'s ``_rmsnorm_core``)."""
+    before the scale (as ``repro``'s ``_rmsnorm_core``), with its VJP."""
 
     def __init__(self, d: int, eps: float, *, device, dtype):
         super().__init__()
@@ -53,9 +84,10 @@ class RMSNorm(nn.Module):
                                   requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        rms = torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
-        return (xf * rms).to(x.dtype) * self.scale
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.scale.requires_grad):
+            return _RMSNormFn.apply(self.scale, x, self.eps)
+        return _rmsnorm(self.scale, x, self.eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float

@@ -1,5 +1,5 @@
-"""The dense transformer LM: embeddings, the layer stack, prefill and
-one-token decode against a KV cache.
+"""The dense transformer LM: embeddings, the layer stack, the training
+forward and loss, prefill and one-token decode against a KV cache.
 
 The port of the dense path of ``repro.models.transformer``. ``repro``
 stacks the layers' params over ``n_rep`` and scans them; here they are an
@@ -8,13 +8,20 @@ unstacks ``repro``'s params). The cache is a list with one
 {'k', 'v': (B, Sbuf, Hkv, Dh)} dict per layer; ``decode_step`` updates it
 in place. ``repro``'s sharding constraints are no-ops without a mesh and
 the port has no mesh, so they are dropped.
+
+Training (``forward`` + ``lm_loss``) rematerialises as ``repro`` does:
+each block runs under ``torch.utils.checkpoint`` (``repro`` checkpoints
+its scan body), and each 512-token chunk of the loss too, so the (B, S, V)
+f32 logits never exist at once.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.kernels.flash_prefill import largest_divisor
 
 from . import layers
 from .arch import ArchConfig, check_supported
@@ -39,6 +46,10 @@ class Block(nn.Module):
                            positions=positions)
         x = x + h
         return x + self.ff(self.ff_norm(x)), kv
+
+    def train_forward(self, x, causal: bool, window: int, positions):
+        """forward without the K/V (the function each checkpoint reruns)."""
+        return self(x, causal=causal, window=window, positions=positions)[0]
 
     def decode(self, x, cache: dict, pos: int, *, window: int):
         x = x + self.mixer.decode(self.mixer_norm(x), cache, pos,
@@ -88,14 +99,75 @@ class Transformer(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    def _unembedding(self) -> torch.Tensor:
+        return self.embed.t() if self.unembed is None else self.unembed
+
+    def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Padding ids' logits at -1e30, out of place (autograd-safe)."""
+        if self.cfg.padded_vocab == self.cfg.vocab:
+            return logits
+        pad = torch.arange(logits.shape[-1], device=logits.device) \
+            >= self.cfg.vocab
+        return logits.masked_fill(pad, VOCAB_PAD_NEG)
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """hidden (..., D) -> logits (..., padded_vocab), padding ids at
         -1e30 so softmax and argmax never see them."""
-        unemb = self.embed.t() if self.unembed is None else self.unembed
-        out = hidden @ unemb
-        if self.cfg.padded_vocab != self.cfg.vocab:
-            out[..., self.cfg.vocab:] = VOCAB_PAD_NEG
-        return out
+        return self._mask_pad_logits(hidden @ self._unembedding())
+
+    def forward(self, tokens: torch.Tensor, *, window: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward: tokens (B, S) -> (final-normed hidden
+        (B, S, D), aux loss). Each block is checkpointed when autograd
+        records; ``aux`` is ``repro``'s MoE load-balance term, 0 for the
+        dense stacks the port runs."""
+        s = tokens.shape[1]
+        x = nn.functional.embedding(tokens, self.embed)
+        positions = torch.arange(s, device=x.device)[None, :]
+        remat = torch.is_grad_enabled()
+        for blk, causal in zip(self.layers, self._causal):
+            if remat:
+                x = checkpoint(blk.train_forward, x, causal, window,
+                               positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = blk.train_forward(x, causal, window, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self.final_norm(x), aux
+
+    def _chunk_loss(self, h, t, m, unemb):
+        """(sum of masked token losses, sum of the mask) of one chunk."""
+        logits = self._mask_pad_logits((h @ unemb).to(torch.float32))
+        lse = torch.logsumexp(logits, dim=-1)
+        correct = logits.gather(-1, t[..., None])[..., 0]
+        return ((lse - correct) * m).sum(), m.sum()
+
+    def lm_loss(self, hidden: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor | None = None, chunk: int = 512
+                ) -> torch.Tensor:
+        """Mean softmax cross-entropy of ``targets`` (B, S) under the
+        logits of ``hidden`` (B, S, D), over ``mask`` (default all ones):
+        f32 over ``largest_divisor(S, chunk)``-token chunks, each
+        checkpointed when autograd records; the masked sum over
+        ``max(sum(mask), 1)``."""
+        b, s, _ = hidden.shape
+        unemb = self._unembedding()
+        if mask is None:
+            mask = torch.ones((b, s), dtype=torch.float32,
+                              device=hidden.device)
+        c = largest_divisor(s, chunk)
+        remat = torch.is_grad_enabled()
+        losses, counts = [], []
+        for i0 in range(0, s, c):
+            args = (hidden[:, i0:i0 + c], targets[:, i0:i0 + c],
+                    mask[:, i0:i0 + c], unemb)
+            out = checkpoint(self._chunk_loss, *args, use_reentrant=False,
+                             preserve_rng_state=False) if remat \
+                else self._chunk_loss(*args)
+            losses.append(out[0])
+            counts.append(out[1])
+        return torch.stack(losses).sum() / torch.clamp(
+            torch.stack(counts).sum(), min=1.0)
 
     def init_cache(self, batch: int, max_len: int, *, window: int = 0
                    ) -> list[dict]:

@@ -747,3 +747,124 @@ def test_cuda_mesh_trials_match_mesh_less(cuda):
                 for r, a in zip(reports, alone.comm[lab]):
                     assert dataclasses.replace(r, collectives=0) == a
                     assert r.collectives == (0 if model is None else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,dh,window", [(4, 4, 80, 0), (8, 2, 128, 40),
+                                               (4, 1, 64, 0)])
+def test_cuda_flash_prefill_grad_route(cuda, dtype, hq, hkv, dh, window):
+    """The kernel forward with its PyTorch backward against autograd
+    through the plain version: dq, dk, dv within 2e-5 (f32) and 2^-5
+    (bf16) of each gradient's largest entry, as chip_smoke.py's phase
+    16(a) holds them; one launch per differentiable call."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(hq + dh)
+
+    def rnd(h):
+        return torch.randn((2, 333, h, dh), generator=gen,
+                           device=cuda).to(dt)
+
+    q, k, v, do = rnd(hq), rnd(hkv), rnd(hkv), rnd(hq)
+
+    def route(fn):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fn(*ts, causal=True, window=window)
+        return (out, *torch.autograd.grad(out, ts, do))
+
+    before = kernels.launches()["flash_prefill"]
+    got = route(kernels.flash_prefill)
+    assert kernels.launches()["flash_prefill"] == before + 1
+    want = route(ref.flash_prefill_ref)
+    tol = 2e-5 if dtype == "float32" else 2 ** -5
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == dt
+        w32 = w.float()
+        assert float((g.float() - w32).abs().max()) <= tol * float(
+            w32.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda):
+    """Two f32 train steps of a small GQA model from the same params: the
+    card (kernel) and the CPU (plain) agree on loss and grad norm."""
+    import copy
+
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.arch import ArchConfig, LayerSpec
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+
+    cfg = ArchConfig(name="train-cuda", family="dense", n_layers=2,
+                     d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                     vocab=500, head_dim=32, pattern=(LayerSpec(),),
+                     rope_theta=1e4)
+    cpu = Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 65),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        model.requires_grad_(True)
+        opt = AdamW(model.parameters())
+        step = make_train_step(cfg, InputShape("t", "train", 64, 2),
+                               linear_warmup_cosine(1e-3, 1, 2))
+        b = {"tokens": tokens[:, :-1].to(model.device),
+             "labels": tokens[:, 1:].to(model.device)}
+        out[name] = [{k: float(v) for k, v in step(model, opt, b).items()}
+                     for _ in range(2)]
+    for a, b in zip(out["card"], out["cpu"]):
+        assert a["lr"] == b["lr"]
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k])
+
+
+@pytest.mark.cuda
+def test_cuda_autotuned_kernel_gram(cuda, tmp_path, monkeypatch):
+    """GramEngine(autotune=True) on the card: one sweep a point keyed by
+    the card's name, none when warm, and the tuned int8 and packed Grams
+    bit-identical to the default config's."""
+    from repro_torch.core import gram as gm
+
+    monkeypatch.setenv(gm.AUTOTUNE_CACHE_ENV, str(tmp_path / "tune.json"))
+    monkeypatch.delenv(gm.AUTOTUNE_ENV, raising=False)
+    gm.clear_autotune_cache()
+    try:
+        eng = gm.GramEngine(autotune=True)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        u = torch.randint(0, 2, (3000, 700), generator=gen, device=cuda,
+                          dtype=torch.int8) * 2 - 1
+        bits = torch.randint(0, 256, (700, 375), generator=gen, device=cuda,
+                             dtype=torch.uint8)
+        c0 = gm.autotune_sweep_count()
+        assert torch.equal(eng.gram(u), gm.GramEngine().gram(u))
+        bits[:, -1] = 0          # n = 2992: the tail bits beyond n are zero
+        assert torch.equal(eng.packed_sign_gram(bits, 2992),
+                           gm.GramEngine().packed_sign_gram(bits, 2992))
+        assert gm.autotune_sweep_count() == c0 + 2
+        key = gm.autotune_sweep_log()[-2]["key"]
+        assert key == (f"cuda:{torch.cuda.get_device_name(cuda)}:kernel:"
+                       f"int8:n4096:d1024")
+        eng.gram(u)
+        assert gm.autotune_sweep_count() == c0 + 2
+    finally:
+        gm.clear_autotune_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_glasso_lanes_independent_of_their_batch(cuda):
+    """A glasso lane's iterates on the card do not depend on the other
+    lanes of its batch (the per-lane sums are fixed trees of adds): lanes
+    8..15 of a 24-lane d = 128 solve equal those lanes solved alone, bit
+    for bit, as the sparse sweeps' point checks require."""
+    from repro_torch.core import glasso
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((24, 512, 128), generator=gen, device=cuda)
+    S = x.transpose(-1, -2) @ x / 512
+    lam = torch.linspace(0.05, 0.2, 24, device=cuda)
+    full = glasso.glasso_batch(S, lam, n_steps=40)
+    alone = glasso.glasso_batch(S[8:16], lam[8:16], n_steps=40)
+    assert torch.equal(full[8:16], alone)

@@ -327,3 +327,22 @@ def test_learn_sparse_structure_plan_and_validation_are_repros():
         assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="unknown method"):
         tg.learn_sparse_structure(x[:64], 0.1, method="magic", device="cpu")
+
+
+def test_tree_sum_is_the_same_in_any_batch():
+    """The card's per-lane sums (``glasso._tree_sum``): a fixed tree of
+    adds, so a lane sums to the same bits whatever its batch holds, and
+    to the plain sum within f32 rounding."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((24, 100, 100)).astype(np.float32))
+    full = tg._tree_sum(x, 2)
+    assert full.shape == (24,)
+    assert torch.equal(full[16:], tg._tree_sum(x[16:], 2))
+    assert torch.equal(full[5:6], tg._tree_sum(x[5:6], 2))
+    np.testing.assert_allclose(full.numpy(), x.double().sum(dim=(-2, -1)),
+                               rtol=1e-5, atol=1e-3)
+    w = x[:, 0, :7]                       # a length off a power of two
+    assert torch.equal(tg._tree_sum(w, 1)[3:4],
+                       tg._tree_sum(w[3:4], 1))
+    np.testing.assert_allclose(tg._tree_sum(w, 1).numpy(),
+                               w.double().sum(-1), rtol=1e-5, atol=1e-5)

@@ -77,9 +77,49 @@ def test_engine_from_fields():
         dataclasses.asdict(JGramEngine(backend="xla"))).backend == "torch"
     assert interop.engine_from_fields(
         dataclasses.asdict(JGramConfig(d_tile=128))) == GramConfig(d_tile=128)
-    with pytest.raises(NotImplementedError):
-        interop.engine_from_fields(
-            dataclasses.asdict(JGramEngine(autotune=True)))
+    # autotune carries across (the port keeps its own cache of winners)
+    e = interop.engine_from_fields(
+        dataclasses.asdict(JGramEngine(autotune=True)), device="cpu")
+    assert e == GramEngine(autotune=True, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_params_and_opt_state_round_trip(dtype):
+    """repro's params and OptState -> the port -> repro's layout again,
+    bit for bit (bf16 widens to f32 exactly on the way back)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import optim as jo
+    from repro.models import transformer as T
+    from repro.models.arch import get_arch
+    from repro_torch import optim as to
+
+    jcfg = get_arch("stablelm-3b").reduced()
+    params = T.init_params(jcfg, jax.random.key(1), getattr(jnp, dtype))
+    grads = jax.tree.map(lambda p: jnp.full(p.shape, 0.5, p.dtype), params)
+    jopt = jo.adamw()
+    _, state = jopt.update(grads, jopt.init(params), params,
+                           jnp.float32(1e-3))
+    cfg = interop.arch_from_fields(dataclasses.asdict(jcfg))
+    host = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    model = interop.lm_params_from_numpy(cfg, host, device="cpu",
+                                         dtype=getattr(torch, dtype))
+    opt = to.AdamW(model.parameters())
+    interop.opt_state_from_numpy(cfg, model, opt,
+                                 jax.tree.map(np.asarray, state._asdict()))
+    assert opt.step_count == 1
+    back = interop.lm_params_to_numpy(model)
+    assert jax.tree.structure(back) == jax.tree.structure(host)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(host)):
+        np.testing.assert_array_equal(a, b)
+    ost = interop.opt_state_to_numpy(cfg, model, opt)
+    assert int(ost["step"]) == 1
+    want = jax.tree.map(np.asarray, state.moments)
+    assert jax.tree.structure(ost["moments"]) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(ost["moments"]), jax.tree.leaves(want)):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
 
 
 def test_tensors_from_numpy_keeps_dtypes_and_layouts():
@@ -124,7 +164,10 @@ def test_port_imports_neither_jax_nor_repro():
         "need = {'repro_torch.core.' + m for m in ('bounds', 'distributed',"
         " 'experiments', 'faults', 'glasso', 'path', 'prng', 'sampler')}\n"
         "need |= {'repro_torch.comm.collectives', 'repro_torch.launch.mesh',"
-        " 'repro_torch.data.ggm'}\n"
+        " 'repro_torch.data.ggm', 'repro_torch.data.tokens',"
+        " 'repro_torch.optim.optimizers', 'repro_torch.optim.schedules',"
+        " 'repro_torch.launch.steps', 'repro_torch.launch.train',"
+        " 'repro_torch.launch.shapes'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
