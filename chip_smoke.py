@@ -48,7 +48,12 @@ steps card against CPU; and a resumed run equal to the straight one bit
 for bit. Last, the Gram autotune cache (phase 17): the three kernel paths
 tuned at the main path's buckets, no sweep when warm, the tuned Grams
 against the default's, and run_trials with an autotuning engine equal to
-the untuned sweep. Any failed check exits non-zero. The last three
+the untuned sweep. Then MoE and Mamba2 serving (phase 18): qwen2-moe-a2.7b
+and mamba2-370m at full width in bf16 (batch 8, 2048-token prompts, 32
+greedy tokens; the MoE's dropped assignments, the decode step beside its
+byte bound, no attention launch for mamba2), and reduced qwen2-moe (at
+capacity factors 64 and 1.25), mamba2 and jamba card against CPU. Any
+failed check exits non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
@@ -944,20 +949,24 @@ def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
     return records
 
 
-def serve_lm(dev, batch, prompt, gen_len):
-    """granite-8b at full width in bf16: prefill ``batch`` prompts of
-    ``prompt`` tokens, decode ``gen_len`` greedy tokens. Returns the launch
-    counts of the measured run (reset just before it, read just after)."""
+def serve_at_width(dev, arch, batch, prompt, gen_len, phase):
+    """``arch`` at full width in bf16 (random weights from seed 0): a
+    64-token warm-up, then ``batch`` prompts of ``prompt`` tokens and
+    ``gen_len`` greedy tokens through ``serve``. Checks the ids, the
+    logits and the attention kernels' launch counts (reset just before
+    the measured run, read just after: one ``flash_prefill`` an attention
+    layer, one ``decode_attention`` an attention layer a decode step, 0
+    for an attention-free model). Returns (model, prompts, result,
+    counts)."""
     import torch
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch.serve import build, random_prompts, serve
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model, t_init = timed(lambda: build(SERVE_ARCH, seed=0, device=dev,
+    model, t_init = timed(lambda: build(arch, seed=0, device=dev,
                                         dtype=torch.bfloat16))
     expect(model.dtype == torch.bfloat16, "the serving model is not bf16")
-    n_params = model.param_count()
     prompts = random_prompts(model, batch, prompt)
     serve(model, prompts[:, :64], gen=2)   # warm-up: cuBLAS, first launches
     reset_launches()
@@ -965,26 +974,38 @@ def serve_lm(dev, batch, prompt, gen_len):
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
     cfg = model.cfg
-    expect(res.logits_finite, "a serving logit is not finite")
+    expect(res.logits_finite, f"{phase} {arch}: a serving logit is not "
+           f"finite")
     expect(tuple(res.ids.shape) == (batch, gen_len), "wrong id shape")
     expect(int(res.ids.min()) >= 0 and int(res.ids.max()) < cfg.vocab,
-           "a served id is a vocab-padding id")
-    want = {"flash_prefill": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (gen_len - 1)}
+           f"{phase} {arch}: a served id is a vocab-padding id")
+    n_attn = sum(blk.spec.mixer == "attn" for blk in model.layers)
+    want = {"flash_prefill": n_attn,
+            "decode_attention": n_attn * (gen_len - 1)}
     for k, n in want.items():
-        expect(counts[k] > 0, f"the serving run launched no {k}")
-        expect(counts[k] == n, f"the serving run launched {k} "
-               f"{counts[k]} times, not {n}")
-    log(f"phase 7 serve {cfg.name} (full width: {cfg.n_layers} layers, "
+        expect(n == 0 or counts[k] > 0, f"the serving run launched no {k}")
+        expect(counts[k] == n, f"{phase} {arch}: the serving run launched "
+               f"{k} {counts[k]} times, not {n}")
+    log(f"{phase} serve {cfg.name} (full width: {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}) bf16 params={n_params} "
-        f"init_s={t_init:.4f} batch={batch} prompt={prompt} gen={gen_len}: "
-        f"prefill_s={res.prefill_s:.4f} "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}) bf16 "
+        f"params={model.param_count()} init_s={t_init:.4f} batch={batch} "
+        f"prompt={prompt} gen={gen_len}: prefill_s={res.prefill_s:.4f} "
         f"prefill_tok_s={batch * prompt / res.prefill_s:.1f} "
         f"decode_s={res.decode_s:.4f} "
         f"decode_tok_s={batch * (gen_len - 1) / res.decode_s:.1f} "
         f"peak_bytes={peak} launches={json.dumps(counts)}")
-    log(f"phase 7 sample ids: {res.ids[0, :12].tolist()}")
+    log(f"{phase} sample ids: {res.ids[0, :12].tolist()}")
+    return model, prompts, res, counts
+
+
+def serve_lm(dev, batch, prompt, gen_len):
+    """granite-8b at full width in bf16 (phase 7); returns the launch
+    counts of the measured run."""
+    import torch
+
+    model, prompts, res, counts = serve_at_width(
+        dev, SERVE_ARCH, batch, prompt, gen_len, "phase 7")
     profile_serving(model, prompts, res.prefill_s,
                     res.decode_s / (gen_len - 1))
     del model, res
@@ -1002,10 +1023,13 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_serving(model, prompts, prefill_s, step_s, steps=4):
+def profile_serving(model, prompts, prefill_s, step_s, steps=4,
+                    phase="phase 7", ops=None):
     """Device time of one prefill and of ``steps`` decode steps by kernel
     group (torch.profiler), against the wall time of the unprofiled run:
-    the device's busy share is device time over that wall time."""
+    the device's busy share is device time over that wall time. ``ops``
+    ({CPU op: label}) names ops whose kernels' device time (part of the
+    groups) is logged beside them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1020,6 +1044,9 @@ def profile_serving(model, prompts, prefill_s, step_s, steps=4):
                     "CUDA" in str(e.device_type):
                 g = _kernel_group(e.key)
                 groups[g] = groups.get(g, 0.0) + t / 1e3
+            if e.key in (ops or {}):
+                t = getattr(e, "device_time_total", 0) or 0
+                groups[ops[e.key]] = t / 1e3
         return groups
 
     with profile(activities=acts) as prof:
@@ -1036,14 +1063,18 @@ def profile_serving(model, prompts, prefill_s, step_s, steps=4):
     del logits, cache
     for what, groups, wall_ms in (("prefill", pre, prefill_s * 1e3),
                                   ("decode step", dec, step_s * 1e3)):
+        parts = {g: groups.pop(g) for g in (ops or {}).values()
+                 if g in groups}
         total = sum(groups.values())
         if total == 0:
-            log(f"phase 7 profile {what}: the profiler saw no device time "
+            log(f"{phase} profile {what}: the profiler saw no device time "
                 f"(not measured)")
             continue
         split = " ".join(f"{g}={t:.3f}ms" for g, t in
                          sorted(groups.items(), key=lambda kv: -kv[1]))
-        log(f"phase 7 profile {what}: device_ms={total:.3f} "
+        split += "".join(f"; of which {g}={t:.3f}ms"
+                         for g, t in parts.items())
+        log(f"{phase} profile {what}: device_ms={total:.3f} "
             f"wall_ms={wall_ms:.3f} busy_share={total / wall_ms:.3f} {split}")
 
 
@@ -3654,6 +3685,334 @@ def gram_autotune(dev, total):
     log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: MoE and Mamba2 serving
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, SSM_ARCH = "qwen2-moe-a2.7b", "mamba2-370m"
+#: (name, arch, capacity factor or None) of the reduced models held card
+#: against CPU; at 1.25 qwen2-moe's 4 real experts of 16 overflow at 80
+#: tokens, so its prefill drops assignments (and jamba's does)
+MOE_CMP = (("qwen2-moe cap 64", MOE_ARCH, 64.0),
+           ("qwen2-moe cap 1.25", MOE_ARCH, None),
+           ("mamba2", SSM_ARCH, None),
+           ("jamba", "jamba-1.5-large-398b", None))
+MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_STEPS = 2, 40, 8
+#: card vs CPU |logit| bound; jamba's 12 Mamba2 layers sit at the f32 SSD
+#: scan's noise floor (on the CPU the port is ~9.2e-5 on these logits from
+#: itself with the whole scan in f64; tests/test_torch_hybrid.py holds it
+#: to repro at the same bound)
+MOE_CMP_ATOL = {"jamba": 1e-3}
+#: a router top-k near-tie: the k-th and (k+1)-th f32 probabilities
+#: within this of each other
+ROUTER_TIE = 1e-6
+
+
+def moe_hooks(model, fn):
+    """A forward hook calling fn(moe, its input) on every MoE layer of
+    ``model``; returns the handles."""
+    return [blk.ff.register_forward_hook(lambda m, inp, out: fn(m, inp[0]))
+            for blk in model.layers if blk.spec.ff == "moe"]
+
+
+def decode_bytes(model, batch, prompt, gen_len):
+    """(weight bytes, KV bytes) one decode step reads at least, the mean
+    over the run's steps: every parameter but the embedding table (a step
+    gathers B rows of it) and every MoE expert (the step's dispatch runs
+    all E_pad of them), and the K/V entries an attention layer reads
+    (``prompt + i + 1`` of them at step i)."""
+    import torch
+
+    cfg = model.cfg
+    weights = sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n != "embed")
+    n_attn = sum(blk.spec.mixer == "attn" for blk in model.layers)
+    item = torch.finfo(model.dtype).bits // 8
+    mean_len = prompt + 1 + (gen_len - 2) / 2
+    kv = 2 * n_attn * batch * cfg.n_kv_heads * cfg.hd * item * mean_len
+    return weights, kv
+
+
+def first_calls(names):
+    """Patch ``repro_torch.models.layers``' ``names`` (the attention
+    wrappers its Attention calls) with spies that keep the arguments of
+    each one's first call (the model's first attention layer) and pass
+    every call on; returns (the patches to enter, {name: (args, kw)})."""
+    from unittest import mock
+
+    from repro_torch.models import layers
+
+    seen: dict = {}
+
+    def spy(name, real):
+        def call(*args, **kw):
+            seen.setdefault(name, (args, kw))
+            return real(*args, **kw)
+        return call
+
+    return [mock.patch.object(layers, n, spy(n, getattr(layers, n)))
+            for n in names], seen
+
+
+def moe_attention_on_its_path(model, prompts, gen_len):
+    """``flash_prefill`` and ``decode_attention`` held to their plain
+    versions (``_attn_close``) on the q/k/v and the cache that the model's
+    first attention layer hands them: a prefill of ``prompts`` into a
+    cache of ``prompt + gen_len`` slots, then one decode step at position
+    ``prompt``. Returns {kernel: (shapes, max |error|)}."""
+    import contextlib
+
+    from repro_torch.kernels import decode_attention, flash_prefill, ref
+
+    b, s = prompts.shape
+    patches, seen = first_calls(("flash_prefill", "decode_attention"))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        logits, cache = model.prefill(prompts, max_len=s + gen_len)
+        model.decode_step(cache, logits[:, -1].argmax(-1, keepdim=True), s)
+    out = {}
+    (q, k, v), kw = seen["flash_prefill"]
+    err = _attn_close(flash_prefill(q, k, v, **kw),
+                      ref.flash_prefill_ref(q, k, v, **kw),
+                      f"phase 18 (a) flash_prefill on {MOE_ARCH}'s path")
+    out["flash_prefill"] = (f"q/k/v {tuple(q.shape)} {q.dtype} {kw}", err)
+    (q, k, v, n_valid), kw = seen["decode_attention"]
+    err = _attn_close(decode_attention(q, k, v, n_valid, **kw),
+                      ref.decode_attention_ref(q, k, v, n_valid, **kw),
+                      f"phase 18 (a) decode_attention on {MOE_ARCH}'s path")
+    out["decode_attention"] = (f"q {tuple(q.shape)}, cache {tuple(k.shape)} "
+                               f"{k.dtype}, n_valid {n_valid}", err)
+    return out
+
+
+def expert_loads(model, prompts):
+    """The assignments each MoE layer's experts receive in a prefill of
+    ``prompts`` (layers, E_pad), before the capacity drops any: hooks
+    rerun each layer's routing on its input."""
+    import torch
+    from repro_torch.models.layers import moe_slots
+
+    loads = []
+
+    def load(m, x):
+        t, e = x.shape[0] * x.shape[1], m.cfg.padded_experts
+        _, ids, _ = m.route(x.reshape(t, -1))
+        loads.append(moe_slots(ids, e, t * m.cfg.moe_top_k)[1])
+
+    hooks = moe_hooks(model, load)
+    model.prefill(prompts)
+    for h in hooks:
+        h.remove()
+    return torch.stack(loads)
+
+
+def serve_moe(dev, batch, prompt, gen_len, total):
+    """Phase 18 (a): qwen2-moe-a2.7b at full width in bf16, served like
+    phase 7; both attention kernels held to their plain versions on the
+    model's own q/k/v and cache; the assignments its prefill drops at
+    capacity 1.25 and each layer's expert loads (hooks that rerun each
+    MoE layer's routing and capacity on its input, in a prefill of their
+    own); its profile with the expert products' time; the decode step
+    beside its byte bound."""
+    import torch
+    from repro_torch.models.layers import moe_capacity
+
+    model, prompts, res, counts = serve_at_width(
+        dev, MOE_ARCH, batch, prompt, gen_len, "phase 18 (a)")
+    for k in ("flash_prefill", "decode_attention"):
+        total[k] += counts[k]
+    checked = moe_attention_on_its_path(model, prompts, gen_len)
+    log("phase 18 (a) attention kernels on the model's first attention "
+        "layer, against their plain versions: " + "; ".join(
+            f"{k} {shape}: max |kernel - plain| {err}"
+            for k, (shape, err) in checked.items()))
+    cfg, t = model.cfg, batch * prompt
+    e_pad, cap = cfg.padded_experts, moe_capacity(cfg, t, cfg.padded_experts)
+    loads = expert_loads(model, prompts)
+    n_assign = t * cfg.moe_top_k * loads.shape[0]
+    n_drop = int((loads - cap).clamp(min=0).sum())
+    expect(int(loads.sum()) == n_assign and
+           int(loads[:, cfg.moe_experts:].sum()) == 0,
+           "phase 18 (a) the router assigned tokens to a padding expert")
+    mean = t * cfg.moe_top_k / cfg.moe_experts
+    real = loads[:, :cfg.moe_experts]
+    log(f"phase 18 (a) prefill drops {n_drop} of {n_assign} token-expert "
+        f"assignments ({n_drop / n_assign:.5f}) over {loads.shape[0]} MoE "
+        f"layers at capacity factor {cfg.moe_capacity_factor} ({t} tokens, "
+        f"top-{cfg.moe_top_k} of {cfg.moe_experts} experts padded to "
+        f"{e_pad}: {cap} slots an expert, {cap / mean:.4f} times a real "
+        f"expert's mean load {mean:.2f}; a decode step's {batch} tokens "
+        f"fill at most {batch} of its {moe_capacity(cfg, batch, e_pad)})")
+    log("phase 18 (a) expert loads by layer (max, min over the real "
+        "experts; experts over capacity; dropped): " + json.dumps(
+            [[int(r.max()), int(r.min()), int((r > cap).sum()),
+              int((r - cap).clamp(min=0).sum())] for r in real]))
+    step_s = res.decode_s / (gen_len - 1)
+    weights, kv = decode_bytes(model, batch, prompt, gen_len)
+    bound_ms = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    experts = sum(blk.ff.exp_wgate.nbytes + blk.ff.exp_wi.nbytes
+                  + blk.ff.exp_w_down.nbytes for blk in model.layers
+                  if blk.spec.ff == "moe")
+    log(f"phase 18 (a) decode step {step_s * 1e3:.3f} ms beside its byte "
+        f"bound {bound_ms:.3f} ms ({step_s * 1e3 / bound_ms:.2f}x): experts "
+        f"{experts / 1e9:.3f} GB + other weights "
+        f"{(weights - experts) / 1e9:.3f} GB + K/V {kv / 1e9:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; active params a token "
+        f"{model.active_param_count()} of {model.param_count()}")
+    # the MoE's expert products are the model's only batched matmuls
+    profile_serving(model, prompts, res.prefill_s, step_s,
+                    phase="phase 18 (a)",
+                    ops={"aten::bmm": "expert products (aten::bmm)"})
+    del model, res, prompts
+    torch.cuda.empty_cache()
+
+
+def serve_ssm(dev, batch, prompt, gen_len):
+    """Phase 18 (b): mamba2-370m at full width in bf16, served like phase
+    7: attention-free, so no attention kernel launches."""
+    import torch
+    from repro_torch.kernels.flash_prefill import largest_divisor
+    from repro_torch.models.layers import ssd_chunk
+
+    model, prompts, res, _ = serve_at_width(
+        dev, SSM_ARCH, batch, prompt, gen_len, "phase 18 (b)")
+    cfg = model.cfg
+    chunk = largest_divisor(prompt, ssd_chunk(batch, prompt, cfg.ssm_heads))
+    weights, _ = decode_bytes(model, batch, prompt, gen_len)
+    step_s = res.decode_s / (gen_len - 1)
+    log(f"phase 18 (b) SSD chunk length {chunk} ({prompt // chunk} chunks "
+        f"a layer, {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}); decode step {step_s * 1e3:.3f} ms beside its "
+        f"weight bytes' bound {weights / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    profile_serving(model, prompts, res.prefill_s, step_s,
+                    phase="phase 18 (b)")
+    del model, res, prompts
+    torch.cuda.empty_cache()
+
+
+def record_routes(model, calls):
+    """Hooks appending, for each MoE call of ``model``, (layer, each
+    token's experts in ascending order (T, k), each token's gap between
+    its k-th and (k+1)-th router probability (T,)) to ``calls``, on the
+    CPU."""
+    import torch
+
+    def hook(layer):
+        def rec(m, inp, out):
+            x = inp[0]
+            _, ids, probs = m.route(x.reshape(-1, x.shape[-1]))
+            top = torch.topk(probs, m.cfg.moe_top_k + 1, dim=-1).values
+            calls.append((layer, ids.sort(-1).values.cpu(),
+                          (top[:, -2] - top[:, -1]).cpu()))
+        return rec
+
+    return [blk.ff.register_forward_hook(hook(i))
+            for i, blk in enumerate(model.layers) if blk.spec.ff == "moe"]
+
+
+def first_parting(host, card):
+    """The first MoE call, in call order, at which the card routed a token
+    to other experts than the CPU: (layer, [(token, CPU top-k gap)]), or
+    None. A later call's partings may follow from this one's."""
+    for (layer, ids, gap), (_, ids_card, _) in zip(host, card):
+        tokens = (ids != ids_card).any(-1).nonzero().flatten().tolist()
+        if tokens:
+            return layer, [(t, float(gap[t])) for t in tokens]
+    return None
+
+
+def moe_card_vs_cpu(dev):
+    """Phase 18 (c): MOE_CMP's reduced models in f32, the same weights on
+    the card and the CPU: a prefill and MOE_CMP_STEPS greedy decode
+    steps route every token to the same experts and give equal ids and
+    logits within 1e-4 (MOE_CMP_ATOL). A step is excused only where the
+    first MoE call at which the two route a token differently does so at
+    router near-ties (top-k gap under ROUTER_TIE) alone; it is logged
+    with its layer and tokens, and the card takes the CPU's cache before
+    the next step, so that every later step is compared from equal
+    states. Both devices always step on the CPU's token."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.transformer import Transformer
+
+    b, s, steps = MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_STEPS
+    for name, arch, cap in MOE_CMP:
+        cfg = get_arch(arch).reduced()
+        if cap is not None:
+            cfg = dataclasses.replace(cfg, moe_capacity_factor=cap)
+        gen = torch.Generator().manual_seed(0)
+        cpu = Transformer(cfg, device="cpu", dtype=torch.float32,
+                          generator=gen)
+        card = copy.deepcopy(cpu).to(dev)
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+        dropped, on_cpu, on_card = [], [], []
+        hooks = moe_hooks(cpu, lambda m, x: dropped.append(int(m.dropped(x))))
+        hooks += record_routes(cpu, on_cpu) + record_routes(card, on_card)
+        atol = MOE_CMP_ATOL.get(name, 1e-4)
+        worst, gaps, ties = 0.0, [], []
+        lc, cc = cpu.prefill(tokens, max_len=s + steps)
+        lg, cg = card.prefill(tokens.to(dev), max_len=s + steps)
+        drops = sum(dropped)
+        for i in range(steps + 1):
+            expect(len(on_cpu) == len(on_card), f"phase 18 (c) {name} step "
+                   f"{i}: {len(on_cpu)} MoE calls on the CPU, "
+                   f"{len(on_card)} on the card")
+            gaps += [float(g.min()) for _, _, g in on_cpu]
+            err = float((lg.cpu() - lc).abs().max())
+            tok = lc[:, -1].argmax(-1, keepdim=True)
+            same = torch.equal(lg[:, -1].argmax(-1, keepdim=True).cpu(), tok)
+            parting = first_parting(on_cpu, on_card)
+            on_cpu.clear()
+            on_card.clear()
+            if parting is None:
+                expect(err <= atol and same, f"phase 18 (c) {name} step "
+                       f"{i}: max |logit error| {err} (bound {atol}), ids "
+                       f"equal {same}, with the same routing")
+                worst = max(worst, err)
+            else:
+                layer, parted = parting
+                expect(all(g < ROUTER_TIE for _, g in parted),
+                       f"phase 18 (c) {name} step {i}: layer {layer} routes "
+                       f"(token, top-k gap) {parted} differently on the card "
+                       f"and on the CPU, not all at near-ties")
+                ties.append((i, layer, parted, err, same))
+                log(f"phase 18 (c) {name} step {i}: layer {layer} routes "
+                    f"(token, top-k gap) {parted} differently at router "
+                    f"near-ties: |logit error| {err}, ids equal {same}; the "
+                    f"card takes the CPU's cache")
+                cg = [{k: t.to(dev) for k, t in c.items()} for c in cc]
+            if i < steps:
+                lc, cc = cpu.decode_step(cc, tok, s + i)
+                lg, cg = card.decode_step(cg, tok.to(dev), s + i)
+        for h in hooks:
+            h.remove()
+        expect((drops > 0) == ("cap 64" not in name and arch != SSM_ARCH),
+               f"phase 18 (c) {name}: the prefill dropped {drops} "
+               f"assignments")
+        log(f"phase 18 (c) {name} card == CPU over a prefill + {steps} "
+            f"greedy steps (f32, batch {b}, prompt {s}, {cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}): max |logit error| {worst} "
+            f"(bound {atol}); prefill drops {drops}; smallest router top-k "
+            f"gap {min(gaps, default=None)}; near-ties {ties}")
+
+
+def moe_mamba_serving(dev, total):
+    """Phase 18: (a) qwen2-moe-a2.7b and (b) mamba2-370m at full width in
+    bf16, (c) the reduced MoE, SSM and hybrid models card against CPU."""
+    t0 = time.perf_counter()
+    serve_moe(dev, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, total)
+    t1 = time.perf_counter()
+    serve_ssm(dev, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN)
+    t2 = time.perf_counter()
+    moe_card_vs_cpu(dev)
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
+        f"(b) {t2 - t1:.1f}, (c) {time.perf_counter() - t2:.1f})")
+
+
 def _cuobjdump():
     """cuobjdump from PATH, the CUDA toolkit or Triton's bundle, else None."""
     import shutil
@@ -3727,6 +4086,7 @@ def log_tensor_core_use(build_dir):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -3788,10 +4148,12 @@ def main() -> int:
     wire_plane("cuda", total, main_edges)
     train_plane("cuda", total, gen)
     gram_autotune("cuda", total)
+    moe_mamba_serving("cuda", total)
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "
                f"{r['name']}")
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": records}))

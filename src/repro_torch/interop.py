@@ -85,13 +85,32 @@ def _layer_index(cfg) -> list[tuple[str, int]]:
             for i in range(len(cfg.pattern))]
 
 
-#: (port module path within a layer, ``repro`` path within a sublayer)
-_LAYER_LEAVES = (("mixer_norm.scale", ("mixer_norm", "scale")),
-                 ("ff_norm.scale", ("ff_norm", "scale")),
-                 *((f"mixer.{n}", ("mixer", n)) for n in ("wq", "wk", "wv",
-                                                          "wo")),
-                 *((f"ff.{n}", ("ff", n)) for n in ("wgate", "wi",
-                                                    "w_down")))
+_MIXER_LEAVES = {"attn": ("wq", "wk", "wv", "wo"),
+                 "mamba": ("in_proj", "conv_w", "conv_b", "a_log",
+                           "dt_bias", "ssm_d", "out_proj", "norm_scale")}
+_FF_LEAVES = {"mlp": ("wgate", "wi", "w_down"),
+              "moe": ("router", "exp_wgate", "exp_wi", "exp_w_down"),
+              "none": ()}
+
+
+def _layer_leaves(cfg, spec) -> list[tuple[str, tuple[str, ...]]]:
+    """(port parameter path within a layer, ``repro`` key path within a
+    sublayer) of every leaf of a sublayer of kind ``spec``."""
+    out = [("mixer_norm.scale", ("mixer_norm", "scale"))]
+    out += [(f"mixer.{n}", ("mixer", n)) for n in _MIXER_LEAVES[spec.mixer]]
+    if spec.ff != "none":
+        out.append(("ff_norm.scale", ("ff_norm", "scale")))
+    out += [(f"ff.{n}", ("ff", n)) for n in _FF_LEAVES[spec.ff]]
+    if spec.ff == "moe" and cfg.moe_shared_ff:
+        out += [(f"ff.shared.{n}", ("ff", "shared", n))
+                for n in _FF_LEAVES["mlp"]]
+    return out
+
+
+def _get(tree: dict, path: tuple[str, ...]):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _host_array(a) -> np.ndarray:
@@ -99,6 +118,12 @@ def _host_array(a) -> np.ndarray:
     which torch can read."""
     a = np.asarray(a)
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy on the host; bf16 widens to f32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _named_from_tree(cfg, tree: dict) -> dict:
@@ -109,9 +134,10 @@ def _named_from_tree(cfg, tree: dict) -> dict:
     if not cfg.tie_embeddings:
         out["unembed"] = _host_array(tree["unembed"])
     for i, (key, rep) in enumerate(_layer_index(cfg)):
-        for name, (mod, leaf) in _LAYER_LEAVES:
+        spec = cfg.pattern[int(key[1:])]
+        for name, path in _layer_leaves(cfg, spec):
             out[f"layers.{i}.{name}"] = _host_array(
-                tree["blocks"][key][mod][leaf])[rep]
+                _get(tree["blocks"][key], path))[rep]
     return out
 
 
@@ -119,21 +145,20 @@ def lm_tree_from_named(cfg, named: dict) -> dict:
     """{port parameter name: tensor} (parameters, gradients or moments)
     in ``repro``'s params layout as numpy, the layers stacked over
     ``n_rep`` again; bf16 comes back as f32 (exactly)."""
-    def host(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
-    tree = {"embed": host(named["embed"]),
-            "final_norm": {"scale": host(named["final_norm.scale"])},
+    tree = {"embed": _host_numpy(named["embed"]),
+            "final_norm": {"scale": _host_numpy(named["final_norm.scale"])},
             "blocks": {}}
     if not cfg.tie_embeddings:
-        tree["unembed"] = host(named["unembed"])
+        tree["unembed"] = _host_numpy(named["unembed"])
     for key in dict(_layer_index(cfg)):
         layers = [i for i, (k, _) in enumerate(_layer_index(cfg)) if k == key]
         blk: dict = {}
-        for name, (mod, leaf) in _LAYER_LEAVES:
-            blk.setdefault(mod, {})[leaf] = np.stack(
-                [host(named[f"layers.{i}.{name}"]) for i in layers])
+        for name, path in _layer_leaves(cfg, cfg.pattern[int(key[1:])]):
+            node = blk
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = np.stack(
+                [_host_numpy(named[f"layers.{i}.{name}"]) for i in layers])
         tree["blocks"][key] = blk
     return tree
 
@@ -143,11 +168,17 @@ def lm_params_from_numpy(cfg, tree: dict, *, device=None,
     """A loaded ``Transformer`` from ``repro``'s params pytree as numpy.
 
     ``tree`` holds ``embed`` (V, D), ``unembed`` (D, V) unless embeddings
-    are tied, ``final_norm.scale`` and ``blocks.l<i>.{mixer_norm.scale,
-    mixer.{wq,wk,wv,wo}, ff_norm.scale, ff.{wgate,wi,w_down}}`` with a
-    leading ``n_rep`` axis, which is unstacked into the port's one module
-    per layer. The parameters come back frozen, as ``Transformer`` makes
-    them.
+    are tied, ``final_norm.scale`` and, per sublayer ``blocks.l<i>`` with
+    a leading ``n_rep`` axis (unstacked into the port's one module per
+    layer), ``mixer_norm.scale``, the mixer's leaves (attention
+    ``{wq,wk,wv,wo}``; Mamba2 ``{in_proj, conv_w, conv_b, a_log,
+    dt_bias, ssm_d, out_proj, norm_scale}``), and unless it has no
+    feed-forward ``ff_norm.scale`` and the feed-forward's (MLP
+    ``{wgate,wi,w_down}``; MoE ``{router, exp_wgate, exp_wi, exp_w_down}``
+    and ``shared.{wgate,wi,w_down}``). Each leaf is copied in its
+    parameter's dtype: ``dtype``, but f32 for the router, ``a_log``,
+    ``dt_bias`` and ``ssm_d``. The parameters come back frozen, as
+    ``Transformer`` makes them.
     """
     from repro_torch.models.transformer import Transformer
 
@@ -159,7 +190,7 @@ def lm_params_from_numpy(cfg, tree: dict, *, device=None,
             if tuple(param.shape) != a.shape:
                 raise ValueError(f"{name}: shape {a.shape} does not fit the "
                                  f"port's {tuple(param.shape)}")
-            param.copy_(torch.tensor(a, device=model.device, dtype=dtype))
+            param.copy_(torch.tensor(a))
     return model
 
 
@@ -190,9 +221,27 @@ def opt_state_to_numpy(cfg, model, optimizer) -> dict:
 def kv_cache_from_numpy(cfg, tree: dict, *, device=None,
                         dtype: torch.dtype | None = None) -> list[dict]:
     """The port's per-layer cache from the one ``repro``'s ``prefill`` /
-    ``init_cache`` return: {'l<i>': {'k', 'v': (n_rep, B, S, Hkv, Dh)}}."""
+    ``init_cache`` return: {'l<i>': {'k', 'v': (n_rep, B, S, Hkv, Dh)}}
+    for attention, {'l<i>': {'conv': (n_rep, B, W - 1, C), 'ssm':
+    (n_rep, B, H, P, N)}} for Mamba2. ``dtype`` (default: numpy's) is the
+    K/V's and the conv tail's; the SSM state stays f32."""
     dev = resolve_device(device)
-    return [{n: torch.tensor(np.asarray(tree[key][n])[rep], device=dev,
-                             dtype=dtype)
-             for n in ("k", "v")}
+
+    def entry(name, a):
+        a = _host_array(a)
+        dt = torch.float32 if name == "ssm" else dtype
+        return torch.tensor(a).to(device=dev, dtype=dt)
+
+    return [{n: entry(n, a[rep]) for n, a in tree[key].items()}
             for key, rep in _layer_index(cfg)]
+
+
+def kv_cache_to_numpy(cfg, cache: list[dict]) -> dict:
+    """The port's per-layer cache in ``repro``'s layout, stacked over
+    ``n_rep`` again, as numpy (bf16 comes back as f32, exactly)."""
+    tree: dict = {}
+    for key in dict(_layer_index(cfg)):
+        layers = [i for i, (k, _) in enumerate(_layer_index(cfg)) if k == key]
+        tree[key] = {n: np.stack([_host_numpy(cache[i][n]) for i in layers])
+                     for n in cache[layers[0]]}
+    return tree

@@ -1,15 +1,20 @@
-"""LM serving: batched prefill, then greedy decode with a KV cache.
+"""LM serving: batched prefill, then greedy decode with a cache.
 
-The port of ``repro.launch.serve`` for dense LMs: prefill a batch of
-prompts, then decode greedily, reporting tokens/s. Every attention layer
-of the prefill runs the ``flash_prefill`` kernel and every one of each
-decode step the ``decode_attention`` kernel (their plain versions on the
-CPU). Weights are random draws from ``--seed``, as in ``repro``.
+The port of ``repro.launch.serve`` for decoder-only LMs: dense
+(granite-8b, ...), MoE (qwen2-moe-a2.7b), SSM (mamba2-370m) and hybrid
+(jamba-1.5-large-398b) stacks. It prefills a batch of prompts, then
+decodes greedily, reporting tokens/s. Every attention layer of the
+prefill runs the ``flash_prefill`` kernel and every one of each decode
+step the ``decode_attention`` kernel (their plain versions on the CPU);
+MoE and Mamba2 layers run in PyTorch. Weights are random draws from
+``--seed``, as in ``repro``.
 
   python -m repro_torch.launch.serve --arch granite-8b --batch 8 \\
       --prompt-len 2048 --gen 32
-  python -m repro_torch.launch.serve --arch granite-8b --reduced \\
-      --device cpu --batch 2 --prompt-len 16 --gen 8
+  python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --batch 8 \\
+      --prompt-len 2048 --gen 32
+  python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \\
+      --reduced --device cpu --batch 2 --prompt-len 16 --gen 8
 """
 from __future__ import annotations
 

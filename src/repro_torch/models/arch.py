@@ -3,9 +3,10 @@
 A copy of ``repro.models.arch``: every architecture is a frozen
 ``ArchConfig``; configs live in ``repro_torch.configs.<id>`` and register
 themselves here. Layer stacks are described as a repeated *superblock* —
-a short pattern of sublayers repeated ``n_rep`` times. The port runs the
-dense pattern (one attention + MLP sublayer); :func:`check_supported`
-names the later slice for everything else.
+a short pattern of sublayers repeated ``n_rep`` times. The port runs
+decoder-only patterns (attention or Mamba2 mixers; MLP, MoE or no
+feed-forward); :func:`check_supported` names the later slice for the
+modality stubs and encoder-decoder stacks.
 """
 from __future__ import annotations
 
@@ -190,22 +191,16 @@ def load_all() -> None:
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    it runs dense stacks of causal attention + SwiGLU MLP sublayers."""
+    it runs decoder-only stacks of attention or Mamba2 mixers, each
+    followed by a SwiGLU MLP, an MoE or no feed-forward."""
     later = []
-    if cfg.moe_experts or any(l.ff == "moe" for l in cfg.pattern):
-        later.append("MoE layers")
-    if any(l.mixer == "mamba" for l in cfg.pattern) or cfg.ssm_state:
-        later.append("Mamba2 mixers")
     if cfg.modality:
         later.append(f"the {cfg.modality} frontend stub")
     if cfg.is_encoder_decoder or any(l.cross_attn for l in cfg.pattern):
         later.append("encoder-decoder stacks")
-    if any(l.ff == "none" for l in cfg.pattern):
-        later.append("sublayers without a feed-forward")
-    if cfg.family not in ("dense",) and not later:
-        later.append(f"the {cfg.family!r} family")
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} arrive with a later slice of "
-            f"the port's LM stack; the port runs dense attention + MLP "
-            f"stacks today")
+            f"the port's LM stack; the port runs decoder-only stacks of "
+            f"attention and Mamba2 mixers with MLP and MoE feed-forwards "
+            f"today")

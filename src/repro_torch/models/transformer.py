@@ -1,13 +1,15 @@
-"""The dense transformer LM: embeddings, the layer stack, the training
-forward and loss, prefill and one-token decode against a KV cache.
+"""The decoder-only LM: embeddings, the layer stack, the training forward
+and loss, prefill and one-token decode against a cache.
 
-The port of the dense path of ``repro.models.transformer``. ``repro``
-stacks the layers' params over ``n_rep`` and scans them; here they are an
-``nn.ModuleList`` of ``Block``s, one per layer (``interop.lm_params_from_numpy``
-unstacks ``repro``'s params). The cache is a list with one
-{'k', 'v': (B, Sbuf, Hkv, Dh)} dict per layer; ``decode_step`` updates it
-in place. ``repro``'s sharding constraints are no-ops without a mesh and
-the port has no mesh, so they are dropped.
+The port of ``repro.models.transformer`` for decoder-only stacks.
+``repro`` stacks the layers' params over ``n_rep`` and scans them; here
+they are an ``nn.ModuleList`` of ``Block``s, one per layer in stack order,
+each built for its ``LayerSpec`` (``interop.lm_params_from_numpy``
+unstacks ``repro``'s params). The cache is a list with one dict per
+layer: {'k', 'v': (B, Sbuf, Hkv, Dh)} for attention, {'conv', 'ssm'} for
+Mamba2; ``decode_step`` updates it in place. ``repro``'s sharding
+constraints are no-ops without a mesh and the port has no mesh, so they
+are dropped.
 
 Training (``forward`` + ``lm_loss``) rematerialises as ``repro`` does:
 each block runs under ``torch.utils.checkpoint`` (``repro`` checkpoints
@@ -24,48 +26,82 @@ from repro_torch._device import resolve_device
 from repro_torch.kernels.flash_prefill import largest_divisor
 
 from . import layers
-from .arch import ArchConfig, check_supported
+from .arch import ArchConfig, LayerSpec, check_supported
 
 #: logit of a vocab-padding id
 VOCAB_PAD_NEG = -1e30
 
 
 class Block(nn.Module):
-    """One dense sublayer: x + attn(norm(x)), then + mlp(norm(x))."""
+    """One sublayer of kind ``spec``: x + mixer(norm(x)) with an attention
+    or Mamba2 mixer, then x + ff(norm(x)) with an MLP or an MoE, or no
+    feed-forward (and no ``ff_norm``)."""
 
-    def __init__(self, cfg: ArchConfig, *, device, dtype, generator=None):
+    def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, device, dtype,
+                 generator=None):
         super().__init__()
+        self.spec = spec
         kw = dict(device=device, dtype=dtype)
         self.mixer_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
-        self.mixer = layers.Attention(cfg, generator=generator, **kw)
-        self.ff_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
-        self.ff = layers.MLP(cfg.d_model, cfg.d_ff, generator=generator, **kw)
+        mixer = layers.Attention if spec.mixer == "attn" else layers.Mamba2
+        self.mixer = mixer(cfg, generator=generator, **kw)
+        if spec.ff != "none":
+            self.ff_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
+            self.ff = layers.MoE(cfg, generator=generator, **kw) \
+                if spec.ff == "moe" else \
+                layers.MLP(cfg.d_model, cfg.d_ff, generator=generator, **kw)
 
-    def forward(self, x, *, causal: bool, window: int, positions):
-        h, kv = self.mixer(self.mixer_norm(x), causal=causal, window=window,
-                           positions=positions)
-        x = x + h
-        return x + self.ff(self.ff_norm(x)), kv
+    def feed_forward(self, x):
+        """(x + ff(ff_norm(x)), the MoE's aux loss or None)."""
+        if self.spec.ff == "none":
+            return x, None
+        h = self.ff_norm(x)
+        if self.spec.ff == "moe":
+            out, aux = self.ff(h)
+            return x + out, aux
+        return x + self.ff(h), None
 
-    def train_forward(self, x, causal: bool, window: int, positions):
-        """forward without the K/V (the function each checkpoint reruns)."""
-        return self(x, causal=causal, window=window, positions=positions)[0]
+    def forward(self, x, *, window: int, positions):
+        """(x out, the MoE's aux or None, this layer's cache entries:
+        {'k', 'v'} of the prompt or Mamba2's {'conv', 'ssm'})."""
+        h = self.mixer_norm(x)
+        if self.spec.mixer == "attn":
+            h, (k, v) = self.mixer(h, causal=self.spec.causal,
+                                   window=window, positions=positions)
+            cache = {"k": k, "v": v}
+        else:
+            h, cache = self.mixer(h)
+        x, aux = self.feed_forward(x + h)
+        return x, aux, cache
+
+    def train_forward(self, x, window: int, positions):
+        """forward without the cache (the function each checkpoint
+        reruns)."""
+        return self(x, window=window, positions=positions)[:2]
 
     def decode(self, x, cache: dict, pos: int, *, window: int):
-        x = x + self.mixer.decode(self.mixer_norm(x), cache, pos,
-                                  window=window)
-        return x + self.ff(self.ff_norm(x))
+        h = self.mixer_norm(x)
+        if self.spec.mixer == "attn":
+            h = self.mixer.decode(h, cache, pos, window=window)
+        else:
+            h = self.mixer.decode(h, cache)
+        return self.feed_forward(x + h)[0]
 
 
 class Transformer(nn.Module):
-    """A dense decoder-only LM for ``cfg`` (attention + SwiGLU MLP
-    sublayers; other families raise ``NotImplementedError``).
+    """A decoder-only LM for ``cfg``: one ``Block`` per layer, of its
+    ``LayerSpec`` (modality stubs and encoder-decoder stacks raise
+    ``NotImplementedError``).
 
     With a ``generator`` the weights are drawn on ``device`` from
     ``repro``'s distributions (the port of ``init_params``): embed
-    N(0, 0.02^2), unembed N(0, 1/d), projections N(0, 1/fan_in), norm
-    scales 1. Without one they are left uninitialised for a loader
-    (``interop.lm_params_from_numpy``).
+    N(0, 0.02^2), unembed N(0, 1/d), projections N(0, 1/fan_in) (the conv
+    kernel 3^2 / W), norm scales 1, Mamba2's constants as ``repro``'s.
+    Without one they are left uninitialised for a loader
+    (``interop.lm_params_from_numpy``). ``dtype`` is the weights' and the
+    activations'; the MoE router and Mamba2's ``a_log``, ``dt_bias`` and
+    ``ssm_d`` stay f32 (move a model with ``.to(device)``, never
+    ``.to(dtype)``).
     """
 
     def __init__(self, cfg: ArchConfig, *, device=None,
@@ -80,13 +116,13 @@ class Transformer(nn.Module):
         self.embed = layers.normal_param((v, d), generator=generator,
                                          std=0.02, **kw)
         self.layers = nn.ModuleList(
-            Block(cfg, generator=generator, **kw) for _ in range(cfg.n_layers))
+            Block(cfg, spec, generator=generator, **kw)
+            for _ in range(cfg.n_rep) for spec in cfg.pattern)
         self.final_norm = layers.RMSNorm(d, cfg.norm_eps, **kw)
         self.unembed = None
         if not cfg.tie_embeddings:
             self.unembed = layers.normal_param((d, v), generator=generator,
                                                std=d ** -0.5, **kw)
-        self._causal = [spec.causal for spec in cfg.pattern] * cfg.n_rep
 
     @property
     def device(self) -> torch.device:
@@ -98,6 +134,16 @@ class Transformer(nn.Module):
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: the MoE's top_k of its padded
+        routed experts."""
+        e, k = self.cfg.padded_experts, self.cfg.moe_top_k
+        inactive = sum((e - k) * (w.numel() // e)
+                       for blk in self.layers if blk.spec.ff == "moe"
+                       for w in (blk.ff.exp_wgate, blk.ff.exp_wi,
+                                 blk.ff.exp_w_down))
+        return self.param_count() - inactive
 
     def _unembedding(self) -> torch.Tensor:
         return self.embed.t() if self.unembed is None else self.unembed
@@ -118,21 +164,23 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor, *, window: int = 0
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """The training forward: tokens (B, S) -> (final-normed hidden
-        (B, S, D), aux loss). Each block is checkpointed when autograd
-        records; ``aux`` is ``repro``'s MoE load-balance term, 0 for the
-        dense stacks the port runs."""
+        (B, S, D), aux loss f32): ``repro``'s MoE load-balance terms summed
+        over the MoE layers, 0 without one. Each block is checkpointed when
+        autograd records."""
         s = tokens.shape[1]
         x = nn.functional.embedding(tokens, self.embed)
         positions = torch.arange(s, device=x.device)[None, :]
         remat = torch.is_grad_enabled()
-        for blk, causal in zip(self.layers, self._causal):
-            if remat:
-                x = checkpoint(blk.train_forward, x, causal, window,
-                               positions, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = blk.train_forward(x, causal, window, positions)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.layers:
+            if remat:
+                x, a = checkpoint(blk.train_forward, x, window, positions,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = blk.train_forward(x, window, positions)
+            if a is not None:
+                aux = aux + a
         return self.final_norm(x), aux
 
     def _chunk_loss(self, h, t, m, unemb):
@@ -171,13 +219,17 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, *, window: int = 0
                    ) -> list[dict]:
-        """Zeroed caches in the model's dtype, one per layer:
-        ``min(max_len, window)`` slots with a window, else ``max_len``."""
+        """Zeroed caches, one per layer: attention's in the model's dtype
+        with ``min(max_len, window)`` slots with a window, else
+        ``max_len``; Mamba2's conv tail in the model's dtype and its state
+        in f32."""
         sbuf = min(max_len, window) if window else max_len
-        cfg = self.cfg
+        cfg, kw = self.cfg, dict(device=self.device, dtype=self.dtype)
         return [layers.init_kv_cache(batch, sbuf, cfg.n_kv_heads, cfg.hd,
-                                     device=self.device, dtype=self.dtype)
-                for _ in self.layers]
+                                     **kw)
+                if blk.spec.mixer == "attn" else
+                layers.init_mamba_cache(batch, cfg, **kw)
+                for blk in self.layers]
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, window: int = 0,
@@ -185,11 +237,12 @@ class Transformer(nn.Module):
         """Run the prompt tokens (B, S); returns (last-position logits
         (B, 1, V), cache) so that ``decode_step`` continues at position S.
 
-        The cache holds the post-RoPE K/V of the prompt. Without a window
-        it has ``max_len`` slots when ``max_len > S`` (the rest zero), else
-        S. With a window it has S slots whatever ``max_len`` says, as in
-        ``repro`` (its prefill pads only unwindowed caches), and the
-        prompt must fit the window.
+        An attention layer's cache holds the post-RoPE K/V of the prompt.
+        Without a window it has ``max_len`` slots when ``max_len > S`` (the
+        rest zero), else S. With a window it has S slots whatever
+        ``max_len`` says, as in ``repro`` (its prefill pads only unwindowed
+        caches), and the prompt must fit the window. A Mamba2 layer's cache
+        is its conv tail and final state, never padded.
         """
         b, s = tokens.shape
         if window and s > window:
@@ -197,13 +250,18 @@ class Transformer(nn.Module):
                              f"than the window {window}")
         x = self.embed[tokens]
         positions = torch.arange(s, device=x.device)[None, :]
-        cache = self.init_cache(b, max_len if max_len > s and not window
-                                else s)
-        for blk, causal, c in zip(self.layers, self._causal, cache):
-            x, (k, v) = blk(x, causal=causal, window=window,
-                            positions=positions)
-            c["k"][:, :s] = k
-            c["v"][:, :s] = v
+        sbuf = max_len if max_len > s and not window else s
+        cache = []
+        for blk in self.layers:
+            x, _, c = blk(x, window=window, positions=positions)
+            if blk.spec.mixer == "attn":
+                kv = layers.init_kv_cache(b, sbuf, self.cfg.n_kv_heads,
+                                          self.cfg.hd, device=self.device,
+                                          dtype=self.dtype)
+                kv["k"][:, :s] = c["k"]
+                kv["v"][:, :s] = c["v"]
+                c = kv
+            cache.append(c)
         x = self.final_norm(x[:, -1:, :])
         return self.logits(x), cache
 
@@ -212,7 +270,8 @@ class Transformer(nn.Module):
                     *, window: int = 0) -> tuple[torch.Tensor, list[dict]]:
         """One serve step: token (B, 1) at absolute position ``pos`` (a host
         int); returns (logits (B, 1, V), cache), the cache updated in
-        place."""
+        place. MoE layers route the B tokens of the step together and
+        drop their aux loss, as ``repro`` does."""
         x = self.embed[token]
         for blk, c in zip(self.layers, cache):
             x = blk.decode(x, c, int(pos), window=window)

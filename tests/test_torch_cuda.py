@@ -868,3 +868,80 @@ def test_cuda_glasso_lanes_independent_of_their_batch(cuda):
     full = glasso.glasso_batch(S, lam, n_steps=40)
     alone = glasso.glasso_batch(S[8:16], lam[8:16], n_steps=40)
     assert torch.equal(full[8:16], alone)
+
+
+def _moe_mamba_cfgs():
+    """The reduced MoE, SSM and hybrid configs of the card-vs-CPU checks:
+    qwen2-moe at capacity factor 64 (no drops) and 1.25 (its 4 real
+    experts of 16 overflow at 80 tokens), mamba2 and jamba."""
+    import dataclasses
+
+    from repro_torch.models.arch import get_arch
+
+    qwen = get_arch("qwen2-moe-a2.7b").reduced()
+    return {"qwen2-moe-cap64": dataclasses.replace(qwen,
+                                                   moe_capacity_factor=64.0),
+            "qwen2-moe-cap1.25": qwen,
+            "mamba2": get_arch("mamba2-370m").reduced(),
+            "jamba": get_arch("jamba-1.5-large-398b").reduced()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen2-moe-cap64", "qwen2-moe-cap1.25",
+                                  "mamba2", "jamba"])
+def test_cuda_moe_and_mamba_models_match_cpu(cuda, name):
+    """The same f32 weights on the card and the CPU: a 40-token prefill
+    (batch 2) and 8 greedy decode steps give equal ids and logits within
+    1e-4 (jamba: 1e-3, its 12 Mamba2 layers' f32 scan noise, as against
+    ``repro`` in ``tests/test_torch_hybrid.py``)."""
+    import copy
+
+    from repro_torch.models.transformer import Transformer
+
+    cfg = _moe_mamba_cfgs()[name]
+    cpu = Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    drops = [blk.ff.register_forward_hook(
+        lambda m, inp, out: dropped.append(int(m.dropped(inp[0]))))
+        for blk in cpu.layers if blk.spec.ff == "moe"]
+    dropped: list = []
+    tol = 1e-3 if name == "jamba" else 1e-4
+    lc, cc = cpu.prefill(tokens, max_len=48)
+    for h in drops:
+        h.remove()
+    assert (sum(dropped) > 0) == (name in ("qwen2-moe-cap1.25", "jamba"))
+    lg, cg = card.prefill(tokens.to(cuda), max_len=48)
+    for i in range(9):
+        assert float((lg.cpu() - lc).abs().max()) <= tol, i
+        tok = lc[:, -1].argmax(-1, keepdim=True)
+        assert torch.equal(lg[:, -1].argmax(-1, keepdim=True).cpu(), tok)
+        if i < 8:
+            lc, cc = cpu.decode_step(cc, tok, 40 + i)
+            lg, cg = card.decode_step(cg, tok.to(cuda), 40 + i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "mamba2-370m"])
+def test_cuda_moe_and_mamba_decode_step_without_host_sync(cuda, name):
+    """A decode step of reduced qwen2-moe (routing, the capacity dispatch,
+    the gather combine, attention) and of reduced mamba2 runs with
+    ``set_sync_debug_mode("error")``: no device-to-host sync."""
+    from repro_torch.launch.serve import build
+
+    model = build(name, reduced=True, device=cuda, dtype=torch.bfloat16)
+    tokens = torch.randint(0, model.cfg.vocab, (8, 16), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    logits, cache = model.prefill(tokens, max_len=20)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    logits, cache = model.decode_step(cache, tok, 16)   # warm
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.decode_step(cache, tok, 17)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(logits[..., :model.cfg.vocab]).all()

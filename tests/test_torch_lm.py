@@ -253,7 +253,8 @@ def test_init_draws_repros_distributions():
 
 
 @pytest.mark.parametrize("name", ["granite-8b", "granite-34b", "stablelm-3b",
-                                  "mistral-nemo-12b"])
+                                  "mistral-nemo-12b", "qwen2-moe-a2.7b",
+                                  "mamba2-370m", "jamba-1.5-large-398b"])
 def test_dense_configs_are_copies(name):
     assert dataclasses.asdict(t_arch.get_arch(name)) == dataclasses.asdict(
         j_get_arch(name))
@@ -261,10 +262,9 @@ def test_dense_configs_are_copies(name):
         dataclasses.asdict(j_get_arch(name).reduced())
 
 
-@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "mamba2-370m",
-                                  "jamba-1.5-large-398b",
-                                  "llava-next-mistral-7b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2",
+                                  "llama4-scout-17b-a16e"])
 def test_unported_families_raise(name):
     cfg = interop.arch_from_fields(dataclasses.asdict(
         j_get_arch(name).reduced()))
@@ -292,7 +292,9 @@ def test_lm_modules_import_neither_jax_nor_repro():
         "models/arch.py", "models/layers.py", "models/transformer.py",
         "launch/serve.py", "kernels/flash_prefill.py",
         "kernels/decode_attention.py", "kernels/ref.py", "interop.py",
-        "configs/granite_8b.py")] + [os.path.join(ROOT, "chip_smoke.py")]
+        "configs/granite_8b.py", "configs/qwen2_moe_a2_7b.py",
+        "configs/mamba2_370m.py", "configs/jamba_1_5_large_398b.py")] + [
+            os.path.join(ROOT, "chip_smoke.py")]
     for f in files:
         text = open(f).read()
         assert not pattern.search(text), f
