@@ -52,8 +52,17 @@ the untuned sweep. Then MoE and Mamba2 serving (phase 18): qwen2-moe-a2.7b
 and mamba2-370m at full width in bf16 (batch 8, 2048-token prompts, 32
 greedy tokens; the MoE's dropped assignments, the decode step beside its
 byte bound, no attention launch for mamba2), and reduced qwen2-moe (at
-capacity factors 64 and 1.25), mamba2 and jamba card against CPU. Any
-failed check exits non-zero. The last three
+capacity factors 64 and 1.25), mamba2 and jamba card against CPU. Last,
+the modality stubs and the encoder-decoder stack (phase 19):
+llava-next-mistral-7b (a 576-row patch prefix) and seamless-m4t-large-v2
+(24 encoder layers over 512 frames, 24 decoder layers cross-attending to
+them) at full size and llama4-scout-17b-a16e at full width cut to 8 of
+its 48 layers, each served at phase 7's shape in bf16 with its
+launches counted by kind; both attention kernels held and timed on the
+slice's own operands (the bidirectional encoder, the cross-attention, the
+patch-prefixed prompt, the cross cache); and the reduced models' greedy
+decode and one train step card against CPU. Any failed check exits
+non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
 Without CUDA it exits 1 and prints no result.
@@ -949,28 +958,47 @@ def check_attention_kernels(dev, gen, reps, batch, prompt, gen_len):
     return records
 
 
-def serve_at_width(dev, arch, batch, prompt, gen_len, phase):
-    """``arch`` at full width in bf16 (random weights from seed 0): a
-    64-token warm-up, then ``batch`` prompts of ``prompt`` tokens and
-    ``gen_len`` greedy tokens through ``serve``. Checks the ids, the
+def attention_layers(model):
+    """{kernel: launches one serve of ``model`` makes per prefill or decode
+    step}: flash_prefill once per encoder, decoder and cross attention
+    layer of the prefill; decode_attention once per decoder and cross
+    attention layer of each decode step."""
+    dec = sum(blk.spec.mixer == "attn" for blk in model.layers)
+    cross = sum(blk.spec.cross_attn for blk in model.layers)
+    enc = sum(blk.spec.mixer == "attn" for blk in getattr(
+        model, "enc_layers", ()))
+    return {"flash_prefill": dec + cross + enc, "decode_attention":
+            dec + cross, "encoder": enc, "cross": cross}
+
+
+def serve_at_width(dev, arch, batch, prompt, gen_len, phase, layers=0):
+    """``arch`` at full width in bf16 (random weights from seed 0; its
+    decoder cut to ``layers`` when given): a 64-token warm-up, then
+    ``batch`` prompts of ``prompt`` tokens and ``gen_len`` greedy tokens
+    through ``serve``, after the modality stub's embeddings
+    (``random_embeds``: a vision model's P patch rows, an encoder-decoder
+    model's max(prompt // 4, 8) encoder frames). Checks the ids, the
     logits and the attention kernels' launch counts (reset just before
-    the measured run, read just after: one ``flash_prefill`` an attention
-    layer, one ``decode_attention`` an attention layer a decode step, 0
-    for an attention-free model). Returns (model, prompts, result,
-    counts)."""
+    the measured run, read just after: ``flash_prefill`` once an encoder,
+    decoder and cross attention layer, ``decode_attention`` once a decoder
+    and cross attention layer a decode step, 0 for an attention-free
+    model). Returns (model, prompts, result, counts, embeddings)."""
     import torch
     from repro_torch.kernels import launches, reset_launches
-    from repro_torch.launch.serve import build, random_prompts, serve
+    from repro_torch.launch.serve import (build, random_embeds,
+                                          random_prompts, serve)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model, t_init = timed(lambda: build(arch, seed=0, device=dev,
-                                        dtype=torch.bfloat16))
+                                        dtype=torch.bfloat16, layers=layers))
     expect(model.dtype == torch.bfloat16, "the serving model is not bf16")
     prompts = random_prompts(model, batch, prompt)
-    serve(model, prompts[:, :64], gen=2)   # warm-up: cuBLAS, first launches
+    embeds = random_embeds(model, batch, prompt)
+    # warm-up: cuBLAS, first launches
+    serve(model, prompts[:, :64], gen=2, **random_embeds(model, batch, 64))
     reset_launches()
-    res = serve(model, prompts, gen=gen_len)
+    res = serve(model, prompts, gen=gen_len, **embeds)
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
     cfg = model.cfg
@@ -979,24 +1007,33 @@ def serve_at_width(dev, arch, batch, prompt, gen_len, phase):
     expect(tuple(res.ids.shape) == (batch, gen_len), "wrong id shape")
     expect(int(res.ids.min()) >= 0 and int(res.ids.max()) < cfg.vocab,
            f"{phase} {arch}: a served id is a vocab-padding id")
-    n_attn = sum(blk.spec.mixer == "attn" for blk in model.layers)
-    want = {"flash_prefill": n_attn,
-            "decode_attention": n_attn * (gen_len - 1)}
+    per = attention_layers(model)
+    want = {"flash_prefill": per["flash_prefill"],
+            "decode_attention": per["decode_attention"] * (gen_len - 1)}
     for k, n in want.items():
         expect(n == 0 or counts[k] > 0, f"the serving run launched no {k}")
         expect(counts[k] == n, f"{phase} {arch}: the serving run launched "
                f"{k} {counts[k]} times, not {n}")
+    p = embeds["modal_embeds"].shape[1] if "modal_embeds" in embeds else 0
+    stub = ""
+    if p:
+        stub = (f" modal_rows={p} prefill_positions_s="
+                f"{batch * (prompt + p) / res.prefill_s:.1f}")
+    if "enc_embeds" in embeds:
+        stub += (f" encoder_frames={embeds['enc_embeds'].shape[1]} "
+                 f"({cfg.encoder_layers} encoder layers, {per['cross']} "
+                 f"cross layers)")
     log(f"{phase} serve {cfg.name} (full width: {cfg.n_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}) bf16 "
         f"params={model.param_count()} init_s={t_init:.4f} batch={batch} "
         f"prompt={prompt} gen={gen_len}: prefill_s={res.prefill_s:.4f} "
-        f"prefill_tok_s={batch * prompt / res.prefill_s:.1f} "
+        f"prefill_tok_s={batch * prompt / res.prefill_s:.1f}{stub} "
         f"decode_s={res.decode_s:.4f} "
         f"decode_tok_s={batch * (gen_len - 1) / res.decode_s:.1f} "
         f"peak_bytes={peak} launches={json.dumps(counts)}")
     log(f"{phase} sample ids: {res.ids[0, :12].tolist()}")
-    return model, prompts, res, counts
+    return model, prompts, res, counts, embeds
 
 
 def serve_lm(dev, batch, prompt, gen_len):
@@ -1004,7 +1041,7 @@ def serve_lm(dev, batch, prompt, gen_len):
     counts of the measured run."""
     import torch
 
-    model, prompts, res, counts = serve_at_width(
+    model, prompts, res, counts, _ = serve_at_width(
         dev, SERVE_ARCH, batch, prompt, gen_len, "phase 7")
     profile_serving(model, prompts, res.prefill_s,
                     res.decode_s / (gen_len - 1))
@@ -1024,16 +1061,20 @@ def _kernel_group(name: str) -> str:
 
 
 def profile_serving(model, prompts, prefill_s, step_s, steps=4,
-                    phase="phase 7", ops=None):
-    """Device time of one prefill and of ``steps`` decode steps by kernel
-    group (torch.profiler), against the wall time of the unprofiled run:
-    the device's busy share is device time over that wall time. ``ops``
-    ({CPU op: label}) names ops whose kernels' device time (part of the
-    groups) is logged beside them."""
+                    phase="phase 7", ops=None, embeds=None):
+    """Device time of one prefill (after ``embeds``, the modality stub's
+    inputs) and of ``steps`` decode steps by kernel group
+    (torch.profiler), against the wall time of the unprofiled run: the
+    device's busy share is device time over that wall time. ``ops`` ({CPU
+    op: label}) names ops whose kernels' device time (part of the groups)
+    is logged beside them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    b, s = prompts.shape
+    embeds = embeds or {}
+    b = prompts.shape[0]
+    s = prompts.shape[1] + (embeds["modal_embeds"].shape[1]
+                            if "modal_embeds" in embeds else 0)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
     def device_ms(prof):
@@ -1050,7 +1091,8 @@ def profile_serving(model, prompts, prefill_s, step_s, steps=4,
         return groups
 
     with profile(activities=acts) as prof:
-        logits, cache = model.prefill(prompts, max_len=s + steps + 1)
+        logits, cache = model.prefill(prompts, max_len=s + steps + 1,
+                                      **embeds)
         sync()
     pre = device_ms(prof)
     tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -3468,26 +3510,31 @@ def train_full_width(dev, total, attn_bwd_ms):
     torch.cuda.empty_cache()
 
 
-def train_card_vs_cpu(dev):
-    """(c) the reduced config in f32 from the same params, card (kernel)
-    against CPU (plain), step by step."""
+def train_card_vs_cpu(dev, arch=TRAIN_ARCH, cmp=None, phase="phase 16(c)"):
+    """(c) ``arch``'s reduced config in f32 from the same params, card
+    (kernel) against CPU (plain), step by step (``cmp``: TRAIN_CMP's
+    keys). A vision or encoder-decoder model's steps take the trainer's
+    stub embeddings (``train.step_embeds``: the same on both devices) and
+    a text stream shortened by P, as ``launch/train.py`` feeds them."""
     import copy
 
     import torch
     from repro_torch.data import TokenStream, token_batches
     from repro_torch.launch.shapes import InputShape
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import step_embeds
     from repro_torch.models.arch import get_arch
     from repro_torch.models.transformer import Transformer
     from repro_torch.optim import AdamW, linear_warmup_cosine
 
-    c = TRAIN_CMP
-    cfg = get_arch(TRAIN_ARCH).reduced()
+    c = cmp or TRAIN_CMP
+    cfg = get_arch(arch).reduced()
     cpu = Transformer(cfg, device="cpu",
                       generator=torch.Generator().manual_seed(0))
     init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
     card = copy.deepcopy(cpu).to(dev)
-    stream = TokenStream(cfg.vocab, c["seq"], c["batch"], seed=0)
+    stream = TokenStream(cfg.vocab, c["seq"] - (cfg.modality_tokens or 0),
+                         c["batch"], seed=0)
     runs = {}
     for where, model in (("card", card), ("cpu", cpu)):
         model.requires_grad_(True)
@@ -3496,14 +3543,16 @@ def train_card_vs_cpu(dev):
                                                c["batch"]),
                                linear_warmup_cosine(c["lr"], c["warmup"],
                                                     c["steps"]))
-        runs[where] = [{k: float(v) for k, v in step(model, opt, b).items()}
-                       for b in token_batches(stream, device=model.device,
-                                              stop=c["steps"])]
+        runs[where] = [
+            {k: float(v) for k, v in step(model, opt, {**b, **step_embeds(
+                cfg, 0, i, c["batch"], c["seq"], model.device)}).items()}
+            for i, b in enumerate(token_batches(stream, device=model.device,
+                                                stop=c["steps"]))]
     for i, (a, b) in enumerate(zip(runs["card"], runs["cpu"])):
-        expect(a["lr"] == b["lr"], f"phase 16(c) step {i}: lr differs")
+        expect(a["lr"] == b["lr"], f"{phase} step {i}: lr differs")
         for k in ("loss", "grad_norm"):
             expect(abs(a[k] - b[k]) <= TRAIN_RTOL * abs(b[k]),
-                   f"phase 16(c) step {i}: {k} card {a[k]} CPU {b[k]}")
+                   f"{phase} step {i}: {k} card {a[k]} CPU {b[k]}")
     worst_rel = worst_abs = 0.0
     for (n, pc), (_, ph) in zip(card.named_parameters(),
                                 cpu.named_parameters()):
@@ -3512,9 +3561,9 @@ def train_card_vs_cpu(dev):
         rel = float(d.norm() / upd.clamp_min(1e-30))
         worst_rel, worst_abs = max(worst_rel, rel), max(
             worst_abs, float(d.abs().max()))
-        expect(rel <= TRAIN_PARAM_REL, f"phase 16(c) {n}: card - CPU is "
+        expect(rel <= TRAIN_PARAM_REL, f"{phase} {n}: card - CPU is "
                f"{rel} of the update's norm")
-    log(f"phase 16(c) train card == CPU ({cfg.name} reduced, f32, "
+    log(f"{phase} train card == CPU ({cfg.name} reduced, f32, "
         f"{c['steps']} steps, lr {c['lr']}): losses card "
         f"{[r['loss'] for r in runs['card']]} CPU "
         f"{[r['loss'] for r in runs['cpu']]}; grad norms card "
@@ -3733,11 +3782,11 @@ def decode_bytes(model, batch, prompt, gen_len):
     return weights, kv
 
 
-def first_calls(names):
-    """Patch ``repro_torch.models.layers``' ``names`` (the attention
-    wrappers its Attention calls) with spies that keep the arguments of
-    each one's first call (the model's first attention layer) and pass
-    every call on; returns (the patches to enter, {name: (args, kw)})."""
+def nth_calls(wanted):
+    """Patch ``repro_torch.models.layers``' attention wrappers with spies
+    that keep the arguments of the calls ``wanted`` names ({wrapper: call
+    indices}, counted from 0 per wrapper) and pass every call on; returns
+    (the patches to enter, {(wrapper, index): (args, kw)})."""
     from unittest import mock
 
     from repro_torch.models import layers
@@ -3745,13 +3794,17 @@ def first_calls(names):
     seen: dict = {}
 
     def spy(name, real):
+        count = [0]
+
         def call(*args, **kw):
-            seen.setdefault(name, (args, kw))
+            if count[0] in wanted[name]:
+                seen[(name, count[0])] = (args, kw)
+            count[0] += 1
             return real(*args, **kw)
         return call
 
     return [mock.patch.object(layers, n, spy(n, getattr(layers, n)))
-            for n in names], seen
+            for n in wanted], seen
 
 
 def moe_attention_on_its_path(model, prompts, gen_len):
@@ -3765,19 +3818,20 @@ def moe_attention_on_its_path(model, prompts, gen_len):
     from repro_torch.kernels import decode_attention, flash_prefill, ref
 
     b, s = prompts.shape
-    patches, seen = first_calls(("flash_prefill", "decode_attention"))
+    patches, seen = nth_calls({"flash_prefill": {0},
+                               "decode_attention": {0}})
     with contextlib.ExitStack() as stack:
         for p in patches:
             stack.enter_context(p)
         logits, cache = model.prefill(prompts, max_len=s + gen_len)
         model.decode_step(cache, logits[:, -1].argmax(-1, keepdim=True), s)
     out = {}
-    (q, k, v), kw = seen["flash_prefill"]
+    (q, k, v), kw = seen[("flash_prefill", 0)]
     err = _attn_close(flash_prefill(q, k, v, **kw),
                       ref.flash_prefill_ref(q, k, v, **kw),
                       f"phase 18 (a) flash_prefill on {MOE_ARCH}'s path")
     out["flash_prefill"] = (f"q/k/v {tuple(q.shape)} {q.dtype} {kw}", err)
-    (q, k, v, n_valid), kw = seen["decode_attention"]
+    (q, k, v, n_valid), kw = seen[("decode_attention", 0)]
     err = _attn_close(decode_attention(q, k, v, n_valid, **kw),
                       ref.decode_attention_ref(q, k, v, n_valid, **kw),
                       f"phase 18 (a) decode_attention on {MOE_ARCH}'s path")
@@ -3818,7 +3872,7 @@ def serve_moe(dev, batch, prompt, gen_len, total):
     import torch
     from repro_torch.models.layers import moe_capacity
 
-    model, prompts, res, counts = serve_at_width(
+    model, prompts, res, counts, _ = serve_at_width(
         dev, MOE_ARCH, batch, prompt, gen_len, "phase 18 (a)")
     for k in ("flash_prefill", "decode_attention"):
         total[k] += counts[k]
@@ -3875,7 +3929,7 @@ def serve_ssm(dev, batch, prompt, gen_len):
     from repro_torch.kernels.flash_prefill import largest_divisor
     from repro_torch.models.layers import ssd_chunk
 
-    model, prompts, res, _ = serve_at_width(
+    model, prompts, res, _, _ = serve_at_width(
         dev, SSM_ARCH, batch, prompt, gen_len, "phase 18 (b)")
     cfg = model.cfg
     chunk = largest_divisor(prompt, ssd_chunk(batch, prompt, cfg.ssm_heads))
@@ -3922,74 +3976,94 @@ def first_parting(host, card):
     return None
 
 
-def moe_card_vs_cpu(dev):
-    """Phase 18 (c): MOE_CMP's reduced models in f32, the same weights on
-    the card and the CPU: a prefill and MOE_CMP_STEPS greedy decode
-    steps route every token to the same experts and give equal ids and
-    logits within 1e-4 (MOE_CMP_ATOL). A step is excused only where the
-    first MoE call at which the two route a token differently does so at
-    router near-ties (top-k gap under ROUTER_TIE) alone; it is logged
-    with its layer and tokens, and the card takes the CPU's cache before
-    the next step, so that every later step is compared from equal
-    states. Both devices always step on the CPU's token."""
+def greedy_card_vs_cpu(dev, cfg, name, phase, atol, embeds=None,
+                       b=MOE_CMP_BATCH, s=MOE_CMP_PROMPT,
+                       steps=MOE_CMP_STEPS):
+    """``cfg`` in f32, the same weights on the card and the CPU, a prefill
+    of ``b`` x ``s`` tokens (after ``embeds(cpu model, b, s)``, the
+    modality stub's inputs, when given) and ``steps`` greedy decode steps:
+    every MoE call routes every token to the same experts, ids are equal
+    and logits within ``atol``. A step is excused only where the first MoE
+    call at which the two route a token differently does so at router
+    near-ties (top-k gap under ROUTER_TIE) alone; it is logged with its
+    layer and tokens, and the card takes the CPU's cache before the next
+    step, so that every later step is compared from equal states. Both
+    devices always step on the CPU's token. Returns (max |logit error|,
+    assignments the prefill dropped, the smallest router top-k gap or
+    None, the near-ties)."""
     import copy
-    import dataclasses
 
     import torch
-    from repro_torch.models.arch import get_arch
     from repro_torch.models.transformer import Transformer
+
+    gen = torch.Generator().manual_seed(0)
+    cpu = Transformer(cfg, device="cpu", dtype=torch.float32, generator=gen)
+    card = copy.deepcopy(cpu).to(dev)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+    emb = embeds(cpu, b, s) if embeds else {}
+    emb_card = {k: v.to(dev) for k, v in emb.items()}
+    pos = s + (emb["modal_embeds"].shape[1] if "modal_embeds" in emb else 0)
+    dropped, on_cpu, on_card = [], [], []
+    hooks = moe_hooks(cpu, lambda m, x: dropped.append(int(m.dropped(x))))
+    hooks += record_routes(cpu, on_cpu) + record_routes(card, on_card)
+    worst, gaps, ties = 0.0, [], []
+    lc, cc = cpu.prefill(tokens, max_len=pos + steps, **emb)
+    lg, cg = card.prefill(tokens.to(dev), max_len=pos + steps, **emb_card)
+    drops = sum(dropped)
+    for i in range(steps + 1):
+        expect(len(on_cpu) == len(on_card), f"{phase} {name} step "
+               f"{i}: {len(on_cpu)} MoE calls on the CPU, "
+               f"{len(on_card)} on the card")
+        gaps += [float(g.min()) for _, _, g in on_cpu]
+        err = float((lg.cpu() - lc).abs().max())
+        tok = lc[:, -1].argmax(-1, keepdim=True)
+        same = torch.equal(lg[:, -1].argmax(-1, keepdim=True).cpu(), tok)
+        parting = first_parting(on_cpu, on_card)
+        on_cpu.clear()
+        on_card.clear()
+        if parting is None:
+            expect(err <= atol and same, f"{phase} {name} step "
+                   f"{i}: max |logit error| {err} (bound {atol}), ids "
+                   f"equal {same}, with the same routing")
+            worst = max(worst, err)
+        else:
+            layer, parted = parting
+            expect(all(g < ROUTER_TIE for _, g in parted),
+                   f"{phase} {name} step {i}: layer {layer} routes "
+                   f"(token, top-k gap) {parted} differently on the card "
+                   f"and on the CPU, not all at near-ties")
+            ties.append((i, layer, parted, err, same))
+            log(f"{phase} {name} step {i}: layer {layer} routes "
+                f"(token, top-k gap) {parted} differently at router "
+                f"near-ties: |logit error| {err}, ids equal {same}; the "
+                f"card takes the CPU's cache")
+            cg = [{k: t.to(dev) for k, t in c.items()} for c in cc]
+        if i < steps:
+            lc, cc = cpu.decode_step(cc, tok, pos + i)
+            lg, cg = card.decode_step(cg, tok.to(dev), pos + i)
+    for h in hooks:
+        h.remove()
+    return worst, drops, min(gaps, default=None), ties
+
+
+def moe_card_vs_cpu(dev):
+    """Phase 18 (c): MOE_CMP's reduced models in f32, the same weights on
+    the card and the CPU (``greedy_card_vs_cpu``): a prefill and
+    MOE_CMP_STEPS greedy decode steps route every token to the same
+    experts and give equal ids and logits within 1e-4 (MOE_CMP_ATOL),
+    router near-ties excused and logged."""
+    import dataclasses
+
+    from repro_torch.models.arch import get_arch
 
     b, s, steps = MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_STEPS
     for name, arch, cap in MOE_CMP:
         cfg = get_arch(arch).reduced()
         if cap is not None:
             cfg = dataclasses.replace(cfg, moe_capacity_factor=cap)
-        gen = torch.Generator().manual_seed(0)
-        cpu = Transformer(cfg, device="cpu", dtype=torch.float32,
-                          generator=gen)
-        card = copy.deepcopy(cpu).to(dev)
-        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
-        dropped, on_cpu, on_card = [], [], []
-        hooks = moe_hooks(cpu, lambda m, x: dropped.append(int(m.dropped(x))))
-        hooks += record_routes(cpu, on_cpu) + record_routes(card, on_card)
         atol = MOE_CMP_ATOL.get(name, 1e-4)
-        worst, gaps, ties = 0.0, [], []
-        lc, cc = cpu.prefill(tokens, max_len=s + steps)
-        lg, cg = card.prefill(tokens.to(dev), max_len=s + steps)
-        drops = sum(dropped)
-        for i in range(steps + 1):
-            expect(len(on_cpu) == len(on_card), f"phase 18 (c) {name} step "
-                   f"{i}: {len(on_cpu)} MoE calls on the CPU, "
-                   f"{len(on_card)} on the card")
-            gaps += [float(g.min()) for _, _, g in on_cpu]
-            err = float((lg.cpu() - lc).abs().max())
-            tok = lc[:, -1].argmax(-1, keepdim=True)
-            same = torch.equal(lg[:, -1].argmax(-1, keepdim=True).cpu(), tok)
-            parting = first_parting(on_cpu, on_card)
-            on_cpu.clear()
-            on_card.clear()
-            if parting is None:
-                expect(err <= atol and same, f"phase 18 (c) {name} step "
-                       f"{i}: max |logit error| {err} (bound {atol}), ids "
-                       f"equal {same}, with the same routing")
-                worst = max(worst, err)
-            else:
-                layer, parted = parting
-                expect(all(g < ROUTER_TIE for _, g in parted),
-                       f"phase 18 (c) {name} step {i}: layer {layer} routes "
-                       f"(token, top-k gap) {parted} differently on the card "
-                       f"and on the CPU, not all at near-ties")
-                ties.append((i, layer, parted, err, same))
-                log(f"phase 18 (c) {name} step {i}: layer {layer} routes "
-                    f"(token, top-k gap) {parted} differently at router "
-                    f"near-ties: |logit error| {err}, ids equal {same}; the "
-                    f"card takes the CPU's cache")
-                cg = [{k: t.to(dev) for k, t in c.items()} for c in cc]
-            if i < steps:
-                lc, cc = cpu.decode_step(cc, tok, s + i)
-                lg, cg = card.decode_step(cg, tok.to(dev), s + i)
-        for h in hooks:
-            h.remove()
+        worst, drops, gap, ties = greedy_card_vs_cpu(
+            dev, cfg, name, "phase 18 (c)", atol)
         expect((drops > 0) == ("cap 64" not in name and arch != SSM_ARCH),
                f"phase 18 (c) {name}: the prefill dropped {drops} "
                f"assignments")
@@ -3997,7 +4071,7 @@ def moe_card_vs_cpu(dev):
             f"greedy steps (f32, batch {b}, prompt {s}, {cfg.n_layers} "
             f"layers, d_model {cfg.d_model}): max |logit error| {worst} "
             f"(bound {atol}); prefill drops {drops}; smallest router top-k "
-            f"gap {min(gaps, default=None)}; near-ties {ties}")
+            f"gap {gap}; near-ties {ties}")
 
 
 def moe_mamba_serving(dev, total):
@@ -4011,6 +4085,207 @@ def moe_mamba_serving(dev, total):
     moe_card_vs_cpu(dev)
     log(f"phase 18 took {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f}, "
         f"(b) {t2 - t1:.1f}, (c) {time.perf_counter() - t2:.1f})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the modality stubs and the encoder-decoder stack
+# ---------------------------------------------------------------------------
+
+#: (tag, arch, decoder layers or 0 for all) served at full width in bf16.
+#: llama4-scout's 48 layers hold 107.8e9 parameters (215.5 GB in bf16),
+#: more than one card's 80 GB: it is cut to 8 layers (39.4 GB), whole
+#: widths kept
+STUB_SERVE = (("(a)", "llava-next-mistral-7b", 0),
+              ("(b)", "seamless-m4t-large-v2", 0),
+              ("(c)", "llama4-scout-17b-a16e", 8))
+#: parameters each serves (llama4-scout at its 8-layer cut)
+STUB_PARAMS = {"llava-next-mistral-7b": 7_241_732_096,
+               "seamless-m4t-large-v2": 2_034_886_656,
+               "llama4-scout-17b-a16e": 19_687_756_800}
+#: {arch: (kernel, index of the call among that kernel's calls in a
+#: prefill and one decode step (a function of the model), what the call
+#: is)} of the attention calls phase 19 (d) holds and times: the slice's
+#: own operands. A seamless prefill runs its encoder layers first, then
+#: decoder layer 0's self- and cross-attention; its decode step layer 0's
+#: self, then cross decode
+STUB_KERNEL_CALLS = {
+    "llava-next-mistral-7b": (
+        ("flash_prefill", lambda m: 0, "decoder layer 0 over the patch "
+         "prefix + prompt, causal"),),
+    "seamless-m4t-large-v2": (
+        ("flash_prefill", lambda m: 0, "encoder layer 0, bidirectional"),
+        ("flash_prefill", lambda m: len(m.enc_layers) + 1, "decoder layer "
+         "0's cross-attention over the encoder's memory"),
+        ("decode_attention", lambda m: 1, "decoder layer 0's cross decode "
+         "over the cross cache, every slot valid"))}
+STUB_CMP = ("llava-next-mistral-7b", "seamless-m4t-large-v2",
+            "llama4-scout-17b-a16e")
+STUB_TRAIN = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
+STUB_TRAIN_CMP = dict(batch=2, seq=128, steps=1, warmup=0, lr=1e-3)
+
+
+def stub_kernel_cases(model, prompts, embeds, gen_len, calls, phase):
+    """Phase 19 (d): each of ``calls`` (STUB_KERNEL_CALLS' entries) held to
+    its plain version (``_attn_close``) on the operands ``model``'s prefill
+    and first decode step hand it, and timed beside its plain version and
+    scaled_dot_product_attention on them (the prefill kernel by CUDA
+    events, the decode kernel by device time). Returns {kernel: [record
+    subsets]}."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, flash_prefill, ref
+
+    calls = [(kernel, index(model), what) for kernel, index, what in calls]
+    wanted: dict = {}
+    for kernel, i, _ in calls:
+        wanted.setdefault(kernel, set()).add(i)
+    patches, seen = nth_calls(wanted)
+    s = prompts.shape[1] + (embeds["modal_embeds"].shape[1]
+                            if "modal_embeds" in embeds else 0)
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        logits, cache = model.prefill(prompts, max_len=s + gen_len, **embeds)
+        model.decode_step(cache, logits[:, -1].argmax(-1, keepdim=True), s)
+    del logits, cache
+    out: dict = {}
+    for kernel, i, what in calls:
+        args, kw = seen[(kernel, i)]
+        if kernel == "flash_prefill":
+            q, k, v = args
+            causal = kw["causal"]
+            b, sq, hq, dh = q.shape
+            skv, hkv = k.shape[1], k.shape[2]
+            got = flash_prefill(q, k, v, **kw)
+            err = _attn_close(got, ref.flash_prefill_ref(q, k, v, **kw),
+                              f"{phase} flash_prefill on {what}")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            _attn_close(got, lib().transpose(1, 2), f"{phase} flash_prefill "
+                        f"on {what} against scaled_dot_product_attention")
+            times = [event_ms(fn, 5) for fn in (
+                lambda: flash_prefill(q, k, v, **kw),
+                lambda: ref.flash_prefill_ref(q, k, v, **kw), lib)]
+            pairs = sq * (sq + 1) // 2 if causal else sq * skv
+            flop = 4 * b * hq * dh * pairs
+            nbytes = q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel())
+            shape = (f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} "
+                     f"{str(q.dtype)[6:]} causal={causal}")
+        else:
+            q, k, v, n = args
+            b, hq, dh = q.shape
+            hkv, sbuf = k.shape[1], k.shape[2]
+            expect(n == sbuf, f"{phase} the cross decode reads {n} of "
+                   f"{sbuf} slots")
+            got = decode_attention(q, k, v, n, **kw)
+            err = _attn_close(got, ref.decode_attention_ref(q, k, v, n, **kw),
+                              f"{phase} decode_attention on {what}")
+            q4 = q.unsqueeze(2)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k, v, enable_gqa=True)
+            _attn_close(got, lib().squeeze(2), f"{phase} decode_attention "
+                        f"on {what} against scaled_dot_product_attention")
+            times = [device_ms(fn, 100) for fn in (
+                lambda: decode_attention(q, k, v, n, **kw),
+                lambda: ref.decode_attention_ref(q, k, v, n, **kw), lib)]
+            flop = 4 * b * hq * n * dh
+            nbytes = q.element_size() * (2 * b * hkv * n * dh + 2 * q.numel())
+            shape = (f"B={b} Hq={hq} Hkv={hkv} Sm={sbuf} n_valid={n} Dh={dh} "
+                     f"{str(q.dtype)[6:]} (device time)")
+        rec = make_record(f"{phase} {model.cfg.name}", kernel, "", "",
+                          shape, *times, nbytes, flop,
+                          BF16_TENSOR_OPS_PER_S, err)
+        out.setdefault(kernel, []).append(
+            {"arch": model.cfg.name, "call": what, "flop": flop,
+             "bytes": nbytes, **{
+                 f: rec[f] for f in ("shape", "ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")}})
+    return out
+
+
+def serve_stub(dev, tag, arch, layers, total):
+    """Phase 19 (a)-(c): ``arch`` served at full width in bf16 like phase
+    7 (``serve_at_width``: batch 8, 2048-token prompts, 32 greedy tokens,
+    after the stub's embeddings), its parameter count held to
+    STUB_PARAMS, (d) its attention calls of STUB_KERNEL_CALLS held and
+    timed, and its prefill and decode steps profiled by kernel group.
+    Returns phase 19 (d)'s records."""
+    import torch
+
+    phase = f"phase 19 {tag}"
+    model, prompts, res, counts, embeds = serve_at_width(
+        dev, arch, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, phase,
+        layers=layers)
+    for k in ("flash_prefill", "decode_attention"):
+        total[k] += counts[k]
+    cfg = model.cfg
+    expect(model.param_count() == STUB_PARAMS[arch], f"{phase} {arch} has "
+           f"{model.param_count()} parameters, not {STUB_PARAMS[arch]}")
+    if layers:
+        log(f"{phase} {arch} cut to {layers} decoder layers (all widths "
+            f"kept): the whole model does not fit one card's memory; "
+            f"active params a token {model.active_param_count()} of "
+            f"{model.param_count()} ({cfg.moe_top_k} of "
+            f"{cfg.padded_experts} experts + the shared one)")
+    out = stub_kernel_cases(model, prompts, embeds, SERVE_GEN,
+                            STUB_KERNEL_CALLS.get(arch, ()), phase + " (d)")
+    ops = {"aten::bmm": "expert products (aten::bmm)"} \
+        if cfg.moe_experts else None
+    profile_serving(model, prompts, res.prefill_s,
+                    res.decode_s / (SERVE_GEN - 1), phase=phase, ops=ops,
+                    embeds=embeds)
+    del model, res, prompts, embeds
+    torch.cuda.empty_cache()
+    return out
+
+
+def stub_card_vs_cpu(dev):
+    """Phase 19 (e): the three reduced models in f32 on the same weights
+    and stub embeddings, card against CPU (``greedy_card_vs_cpu``): a
+    prefill and 8 greedy steps with equal ids and logits within 1e-4
+    (llama4-scout's router near-ties excused as phase 18's are); then one
+    train step of reduced seamless and llava (phase 16 (c)'s bounds)."""
+    from repro_torch.launch.serve import random_embeds
+    from repro_torch.models.arch import get_arch
+
+    for arch in STUB_CMP:
+        cfg = get_arch(arch).reduced()
+        worst, drops, gap, ties = greedy_card_vs_cpu(
+            dev, cfg, arch, "phase 19 (e)", 1e-4, embeds=random_embeds)
+        log(f"phase 19 (e) {arch} card == CPU over a prefill + "
+            f"{MOE_CMP_STEPS} greedy steps (f32, batch {MOE_CMP_BATCH}, "
+            f"prompt {MOE_CMP_PROMPT}, P {cfg.modality_tokens}, "
+            f"{cfg.n_layers} + {cfg.encoder_layers} encoder layers, "
+            f"d_model {cfg.d_model}): max |logit error| {worst} (bound "
+            f"1e-4); prefill drops {drops}; smallest router top-k gap "
+            f"{gap}; near-ties {ties}")
+    for arch in STUB_TRAIN:
+        train_card_vs_cpu(dev, arch, STUB_TRAIN_CMP, "phase 19 (e)")
+
+
+def stub_serving(dev, total):
+    """Phase 19: (a) llava-next-mistral-7b and (b) seamless-m4t-large-v2 at
+    full size, (c) llama4-scout-17b-a16e at full width cut to 8 layers,
+    each in bf16 with (d) the new attention routes held on their own
+    operands; (e) the reduced models card against CPU. Returns (d)'s
+    records by kernel."""
+    t0 = time.perf_counter()
+    records: dict = {}
+    parts = []
+    for tag, arch, layers in STUB_SERVE:
+        t = time.perf_counter()
+        for k, recs in serve_stub(dev, tag, arch, layers, total).items():
+            records.setdefault(k, []).extend(recs)
+        parts.append(f"{tag} {time.perf_counter() - t:.1f}")
+    t = time.perf_counter()
+    stub_card_vs_cpu(dev)
+    parts.append(f"(e) {time.perf_counter() - t:.1f}")
+    log(f"phase 19 took {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+    return records
 
 
 def _cuobjdump():
@@ -4149,6 +4424,10 @@ def main() -> int:
     train_plane("cuda", total, gen)
     gram_autotune("cuda", total)
     moe_mamba_serving("cuda", total)
+    stubs = stub_serving("cuda", total)
+    for r in records:
+        if r["name"] in stubs:
+            r["stubs"] = stubs[r["name"]]
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

@@ -79,10 +79,25 @@ def arch_from_fields(fields: dict):
     return ArchConfig(**fields)
 
 
-def _layer_index(cfg) -> list[tuple[str, int]]:
-    """(pattern key, superblock) of every layer, in stack order."""
-    return [(f"l{i}", rep) for rep in range(cfg.n_rep)
-            for i in range(len(cfg.pattern))]
+def _layer_index(cfg, pattern=None, n_rep=None) -> list[tuple[str, int]]:
+    """(pattern key, superblock) of every layer of a stack, in stack order
+    (default: the decoder's)."""
+    pattern = cfg.pattern if pattern is None else pattern
+    n_rep = cfg.n_rep if n_rep is None else n_rep
+    return [(f"l{i}", rep) for rep in range(n_rep)
+            for i in range(len(pattern))]
+
+
+def _stacks(cfg) -> list[tuple[str, str, tuple, int]]:
+    """(``repro``'s params key, the port's module list, pattern, n_rep) of
+    each layer stack: the decoder's, and an encoder-decoder model's
+    encoder."""
+    out = [("blocks", "layers", cfg.pattern, cfg.n_rep)]
+    if cfg.is_encoder_decoder:
+        pat = cfg.encoder_pattern
+        out.append(("enc_blocks", "enc_layers", pat,
+                    cfg.encoder_layers // len(pat)))
+    return out
 
 
 _MIXER_LEAVES = {"attn": ("wq", "wk", "wv", "wo"),
@@ -98,6 +113,9 @@ def _layer_leaves(cfg, spec) -> list[tuple[str, tuple[str, ...]]]:
     sublayer) of every leaf of a sublayer of kind ``spec``."""
     out = [("mixer_norm.scale", ("mixer_norm", "scale"))]
     out += [(f"mixer.{n}", ("mixer", n)) for n in _MIXER_LEAVES[spec.mixer]]
+    if spec.cross_attn:
+        out.append(("cross_norm.scale", ("cross_norm", "scale")))
+        out += [(f"cross.{n}", ("cross", n)) for n in _MIXER_LEAVES["attn"]]
     if spec.ff != "none":
         out.append(("ff_norm.scale", ("ff_norm", "scale")))
     out += [(f"ff.{n}", ("ff", n)) for n in _FF_LEAVES[spec.ff]]
@@ -128,16 +146,19 @@ def _host_numpy(t: torch.Tensor) -> np.ndarray:
 
 def _named_from_tree(cfg, tree: dict) -> dict:
     """{port parameter name: array} from a tree in ``repro``'s params
-    layout (the blocks stacked over ``n_rep``)."""
+    layout (the blocks, and an encoder's ``enc_blocks``, stacked over
+    their ``n_rep``)."""
     out = {"embed": _host_array(tree["embed"]),
            "final_norm.scale": _host_array(tree["final_norm"]["scale"])}
     if not cfg.tie_embeddings:
         out["unembed"] = _host_array(tree["unembed"])
-    for i, (key, rep) in enumerate(_layer_index(cfg)):
-        spec = cfg.pattern[int(key[1:])]
-        for name, path in _layer_leaves(cfg, spec):
-            out[f"layers.{i}.{name}"] = _host_array(
-                _get(tree["blocks"][key], path))[rep]
+    if cfg.is_encoder_decoder:
+        out["enc_norm.scale"] = _host_array(tree["enc_norm"]["scale"])
+    for key_j, mods, pattern, n_rep in _stacks(cfg):
+        for i, (key, rep) in enumerate(_layer_index(cfg, pattern, n_rep)):
+            for name, path in _layer_leaves(cfg, pattern[int(key[1:])]):
+                out[f"{mods}.{i}.{name}"] = _host_array(
+                    _get(tree[key_j][key], path))[rep]
     return out
 
 
@@ -146,20 +167,25 @@ def lm_tree_from_named(cfg, named: dict) -> dict:
     in ``repro``'s params layout as numpy, the layers stacked over
     ``n_rep`` again; bf16 comes back as f32 (exactly)."""
     tree = {"embed": _host_numpy(named["embed"]),
-            "final_norm": {"scale": _host_numpy(named["final_norm.scale"])},
-            "blocks": {}}
+            "final_norm": {"scale": _host_numpy(named["final_norm.scale"])}}
     if not cfg.tie_embeddings:
         tree["unembed"] = _host_numpy(named["unembed"])
-    for key in dict(_layer_index(cfg)):
-        layers = [i for i, (k, _) in enumerate(_layer_index(cfg)) if k == key]
-        blk: dict = {}
-        for name, path in _layer_leaves(cfg, cfg.pattern[int(key[1:])]):
-            node = blk
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = np.stack(
-                [_host_numpy(named[f"layers.{i}.{name}"]) for i in layers])
-        tree["blocks"][key] = blk
+    if cfg.is_encoder_decoder:
+        tree["enc_norm"] = {"scale": _host_numpy(named["enc_norm.scale"])}
+    for key_j, mods, pattern, n_rep in _stacks(cfg):
+        index = _layer_index(cfg, pattern, n_rep)
+        tree[key_j] = {}
+        for key in dict(index):
+            layers = [i for i, (k, _) in enumerate(index) if k == key]
+            blk: dict = {}
+            for name, path in _layer_leaves(cfg, pattern[int(key[1:])]):
+                node = blk
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = np.stack(
+                    [_host_numpy(named[f"{mods}.{i}.{name}"])
+                     for i in layers])
+            tree[key_j][key] = blk
     return tree
 
 
@@ -172,10 +198,13 @@ def lm_params_from_numpy(cfg, tree: dict, *, device=None,
     a leading ``n_rep`` axis (unstacked into the port's one module per
     layer), ``mixer_norm.scale``, the mixer's leaves (attention
     ``{wq,wk,wv,wo}``; Mamba2 ``{in_proj, conv_w, conv_b, a_log,
-    dt_bias, ssm_d, out_proj, norm_scale}``), and unless it has no
+    dt_bias, ssm_d, out_proj, norm_scale}``), with cross-attention
+    ``cross_norm.scale`` and ``cross.{wq,wk,wv,wo}``, and unless it has no
     feed-forward ``ff_norm.scale`` and the feed-forward's (MLP
     ``{wgate,wi,w_down}``; MoE ``{router, exp_wgate, exp_wi, exp_w_down}``
-    and ``shared.{wgate,wi,w_down}``). Each leaf is copied in its
+    and ``shared.{wgate,wi,w_down}``). An encoder-decoder model's tree
+    also holds ``enc_blocks`` (the same, stacked over the encoder's
+    ``n_rep``; into ``enc_layers``) and ``enc_norm.scale``. Each leaf is copied in its
     parameter's dtype: ``dtype``, but f32 for the router, ``a_log``,
     ``dt_bias`` and ``ssm_d``. The parameters come back frozen, as
     ``Transformer`` makes them.
@@ -223,8 +252,10 @@ def kv_cache_from_numpy(cfg, tree: dict, *, device=None,
     """The port's per-layer cache from the one ``repro``'s ``prefill`` /
     ``init_cache`` return: {'l<i>': {'k', 'v': (n_rep, B, S, Hkv, Dh)}}
     for attention, {'l<i>': {'conv': (n_rep, B, W - 1, C), 'ssm':
-    (n_rep, B, H, P, N)}} for Mamba2. ``dtype`` (default: numpy's) is the
-    K/V's and the conv tail's; the SSM state stays f32."""
+    (n_rep, B, H, P, N)}} for Mamba2, and for a cross-attending sublayer
+    'l<i>_xk' / 'l<i>_xv' (n_rep, B, Sm, Hkv, Dh), which become that
+    layer's 'xk' / 'xv'. ``dtype`` (default: numpy's) is the K/V's and the
+    conv tail's; the SSM state stays f32."""
     dev = resolve_device(device)
 
     def entry(name, a):
@@ -232,16 +263,27 @@ def kv_cache_from_numpy(cfg, tree: dict, *, device=None,
         dt = torch.float32 if name == "ssm" else dtype
         return torch.tensor(a).to(device=dev, dtype=dt)
 
-    return [{n: entry(n, a[rep]) for n, a in tree[key].items()}
-            for key, rep in _layer_index(cfg)]
+    cache = []
+    for key, rep in _layer_index(cfg):
+        c = {n: entry(n, a[rep]) for n, a in tree[key].items()}
+        for n in ("xk", "xv"):
+            if f"{key}_{n}" in tree:
+                c[n] = entry(n, tree[f"{key}_{n}"][rep])
+        cache.append(c)
+    return cache
 
 
 def kv_cache_to_numpy(cfg, cache: list[dict]) -> dict:
     """The port's per-layer cache in ``repro``'s layout, stacked over
     ``n_rep`` again, as numpy (bf16 comes back as f32, exactly)."""
     tree: dict = {}
-    for key in dict(_layer_index(cfg)):
-        layers = [i for i, (k, _) in enumerate(_layer_index(cfg)) if k == key]
-        tree[key] = {n: np.stack([_host_numpy(cache[i][n]) for i in layers])
-                     for n in cache[layers[0]]}
+    index = _layer_index(cfg)
+    for key in dict(index):
+        layers = [i for i, (k, _) in enumerate(index) if k == key]
+        entries = {n: np.stack([_host_numpy(cache[i][n]) for i in layers])
+                   for n in cache[layers[0]]}
+        for n in ("xk", "xv"):
+            if n in entries:
+                tree[f"{key}_{n}"] = entries.pop(n)
+        tree[key] = entries
     return tree

@@ -1,13 +1,17 @@
 """LM serving: batched prefill, then greedy decode with a cache.
 
-The port of ``repro.launch.serve`` for decoder-only LMs: dense
-(granite-8b, ...), MoE (qwen2-moe-a2.7b), SSM (mamba2-370m) and hybrid
-(jamba-1.5-large-398b) stacks. It prefills a batch of prompts, then
-decodes greedily, reporting tokens/s. Every attention layer of the
-prefill runs the ``flash_prefill`` kernel and every one of each decode
-step the ``decode_attention`` kernel (their plain versions on the CPU);
-MoE and Mamba2 layers run in PyTorch. Weights are random draws from
-``--seed``, as in ``repro``.
+The port of ``repro.launch.serve`` for all ten architectures: dense
+(granite-8b, ...), MoE (qwen2-moe-a2.7b), SSM (mamba2-370m), hybrid
+(jamba-1.5-large-398b), vision-prefixed (llava-next-mistral-7b,
+llama4-scout-17b-a16e) and encoder-decoder (seamless-m4t-large-v2)
+stacks. It prefills a batch of prompts, then decodes greedily, reporting
+tokens/s. Every attention layer of the prefill (encoder, decoder and
+cross-attention) runs the ``flash_prefill`` kernel and every decoder and
+cross-attention layer of each decode step the ``decode_attention``
+kernel (their plain versions on the CPU); MoE and Mamba2 layers run in
+PyTorch. Weights are random draws from ``--seed``, as in ``repro``; the
+modality stubs' embeddings (a vision model's prefix, an audio model's
+encoder frames) are random draws too.
 
   python -m repro_torch.launch.serve --arch granite-8b --batch 8 \\
       --prompt-len 2048 --gen 32
@@ -15,6 +19,10 @@ MoE and Mamba2 layers run in PyTorch. Weights are random draws from
       --prompt-len 2048 --gen 32
   python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \\
       --reduced --device cpu --batch 2 --prompt-len 16 --gen 8
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+      --batch 8 --prompt-len 2048 --gen 32
+  python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
+      --layers 8 --batch 8 --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.models.arch import get_arch
 from repro_torch.models.transformer import Transformer
+
+from .steps import modal_tokens, stub_rows
 
 
 @dataclasses.dataclass
@@ -43,17 +53,24 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(model: Transformer, prompts: torch.Tensor, *, gen: int,
-          window: int = 0) -> ServeResult:
-    """Prefill ``prompts`` (B, S) and decode ``gen`` tokens greedily (the
-    first from the prefill's logits). Positions are host ints, so the loop
-    reads nothing back from the device until it ends. Raises if a sampled
-    id is a vocab-padding id."""
+          window: int = 0, modal_embeds: torch.Tensor | None = None,
+          enc_embeds: torch.Tensor | None = None) -> ServeResult:
+    """Prefill ``prompts`` (B, S) after the P rows of ``modal_embeds``
+    (B, P, D), over the encoder's ``enc_embeds`` (B, Sm, D) for an
+    encoder-decoder model, and decode ``gen`` tokens greedily (the first
+    from the prefill's logits) at positions P + S onwards. Positions are
+    host ints, so the loop reads nothing back from the device until it
+    ends. Raises if a sampled id is a vocab-padding id."""
     cfg, dev = model.cfg, model.device
-    b, s = prompts.shape
+    # positions the prefill fills: the modal prefix, then the prompt
+    s = prompts.shape[1] + (0 if modal_embeds is None
+                            else modal_embeds.shape[1])
     vocab = cfg.vocab
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompts, window=window, max_len=s + gen)
+    logits, cache = model.prefill(prompts, modal_embeds=modal_embeds,
+                                  enc_embeds=enc_embeds, window=window,
+                                  max_len=s + gen)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -75,13 +92,17 @@ def serve(model: Transformer, prompts: torch.Tensor, *, gen: int,
 
 
 def build(arch: str, *, reduced: bool = False, seed: int = 0, device=None,
-          dtype: torch.dtype | None = None) -> Transformer:
+          dtype: torch.dtype | None = None, layers: int = 0) -> Transformer:
     """The model ``--arch`` names, weights drawn on ``device`` from a
     generator seeded with ``seed``; dtype defaults to bf16 on the card and
-    f32 on the CPU."""
+    f32 on the CPU. ``layers`` cuts the decoder's depth (a multiple of the
+    pattern's length) and keeps every width, for a model one card cannot
+    hold whole."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
@@ -100,6 +121,23 @@ def random_prompts(model: Transformer, batch: int, length: int,
                          device=model.device)
 
 
+def random_embeds(model: Transformer, batch: int, length: int,
+                  seed: int = 2) -> dict:
+    """The modality stubs' inputs for ``batch`` prompts of ``length``
+    tokens (``steps.stub_rows``: a vision model's ``modal_embeds``, an
+    encoder-decoder model's ``enc_embeds``), each (batch, rows, D) of
+    0.02 * N(0, 1) in f32, drawn on the model's device from a generator
+    seeded with ``seed`` (the encoder's frames: ``seed + 1``)."""
+    cfg, dev = model.cfg, model.device
+    out = {}
+    for name, rows in stub_rows(cfg, length).items():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + (name == "enc_embeds"))
+        out[name] = torch.randn((batch, rows, cfg.d_model), generator=gen,
+                                device=dev).mul_(0.02)
+    return out
+
+
 def main(argv=None) -> ServeResult:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -108,6 +146,8 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the decoder to this many layers (full width)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
@@ -123,13 +163,15 @@ def main(argv=None) -> ServeResult:
 
     dtype = None if args.dtype is None else getattr(torch, args.dtype)
     model = build(args.arch, reduced=args.reduced, seed=args.seed,
-                  device=args.device, dtype=dtype)
+                  device=args.device, dtype=dtype, layers=args.layers)
     cfg = model.cfg
     prompts = random_prompts(model, args.batch, args.prompt_len)
-    res = serve(model, prompts, gen=args.gen, window=args.window)
+    embeds = random_embeds(model, args.batch, args.prompt_len)
+    res = serve(model, prompts, gen=args.gen, window=args.window, **embeds)
     b, s, gen = args.batch, args.prompt_len, args.gen
     print(f"arch={cfg.name} batch={b} prompt={s} gen={gen} "
-          f"device={model.device} dtype={model.dtype}")
+          f"modal={modal_tokens(cfg)} device={model.device} "
+          f"dtype={model.dtype}")
     print(f"prefill: {res.prefill_s:.3f}s ({b * s / res.prefill_s:.0f} tok/s)")
     print(f"decode : {res.decode_s:.3f}s "
           f"({b * (gen - 1) / max(res.decode_s, 1e-9):.0f} tok/s)")

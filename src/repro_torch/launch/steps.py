@@ -24,6 +24,39 @@ from .shapes import InputShape
 MOE_AUX_WEIGHT = 0.01
 
 
+# Modality frontends are stubs, as in ``repro``: a batch carries the
+# projected patch embeddings ('modal_embeds', (B, P, D)) or the encoder's
+# frame embeddings ('enc_embeds', (B, Sm, D)) directly.
+
+def modal_tokens(cfg: ArchConfig) -> int:
+    """P: the embedding rows a vision model's prompt begins with."""
+    return cfg.modality_tokens if cfg.modality == "vision" else 0
+
+
+def encoder_frames(cfg: ArchConfig, shape: InputShape) -> int:
+    """Audio encoder length: 1 frame per 4 decoder tokens (codec ratio),
+    capped so the bidirectional encoder stays O(seq^2)-sane at 500k."""
+    if not cfg.is_encoder_decoder:
+        return 0
+    return min(shape.seq_len // 4, 8_192)
+
+
+def text_len(cfg: ArchConfig, shape: InputShape) -> int:
+    """Text positions s.t. text + modality prefix == shape.seq_len."""
+    return shape.seq_len - modal_tokens(cfg)
+
+
+def stub_rows(cfg: ArchConfig, seq_len: int) -> dict:
+    """{input: rows} of the stub embeddings ``repro``'s serve and train
+    entry points draw for ``seq_len``-token prompts: a vision model's
+    'modal_embeds' (P rows), an encoder-decoder model's 'enc_embeds'
+    (max(seq_len // 4, 8) frames); {} for a text-only model."""
+    rows = {"modal_embeds": modal_tokens(cfg),
+            "enc_embeds": max(seq_len // 4, 8) if cfg.is_encoder_decoder
+            else 0}
+    return {k: n for k, n in rows.items() if n}
+
+
 def make_train_step(cfg: ArchConfig, shape: InputShape, schedule: Callable,
                     grad_clip: float = 1.0, microbatches: int = 1):
     """A step ``(model, optimizer, batch) -> metrics``: the loss and its
@@ -31,7 +64,9 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, schedule: Callable,
     ``schedule(optimizer.step_count)`` (read before the update increments
     the count, as ``repro`` does).
 
-    ``batch`` holds 'tokens', 'labels' (B, S) and optionally 'mask'.
+    ``batch`` holds 'tokens', 'labels' (B, S) and optionally 'mask',
+    'modal_embeds' (B, P, D) and 'enc_embeds' (B, Sm, D); the loss drops
+    the hidden rows of the P prefix positions.
     ``microbatches > 1`` splits the batch along dim 0 into equal slices
     and runs them one after another, summing their gradients in f32 and
     dividing by the count (``repro``'s ``lax.scan``): the same gradient as
@@ -40,9 +75,13 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, schedule: Callable,
     (nothing is read back), and lr, the host's f32.
     """
     window = cfg.window_for(shape.name)
+    n_modal = modal_tokens(cfg)
 
     def loss_fn(model, mb):
-        h, aux = model(mb["tokens"], window=window)
+        h, aux = model(mb["tokens"], modal_embeds=mb.get("modal_embeds"),
+                       enc_embeds=mb.get("enc_embeds"), window=window)
+        if n_modal:
+            h = h[:, n_modal:, :]
         loss = model.lm_loss(h, mb["labels"], mb.get("mask"))
         return loss + MOE_AUX_WEIGHT * aux, loss, aux
 
@@ -96,7 +135,10 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape):
     window = cfg.window_for(shape.name)
 
     def prefill_step(model, batch: dict):
-        return model.prefill(batch["tokens"], window=window)
+        return model.prefill(batch["tokens"],
+                             modal_embeds=batch.get("modal_embeds"),
+                             enc_embeds=batch.get("enc_embeds"),
+                             window=window)
 
     return prefill_step
 

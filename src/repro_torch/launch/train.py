@@ -10,7 +10,11 @@ random draws from ``--seed`` on the device (the same distributions as
 ``repro``'s ``init_params``, not the same numbers). A checkpoint holds
 the parameters and the optimizer's state and step; ``--ckpt-dir`` resumes
 from its latest one, and the resumed run equals the straight run bit for
-bit (the stream's batch i is a function of (seed, i)).
+bit (the stream's batch i is a function of (seed, i)). A vision model's
+prompts begin with P patch embeddings and an encoder-decoder model reads
+encoder frames: both stubs' embeddings of step i come from
+``prng.fold_in`` of (seed, i), as in ``repro``, and the text stream is
+shortened by P.
 
   python -m repro_torch.launch.train --arch stablelm-3b --reduced \\
       --device cpu --steps 20 --batch 2 --seq 64
@@ -29,13 +33,14 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from repro_torch.core import prng
 from repro_torch.data import TokenStream, token_batches
 from repro_torch.models.arch import get_arch
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import AdamW, linear_warmup_cosine
 
 from .shapes import InputShape
-from .steps import make_train_step
+from .steps import make_train_step, stub_rows
 
 
 #: token batches drawn ahead in worker threads: a (4, 2048) batch at
@@ -60,6 +65,23 @@ class TrainResult:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def step_embeds(cfg, seed: int, step: int, batch: int, seq: int,
+                device) -> dict:
+    """The modality stubs' inputs of step ``step``, as ``repro``'s trainer
+    draws them (a function of (seed, step), so a resumed run sees the same
+    ones): for each of ``steps.stub_rows`` (a vision model's
+    'modal_embeds', an encoder-decoder model's 'enc_embeds'), (batch,
+    rows, D) of 0.02 * ``prng.normal`` (within 2^-21 of
+    ``jax.random.normal``) under ``fold_in(key(seed), step)`` (the
+    encoder's frames: ``key(seed + 1)``)."""
+    out = {}
+    for name, rows in stub_rows(cfg, seq).items():
+        k = prng.fold_in(prng.key(seed + (name == "enc_embeds"),
+                                  device=device), step)
+        out[name] = 0.02 * prng.normal(k, (batch, rows, cfg.d_model))
+    return out
 
 
 def state_tree(model: Transformer, optimizer) -> dict:
@@ -107,8 +129,8 @@ def train(arch: str, *, reduced: bool = False, steps: int = 100,
     step_fn = make_train_step(cfg, shape, schedule)
     n_params = model.param_count()
     print(f"arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"(active {n_params/1e6:.1f}M) device={dev} dtype={dtype}",
-          flush=True)
+          f"(active {model.active_param_count()/1e6:.1f}M) device={dev} "
+          f"dtype={dtype}", flush=True)
 
     start = 0
     if ckpt_dir:
@@ -118,8 +140,9 @@ def train(arch: str, *, reduced: bool = False, steps: int = 100,
             start = last
             print(f"resumed from step {start}", flush=True)
 
-    stream = TokenStream(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
-                         seed=seed)
+    stream = TokenStream(vocab=cfg.vocab,
+                         seq_len=seq - (cfg.modality_tokens or 0),
+                         global_batch=batch, seed=seed)
     res = TrainResult(model, optimizer, start, [], [], [], [], [], 0.0,
                       0.0)
     batches = token_batches(stream, start, device=dev, prefetch=PREFETCH,
@@ -128,7 +151,8 @@ def train(arch: str, *, reduced: bool = False, steps: int = 100,
     try:
         for step in range(start, steps):
             t0 = time.perf_counter()
-            b = next(batches)
+            b = {**next(batches),
+                 **step_embeds(cfg, seed, step, batch, seq, dev)}
             t1 = time.perf_counter()
             metrics = step_fn(model, optimizer, b)
             res.losses.append(float(metrics["loss"]))

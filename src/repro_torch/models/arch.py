@@ -3,10 +3,11 @@
 A copy of ``repro.models.arch``: every architecture is a frozen
 ``ArchConfig``; configs live in ``repro_torch.configs.<id>`` and register
 themselves here. Layer stacks are described as a repeated *superblock* —
-a short pattern of sublayers repeated ``n_rep`` times. The port runs
-decoder-only patterns (attention or Mamba2 mixers; MLP, MoE or no
-feed-forward); :func:`check_supported` names the later slice for the
-modality stubs and encoder-decoder stacks.
+a short pattern of sublayers repeated ``n_rep`` times. The port runs every
+registered pattern: attention or Mamba2 mixers, cross-attention in the
+decoder layers of an encoder-decoder stack, and MLP, MoE or no
+feed-forward; a modality frontend is a stub whose embeddings the caller
+passes (a decoder prefix for vision, encoder frames for audio).
 """
 from __future__ import annotations
 
@@ -188,19 +189,3 @@ def load_all() -> None:
     for m in pkgutil.iter_modules(cfgs.__path__):
         importlib.import_module(f"repro_torch.configs.{m.name}")
 
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    it runs decoder-only stacks of attention or Mamba2 mixers, each
-    followed by a SwiGLU MLP, an MoE or no feed-forward."""
-    later = []
-    if cfg.modality:
-        later.append(f"the {cfg.modality} frontend stub")
-    if cfg.is_encoder_decoder or any(l.cross_attn for l in cfg.pattern):
-        later.append("encoder-decoder stacks")
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} arrive with a later slice of "
-            f"the port's LM stack; the port runs decoder-only stacks of "
-            f"attention and Mamba2 mixers with MLP and MoE feed-forwards "
-            f"today")

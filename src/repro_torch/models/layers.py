@@ -8,11 +8,12 @@ MoE branches arrive with the LM mesh). Weights keep
 weights and activations in the parameter dtype, norm statistics and
 softmax in f32, and the MoE router and the SSM scan in f32 with their
 f32 leaves (``router``, ``a_log``, ``dt_bias``, ``ssm_d``) f32 whatever
-the model's dtype. Attention goes through the port's kernel wrappers:
-``flash_prefill`` for the full sequence (the route ``repro`` takes on its
-accelerator; differentiable), ``decode_attention`` for one token against
-the cache. Parameters are made frozen; ``module.requires_grad_()`` makes
-them trainable. Serving runs under ``torch.no_grad``.
+the model's dtype. Attention (self and cross) goes through the port's
+kernel wrappers: ``flash_prefill`` for the full sequence (the route
+``repro`` takes on its accelerator; differentiable), ``decode_attention``
+for one token against the cache or the cross cache. Parameters are made
+frozen; ``module.requires_grad_()`` makes them trainable. Serving runs
+under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -125,8 +126,8 @@ def init_kv_cache(b: int, sbuf: int, hkv: int, hd: int, *, device, dtype
 
 
 class Attention(nn.Module):
-    """GQA self-attention with RoPE; ``cfg.n_kv_heads`` divides
-    ``cfg.n_heads``."""
+    """GQA attention with RoPE, or cross-attention over an encoder's
+    memory without it; ``cfg.n_kv_heads`` divides ``cfg.n_heads``."""
 
     def __init__(self, cfg, *, device, dtype, generator=None):
         super().__init__()
@@ -139,18 +140,28 @@ class Attention(nn.Module):
         self.wo = dense_param((h * hd, d), **kw)
 
     def forward(self, x: torch.Tensor, *, causal: bool = True,
-                window: int = 0, positions: torch.Tensor | None = None):
-        """x (B, S, D) -> (out (B, S, D), (k, v)): the post-RoPE K/V, each
-        (B, S, Hkv, Dh) — exactly what the decode cache holds."""
+                window: int = 0, positions: torch.Tensor | None = None,
+                memory: torch.Tensor | None = None):
+        """x (B, S, D) -> (out (B, S, D), (k, v)), each (B, Skv, Hkv, Dh)
+        — exactly what the decode cache holds. Self-attention: the
+        post-RoPE K/V of x. Cross-attention (``memory`` (B, Sm, D)): K/V
+        are ``memory @ wk`` / ``memory @ wv``, no RoPE on q or k, and every
+        query sees every memory row (``causal`` and ``window`` apply to
+        self-attention only, as in ``repro``)."""
         b, s, _ = x.shape
         h, hkv, hd = self.cfg.n_heads, self.cfg.n_kv_heads, self.cfg.hd
+        src = x if memory is None else memory
+        sm = src.shape[1]
         q = (x @ self.wq).view(b, s, h, hd)
-        k = (x @ self.wk).view(b, s, hkv, hd)
-        v = (x @ self.wv).view(b, s, hkv, hd)
-        if positions is None:
-            positions = torch.arange(s, device=x.device)[None, :]
-        q = rope(q, positions, self.cfg.rope_theta)
-        k = rope(k, positions, self.cfg.rope_theta)
+        k = (src @ self.wk).view(b, sm, hkv, hd)
+        v = (src @ self.wv).view(b, sm, hkv, hd)
+        if memory is None:
+            if positions is None:
+                positions = torch.arange(s, device=x.device)[None, :]
+            q = rope(q, positions, self.cfg.rope_theta)
+            k = rope(k, positions, self.cfg.rope_theta)
+        else:
+            causal, window = False, 0
         out = flash_prefill(q, k, v, causal=causal, window=window)
         return out.reshape(b, s, h * hd).to(x.dtype) @ self.wo, (k, v)
 
@@ -176,6 +187,18 @@ class Attention(nn.Module):
         cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
         o = decode_attention(q.view(b, h, hd), cache["k"].transpose(1, 2),
                              cache["v"].transpose(1, 2), min(pos + 1, sbuf))
+        return o.reshape(b, 1, h * hd).to(x.dtype) @ self.wo
+
+    def decode_cross(self, x: torch.Tensor, xk: torch.Tensor,
+                     xv: torch.Tensor) -> torch.Tensor:
+        """One token x (B, 1, D) against a cross cache ``xk``/``xv`` (B,
+        Sm, Hkv, Dh): no RoPE, nothing written, every slot valid (the port
+        of ``repro``'s ``attention_decode(memory_kv=)``)."""
+        b = x.shape[0]
+        h, hd = self.cfg.n_heads, self.cfg.hd
+        q = (x @ self.wq).view(b, h, hd)
+        o = decode_attention(q, xk.transpose(1, 2), xv.transpose(1, 2),
+                             xk.shape[1])
         return o.reshape(b, 1, h * hd).to(x.dtype) @ self.wo
 
 

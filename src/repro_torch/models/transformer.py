@@ -1,20 +1,28 @@
-"""The decoder-only LM: embeddings, the layer stack, the training forward
-and loss, prefill and one-token decode against a cache.
+"""The LM: embeddings, the modality prefix, the encoder and the layer
+stack, the training forward and loss, prefill and one-token decode
+against a cache.
 
-The port of ``repro.models.transformer`` for decoder-only stacks.
-``repro`` stacks the layers' params over ``n_rep`` and scans them; here
-they are an ``nn.ModuleList`` of ``Block``s, one per layer in stack order,
-each built for its ``LayerSpec`` (``interop.lm_params_from_numpy``
-unstacks ``repro``'s params). The cache is a list with one dict per
-layer: {'k', 'v': (B, Sbuf, Hkv, Dh)} for attention, {'conv', 'ssm'} for
-Mamba2; ``decode_step`` updates it in place. ``repro``'s sharding
-constraints are no-ops without a mesh and the port has no mesh, so they
-are dropped.
+The port of ``repro.models.transformer``. ``repro`` stacks the layers'
+params over ``n_rep`` and scans them; here they are an ``nn.ModuleList``
+of ``Block``s, one per layer in stack order, each built for its
+``LayerSpec`` (``interop.lm_params_from_numpy`` unstacks ``repro``'s
+params); an encoder-decoder model has a second list, ``enc_layers``, for
+``cfg.encoder_pattern``. The cache is a list with one dict per layer:
+{'k', 'v': (B, Sbuf, Hkv, Dh)} for attention, {'conv', 'ssm'} for
+Mamba2, and with cross-attention also {'xk', 'xv': (B, Sm, Hkv, Dh)},
+the encoder memory's K/V (``repro``'s ``l<i>_xk`` / ``l<i>_xv``);
+``decode_step`` updates it in place. ``repro``'s sharding constraints are
+no-ops without a mesh and the port has no mesh, so they are dropped.
+
+The modality frontends are stubs, as in ``repro``: a vision model takes
+projected patch embeddings (B, P, D) that go before the token embeddings
+(``modal_embeds``), an audio model frame embeddings (B, Sm, D) that its
+encoder reads (``enc_embeds``).
 
 Training (``forward`` + ``lm_loss``) rematerialises as ``repro`` does:
-each block runs under ``torch.utils.checkpoint`` (``repro`` checkpoints
-its scan body), and each 512-token chunk of the loss too, so the (B, S, V)
-f32 logits never exist at once.
+each block (encoder blocks too) runs under ``torch.utils.checkpoint``
+(``repro`` checkpoints its scan bodies), and each 512-token chunk of the
+loss too, so the (B, S, V) f32 logits never exist at once.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from repro_torch._device import resolve_device
 from repro_torch.kernels.flash_prefill import largest_divisor
 
 from . import layers
-from .arch import ArchConfig, LayerSpec, check_supported
+from .arch import ArchConfig, LayerSpec
 
 #: logit of a vocab-padding id
 VOCAB_PAD_NEG = -1e30
@@ -34,8 +42,9 @@ VOCAB_PAD_NEG = -1e30
 
 class Block(nn.Module):
     """One sublayer of kind ``spec``: x + mixer(norm(x)) with an attention
-    or Mamba2 mixer, then x + ff(norm(x)) with an MLP or an MoE, or no
-    feed-forward (and no ``ff_norm``)."""
+    or Mamba2 mixer; with ``spec.cross_attn``, x + cross(cross_norm(x))
+    over the encoder's memory (skipped without one); then x + ff(norm(x))
+    with an MLP or an MoE, or no feed-forward (and no ``ff_norm``)."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, device, dtype,
                  generator=None):
@@ -45,6 +54,9 @@ class Block(nn.Module):
         self.mixer_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
         mixer = layers.Attention if spec.mixer == "attn" else layers.Mamba2
         self.mixer = mixer(cfg, generator=generator, **kw)
+        if spec.cross_attn:
+            self.cross_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
+            self.cross = layers.Attention(cfg, generator=generator, **kw)
         if spec.ff != "none":
             self.ff_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
             self.ff = layers.MoE(cfg, generator=generator, **kw) \
@@ -61,9 +73,11 @@ class Block(nn.Module):
             return x + out, aux
         return x + self.ff(h), None
 
-    def forward(self, x, *, window: int, positions):
+    def forward(self, x, *, window: int, positions, memory=None):
         """(x out, the MoE's aux or None, this layer's cache entries:
-        {'k', 'v'} of the prompt or Mamba2's {'conv', 'ssm'})."""
+        {'k', 'v'} of the prompt or Mamba2's {'conv', 'ssm'}, and the
+        cross K/V {'xk', 'xv'} of ``memory`` (B, Sm, D) when the layer
+        cross-attends)."""
         h = self.mixer_norm(x)
         if self.spec.mixer == "attn":
             h, (k, v) = self.mixer(h, causal=self.spec.causal,
@@ -71,13 +85,20 @@ class Block(nn.Module):
             cache = {"k": k, "v": v}
         else:
             h, cache = self.mixer(h)
-        x, aux = self.feed_forward(x + h)
+        x = x + h
+        if self.spec.cross_attn and memory is not None:
+            h, (xk, xv) = self.cross(self.cross_norm(x), memory=memory)
+            x = x + h
+            cache = {**cache, "xk": xk, "xv": xv}
+        x, aux = self.feed_forward(x)
         return x, aux, cache
 
-    def train_forward(self, x, window: int, positions):
+    def train_forward(self, x, window: int, positions, memory=None):
         """forward without the cache (the function each checkpoint
-        reruns)."""
-        return self(x, window=window, positions=positions)[:2]
+        reruns; ``memory`` is an input, so its gradient reaches the
+        encoder)."""
+        return self(x, window=window, positions=positions,
+                    memory=memory)[:2]
 
     def decode(self, x, cache: dict, pos: int, *, window: int):
         h = self.mixer_norm(x)
@@ -85,13 +106,17 @@ class Block(nn.Module):
             h = self.mixer.decode(h, cache, pos, window=window)
         else:
             h = self.mixer.decode(h, cache)
-        return self.feed_forward(x + h)[0]
+        x = x + h
+        if self.spec.cross_attn and "xk" in cache:
+            x = x + self.cross.decode_cross(self.cross_norm(x), cache["xk"],
+                                            cache["xv"])
+        return self.feed_forward(x)[0]
 
 
 class Transformer(nn.Module):
-    """A decoder-only LM for ``cfg``: one ``Block`` per layer, of its
-    ``LayerSpec`` (modality stubs and encoder-decoder stacks raise
-    ``NotImplementedError``).
+    """The LM for ``cfg``: one ``Block`` per layer, of its ``LayerSpec``,
+    and for an encoder-decoder ``cfg`` the encoder's blocks
+    (``enc_layers``, ``cfg.encoder_pattern`` repeated) and ``enc_norm``.
 
     With a ``generator`` the weights are drawn on ``device`` from
     ``repro``'s distributions (the port of ``init_params``): embed
@@ -108,7 +133,6 @@ class Transformer(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
@@ -118,6 +142,13 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             Block(cfg, spec, generator=generator, **kw)
             for _ in range(cfg.n_rep) for spec in cfg.pattern)
+        if cfg.is_encoder_decoder:
+            pat = cfg.encoder_pattern
+            self.enc_layers = nn.ModuleList(
+                Block(cfg, spec, generator=generator, **kw)
+                for _ in range(cfg.encoder_layers // len(pat))
+                for spec in pat)
+            self.enc_norm = layers.RMSNorm(d, cfg.norm_eps, **kw)
         self.final_norm = layers.RMSNorm(d, cfg.norm_eps, **kw)
         self.unembed = None
         if not cfg.tie_embeddings:
@@ -161,26 +192,58 @@ class Transformer(nn.Module):
         -1e30 so softmax and argmax never see them."""
         return self._mask_pad_logits(hidden @ self._unembedding())
 
-    def forward(self, tokens: torch.Tensor, *, window: int = 0
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The training forward: tokens (B, S) -> (final-normed hidden
-        (B, S, D), aux loss f32): ``repro``'s MoE load-balance terms summed
-        over the MoE layers, 0 without one. Each block is checkpointed when
-        autograd records."""
-        s = tokens.shape[1]
-        x = nn.functional.embedding(tokens, self.embed)
-        positions = torch.arange(s, device=x.device)[None, :]
+    def _run(self, blocks, x, window: int, positions, memory=None):
+        """``blocks`` over x (the training forward): (x, aux summed over
+        the MoE layers), each block checkpointed when autograd records."""
         remat = torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk in self.layers:
+        for blk in blocks:
             if remat:
                 x, a = checkpoint(blk.train_forward, x, window, positions,
-                                  use_reentrant=False,
+                                  memory, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a = blk.train_forward(x, window, positions)
+                x, a = blk.train_forward(x, window, positions, memory)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder over frame embeddings (B, Sm, D), cast to the
+        model's dtype: its blocks (RoPE over ``arange(Sm)``, no window;
+        bidirectional where the pattern says so), then ``enc_norm``."""
+        x = enc_embeds.to(self.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, _ = self._run(self.enc_layers, x, 0, positions)
+        return self.enc_norm(x)
+
+    def _inputs(self, tokens, modal_embeds, enc_embeds):
+        """(x: the modal prefix (cast to the embedding's dtype) before the
+        token embeddings, (B, P + S, D); positions ``arange(P + S)``; the
+        encoder's memory or None)."""
+        x = nn.functional.embedding(tokens, self.embed)
+        if modal_embeds is not None:
+            x = torch.cat([modal_embeds.to(x.dtype), x], dim=1)
+        memory = None
+        if self.cfg.is_encoder_decoder:
+            if enc_embeds is None:
+                raise ValueError(f"{self.cfg.name} is an encoder-decoder "
+                                 f"model: pass enc_embeds")
+            memory = self.encode(enc_embeds)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        return x, positions, memory
+
+    def forward(self, tokens: torch.Tensor, *,
+                modal_embeds: torch.Tensor | None = None,
+                enc_embeds: torch.Tensor | None = None, window: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward: tokens (B, S), the modality prefix
+        ``modal_embeds`` (B, P, D) and the encoder's ``enc_embeds``
+        (B, Sm, D) -> (final-normed hidden (B, P + S, D), aux loss f32):
+        ``repro``'s MoE load-balance terms summed over the MoE layers, 0
+        without one. Each block is checkpointed when autograd records."""
+        x, positions, memory = self._inputs(tokens, modal_embeds, enc_embeds)
+        x, aux = self._run(self.layers, x, window, positions, memory)
         return self.final_norm(x), aux
 
     def _chunk_loss(self, h, t, m, unemb):
@@ -217,50 +280,80 @@ class Transformer(nn.Module):
         return torch.stack(losses).sum() / torch.clamp(
             torch.stack(counts).sum(), min=1.0)
 
-    def init_cache(self, batch: int, max_len: int, *, window: int = 0
-                   ) -> list[dict]:
+    def init_cache(self, batch: int, max_len: int, *, window: int = 0,
+                   memory_len: int = 0) -> list[dict]:
         """Zeroed caches, one per layer: attention's in the model's dtype
         with ``min(max_len, window)`` slots with a window, else
         ``max_len``; Mamba2's conv tail in the model's dtype and its state
-        in f32."""
+        in f32; with ``memory_len``, a cross-attending layer's 'xk'/'xv'
+        (B, memory_len, Hkv, Dh) in the model's dtype."""
         sbuf = min(max_len, window) if window else max_len
         cfg, kw = self.cfg, dict(device=self.device, dtype=self.dtype)
-        return [layers.init_kv_cache(batch, sbuf, cfg.n_kv_heads, cfg.hd,
-                                     **kw)
-                if blk.spec.mixer == "attn" else
-                layers.init_mamba_cache(batch, cfg, **kw)
-                for blk in self.layers]
+        caches = []
+        for blk in self.layers:
+            c = layers.init_kv_cache(batch, sbuf, cfg.n_kv_heads, cfg.hd,
+                                     **kw) if blk.spec.mixer == "attn" \
+                else layers.init_mamba_cache(batch, cfg, **kw)
+            if blk.spec.cross_attn and memory_len:
+                x = layers.init_kv_cache(batch, memory_len, cfg.n_kv_heads,
+                                         cfg.hd, **kw)
+                c.update(xk=x["k"], xv=x["v"])
+            caches.append(c)
+        return caches
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, *, window: int = 0,
-                max_len: int = 0) -> tuple[torch.Tensor, list[dict]]:
-        """Run the prompt tokens (B, S); returns (last-position logits
-        (B, 1, V), cache) so that ``decode_step`` continues at position S.
+    def prefill_cross_cache(self, cache: list[dict], memory: torch.Tensor
+                            ) -> list[dict]:
+        """Write each cross-attending layer's K/V of the encoder's
+        ``memory`` (B, Sm, D) into ``cache``'s 'xk'/'xv' (from
+        ``init_cache(memory_len=Sm)``), cast to their dtype, in place
+        (``repro``'s ``prefill_cross_cache``); returns ``cache``."""
+        b, sm, _ = memory.shape
+        hkv, hd = self.cfg.n_kv_heads, self.cfg.hd
+        for blk, c in zip(self.layers, cache):
+            if blk.spec.cross_attn:
+                for name, w in (("xk", blk.cross.wk), ("xv", blk.cross.wv)):
+                    c[name].copy_((memory @ w).view(b, sm, hkv, hd))
+        return cache
 
-        An attention layer's cache holds the post-RoPE K/V of the prompt.
-        Without a window it has ``max_len`` slots when ``max_len > S`` (the
-        rest zero), else S. With a window it has S slots whatever
-        ``max_len`` says, as in ``repro`` (its prefill pads only unwindowed
-        caches), and the prompt must fit the window. A Mamba2 layer's cache
-        is its conv tail and final state, never padded.
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, *,
+                modal_embeds: torch.Tensor | None = None,
+                enc_embeds: torch.Tensor | None = None, window: int = 0,
+                max_len: int = 0) -> tuple[torch.Tensor, list[dict]]:
+        """Run the prompt tokens (B, S) after the modality prefix
+        ``modal_embeds`` (B, P, D), and for an encoder-decoder model over
+        the encoder's memory of ``enc_embeds`` (B, Sm, D); returns
+        (last-position logits (B, 1, V), cache) so that ``decode_step``
+        continues at position P + S.
+
+        An attention layer's cache holds the post-RoPE K/V of the P + S
+        positions. Without a window it has ``max_len`` slots when
+        ``max_len > P + S`` (the rest zero), else P + S. With a window it
+        has P + S slots whatever ``max_len`` says, as in ``repro`` (its
+        prefill pads only unwindowed caches), and the positions must fit
+        the window. A Mamba2 layer's cache is its conv tail and final
+        state, never padded. A cross-attending layer's 'xk'/'xv' are the
+        memory's K/V as its cross-attention computed them, uncast (as
+        ``repro``'s ``prefill_cross_cache_from``).
         """
-        b, s = tokens.shape
+        x, positions, memory = self._inputs(tokens, modal_embeds, enc_embeds)
+        b, s = x.shape[:2]
         if window and s > window:
-            raise ValueError(f"windowed prefill of {s} tokens is longer "
+            raise ValueError(f"windowed prefill of {s} positions is longer "
                              f"than the window {window}")
-        x = self.embed[tokens]
-        positions = torch.arange(s, device=x.device)[None, :]
         sbuf = max_len if max_len > s and not window else s
         cache = []
         for blk in self.layers:
-            x, _, c = blk(x, window=window, positions=positions)
+            x, _, c = blk(x, window=window, positions=positions,
+                          memory=memory)
             if blk.spec.mixer == "attn":
                 kv = layers.init_kv_cache(b, sbuf, self.cfg.n_kv_heads,
                                           self.cfg.hd, device=self.device,
                                           dtype=self.dtype)
                 kv["k"][:, :s] = c["k"]
                 kv["v"][:, :s] = c["v"]
-                c = kv
+                c = {**c, **kv}
             cache.append(c)
         x = self.final_norm(x[:, -1:, :])
         return self.logits(x), cache

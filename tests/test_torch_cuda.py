@@ -945,3 +945,84 @@ def test_cuda_moe_and_mamba_decode_step_without_host_sync(cuda, name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(logits[..., :model.cfg.vocab]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_routes_of_the_encoder_and_cross_layers(cuda, dtype):
+    """The routes the encoder-decoder and vision-prefixed models add, each
+    kernel against its plain version (f32 within 3e-5, bf16 within 1e-2 +
+    2^-7 relative): flash_prefill non-causal over a whole sequence (the
+    encoder), non-causal with Sq != Skv (cross-attention), causal over a
+    prefix that is not a multiple of a tile (P + S); decode_attention over
+    a cross cache with every slot valid."""
+    from repro_torch.kernels import decode_attention, flash_prefill
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dt)
+
+    def close(got, want):
+        tol = dict(rtol=0, atol=3e-5) if dt == torch.float32 else \
+            dict(rtol=2 ** -7, atol=1e-2)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    before = kernels.launches()
+    for (sq, skv, hq, hkv, dh, causal) in ((300, 300, 16, 16, 64, False),
+                                           (512, 130, 16, 16, 64, False),
+                                           (130, 512, 8, 2, 128, False),
+                                           (144 + 200, 144 + 200, 8, 2, 128,
+                                            True)):
+        q, k, v = rnd(2, sq, hq, dh), rnd(2, skv, hkv, dh), rnd(2, skv, hkv,
+                                                                  dh)
+        close(flash_prefill(q, k, v, causal=causal),
+              ref.flash_prefill_ref(q, k, v, causal=causal))
+    xk, xv = rnd(3, 130, 4, 64), rnd(3, 130, 4, 64)   # (B, Sm, Hkv, Dh)
+    q = rnd(3, 16, 64)
+    close(decode_attention(q, xk.transpose(1, 2), xv.transpose(1, 2), 130),
+          ref.decode_attention_ref(q, xk.transpose(1, 2),
+                                   xv.transpose(1, 2), 130))
+    after = kernels.launches()
+    assert after["flash_prefill"] == before["flash_prefill"] + 4
+    assert after["decode_attention"] == before["decode_attention"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_cuda_stub_models_match_cpu(cuda, arch):
+    """Reduced seamless (encoder, cross-attention) and llava (patch
+    prefix), the same f32 weights and embeddings on the card and the
+    CPU: a prefill and 8 greedy decode steps give equal ids and logits
+    within 1e-4, and every attention layer launched its kernel."""
+    import copy
+
+    from repro_torch.launch.serve import random_embeds
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_arch(arch).reduced()
+    cpu = Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    emb = random_embeds(cpu, 2, 40)
+    p = emb["modal_embeds"].shape[1] if "modal_embeds" in emb else 0
+    before = kernels.launches()
+    lc, cc = cpu.prefill(tokens, max_len=p + 48, **emb)
+    lg, cg = card.prefill(tokens.to(cuda), max_len=p + 48,
+                          **{k: v.to(cuda) for k, v in emb.items()})
+    n_attn = len(card.layers) * (2 if cfg.is_encoder_decoder else 1) + (
+        len(card.enc_layers) if cfg.is_encoder_decoder else 0)
+    assert kernels.launches()["flash_prefill"] == \
+        before["flash_prefill"] + n_attn
+    for i in range(9):
+        assert float((lg.cpu() - lc).abs().max()) <= 1e-4, i
+        tok = lc[:, -1].argmax(-1, keepdim=True)
+        assert torch.equal(lg[:, -1].argmax(-1, keepdim=True).cpu(), tok)
+        if i < 8:
+            lc, cc = cpu.decode_step(cc, tok, p + 40 + i)
+            lg, cg = card.decode_step(cg, tok.to(cuda), p + 40 + i)

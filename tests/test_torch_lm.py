@@ -25,6 +25,7 @@ from repro.models import transformer as T
 from repro.models.arch import ArchConfig as JArchConfig
 from repro.models.arch import LayerSpec as JLayerSpec
 from repro.models.arch import get_arch as j_get_arch
+from repro.models.arch import list_archs as j_list_archs
 from repro_torch import interop, kernels
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import arch as t_arch
@@ -254,7 +255,10 @@ def test_init_draws_repros_distributions():
 
 @pytest.mark.parametrize("name", ["granite-8b", "granite-34b", "stablelm-3b",
                                   "mistral-nemo-12b", "qwen2-moe-a2.7b",
-                                  "mamba2-370m", "jamba-1.5-large-398b"])
+                                  "mamba2-370m", "jamba-1.5-large-398b",
+                                  "llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2",
+                                  "llama4-scout-17b-a16e"])
 def test_dense_configs_are_copies(name):
     assert dataclasses.asdict(t_arch.get_arch(name)) == dataclasses.asdict(
         j_get_arch(name))
@@ -262,14 +266,36 @@ def test_dense_configs_are_copies(name):
         dataclasses.asdict(j_get_arch(name).reduced())
 
 
-@pytest.mark.parametrize("name", ["llava-next-mistral-7b",
-                                  "seamless-m4t-large-v2",
-                                  "llama4-scout-17b-a16e"])
-def test_unported_families_raise(name):
-    cfg = interop.arch_from_fields(dataclasses.asdict(
-        j_get_arch(name).reduced()))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Transformer(cfg, device="cpu")
+def test_every_registered_arch_is_ported():
+    assert t_arch.list_archs() == j_list_archs()
+    assert len(t_arch.list_archs()) == 10
+
+
+@pytest.mark.parametrize("name,p", [("llava-next-mistral-7b", 8),
+                                    ("llama4-scout-17b-a16e", 8),
+                                    ("seamless-m4t-large-v2", 0)])
+def test_serve_main_runs_the_stubs(name, p, capsys, monkeypatch):
+    """``main`` serves the vision-prefixed and encoder-decoder models
+    (reduced, on the CPU): ids in the vocab, the decode steps at positions
+    S + P + i after a prefix of P = 8 patch rows (0 for seamless, whose
+    frames go to its encoder)."""
+    seen = []
+    real = Transformer.decode_step
+
+    def decode_step(self, cache, token, pos, **kw):
+        seen.append(pos)
+        if self.cfg.is_encoder_decoder:
+            assert all(c["xk"].shape[1] == 8 for c in cache)  # max(16//4, 8)
+        return real(self, cache, token, pos, **kw)
+
+    monkeypatch.setattr(Transformer, "decode_step", decode_step)
+    res = t_serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "16", "--gen", "5"])
+    assert res.ids.shape == (2, 5) and res.logits_finite
+    assert 0 <= int(res.ids.min()) and int(res.ids.max()) < \
+        j_get_arch(name).reduced().vocab
+    assert seen == [16 + p + i for i in range(4)]
+    assert f"arch={name}" in capsys.readouterr().out
 
 
 def test_lm_entry_points_raise_without_cuda(monkeypatch):
@@ -293,7 +319,11 @@ def test_lm_modules_import_neither_jax_nor_repro():
         "launch/serve.py", "kernels/flash_prefill.py",
         "kernels/decode_attention.py", "kernels/ref.py", "interop.py",
         "configs/granite_8b.py", "configs/qwen2_moe_a2_7b.py",
-        "configs/mamba2_370m.py", "configs/jamba_1_5_large_398b.py")] + [
+        "configs/mamba2_370m.py", "configs/jamba_1_5_large_398b.py",
+        "configs/llava_next_mistral_7b.py",
+        "configs/llama4_scout_17b_a16e.py",
+        "configs/seamless_m4t_large_v2.py", "launch/steps.py",
+        "launch/train.py")] + [
             os.path.join(ROOT, "chip_smoke.py")]
     for f in files:
         text = open(f).read()

@@ -227,6 +227,66 @@ def test_resume_is_bit_identical(tmp_path):
             assert torch.equal(ta[m][n], tb[m][n]), (m, n)
 
 
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
+def test_resume_with_stub_embeds_is_bit_identical(arch, tmp_path):
+    """The trainer on a vision-prefixed and an encoder-decoder model: 3
+    steps straight, and 2 + checkpoint + resume, give the same losses,
+    parameters (the encoder's and the cross layers' included) and
+    moments bit for bit (each step's embeddings are a function of (seed,
+    step))."""
+    kw = dict(reduced=True, steps=3, batch=2, seq=32, lr=LR, warmup=1,
+              device="cpu", log_every=100)
+    straight = ttrain.train(arch, **kw)
+    assert all(np.isfinite(straight.losses))
+
+    def preempt(step, *_):
+        if step == 1:
+            raise _Preempted
+
+    ckpt = str(tmp_path / "ckpt")
+    with pytest.raises(_Preempted):
+        ttrain.train(arch, ckpt_dir=ckpt, ckpt_every=2, on_step=preempt,
+                     **kw)
+    resumed = ttrain.train(arch, ckpt_dir=ckpt, ckpt_every=2, **kw)
+    assert resumed.start == 2 and resumed.losses == straight.losses[2:]
+    named_a = list(straight.model.named_parameters())
+    named_b = list(resumed.model.named_parameters())
+    assert any(n.startswith(("enc_layers.", "layers.0.cross."))
+               for n, _ in named_a) == (arch == "seamless-m4t-large-v2")
+    for (n, a), (_, b) in zip(named_a, named_b):
+        assert torch.equal(a, b), n
+    ta = straight.optimizer.state_tree(named_a)["moments"]
+    tb = resumed.optimizer.state_tree(named_b)["moments"]
+    for m in ta:
+        for n in ta[m]:
+            assert torch.equal(ta[m][n], tb[m][n]), (m, n)
+
+
+def test_step_embeds_match_jax_random():
+    """The trainer's stub embeddings of a step within 2^-21 (relative) of
+    ``repro``'s ``0.02 * jax.random.normal(fold_in(key(seed), step))``
+    (``key(seed + 1)`` for the encoder's frames), sign for sign."""
+    for arch, name, seed, step, rows in (
+            ("llava-next-mistral-7b", "modal_embeds", 0, 0, 8),
+            ("seamless-m4t-large-v2", "enc_embeds", 0, 0, 16),
+            ("seamless-m4t-large-v2", "enc_embeds", 3, 5, 16)):
+        jcfg = j_get_arch(arch).reduced()
+        cfg = interop.arch_from_fields(dataclasses.asdict(jcfg))
+        got = ttrain.step_embeds(cfg, seed, step, 2, 64, "cpu")
+        assert list(got) == [name]
+        k = jax.random.fold_in(jax.random.key(
+            seed + (name == "enc_embeds")), step)
+        want = np.asarray(0.02 * jax.random.normal(
+            k, (2, rows, jcfg.d_model)))
+        g = got[name].numpy()
+        assert g.shape == want.shape and g.dtype == np.float32
+        np.testing.assert_array_equal(np.sign(g), np.sign(want))
+        np.testing.assert_allclose(g, want, rtol=2.0 ** -21, atol=0)
+    gqa = interop.arch_from_fields(dataclasses.asdict(GQA))
+    assert ttrain.step_embeds(gqa, 0, 0, 2, 64, "cpu") == {}
+
+
 def test_train_main_loss_falls(capsys):
     res = ttrain.main(["--arch", "stablelm-3b", "--reduced", "--device",
                        "cpu", "--steps", "20", "--batch", "2", "--seq", "64",
@@ -253,6 +313,20 @@ def test_auto_microbatches_matches_repro_on_one_shard(arch, shape):
     assert dataclasses.asdict(t_shapes.reduced_shape(
         t_shapes.SHAPES[shape])) == dataclasses.asdict(
             j_reduced_shape(JSHAPES[shape]))
+
+
+def test_stub_step_helpers_match_repro():
+    for arch in ("llava-next-mistral-7b", "llama4-scout-17b-a16e",
+                 "seamless-m4t-large-v2", "granite-8b"):
+        jcfg = j_get_arch(arch)
+        cfg = interop.arch_from_fields(dataclasses.asdict(jcfg))
+        for shape in JSHAPES.values():
+            tshape = t_shapes.SHAPES[shape.name]
+            assert tsteps.modal_tokens(cfg) == jsteps.modal_tokens(jcfg)
+            assert tsteps.encoder_frames(cfg, tshape) == \
+                jsteps.encoder_frames(jcfg, shape)
+            assert tsteps.text_len(cfg, tshape) == \
+                jsteps.text_len(jcfg, shape)
 
 
 def test_prefill_and_serve_steps_drive_the_model():
