@@ -61,7 +61,17 @@ its 48 layers, each served at phase 7's shape in bf16 with its
 launches counted by kind; both attention kernels held and timed on the
 slice's own operands (the bidirectional encoder, the cross-attention, the
 patch-prefixed prompt, the cross cache); and the reduced models' greedy
-decode and one train step card against CPU. Any failed check exits
+decode and one train step card against CPU. Last, the LM mesh (phase
+20): granite-8b at phase 7's shape and qwen2-moe-a2.7b through the
+expert-parallel branch over a one-rank NCCL mesh, bit for bit the
+mesh-less runs; four gloo ranks on the card over (1, 4) and (2, 2)
+serving llama4-scout-17b-a16e at full width cut to 2 layers (a quarter
+of the weights a rank over (1, 4)) against the mesh-less card run, and
+reduced qwen2-moe and jamba (and one ep2d decode) against the same ranks
+on the CPU; two gloo ranks training reduced stablelm-3b over (2, 1) and
+(1, 2) against the mesh-less card steps, a resume and a checkpoint moved
+between meshes; the structure server on a one-card tenant mesh; and the
+compressed gradient collectives over four ranks. Any failed check exits
 non-zero. The last three
 lines of standard output are the card's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and {"ok": true, "device": {...}}.
@@ -4358,6 +4368,746 @@ def log_tensor_core_use(build_dir):
                f"no {what} tensor-core instruction ({'/'.join(opcodes)})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the LM mesh
+# ---------------------------------------------------------------------------
+
+#: (a): over a one-rank NCCL mesh at phase 7's shape
+MESH_ONE = (SERVE_ARCH, MOE_ARCH)
+#: (b): llama4-scout at full width, its decoder cut to 2 layers, in bf16
+MESH_SCOUT, MESH_SCOUT_LAYERS = "llama4-scout-17b-a16e", 2
+MESH_SCOUT_BATCH, MESH_SCOUT_PROMPT, MESH_SCOUT_STEPS = 2, 256, 8
+MESH_RANKS, MESH_SHAPES = 4, ((1, 4), (2, 2))
+#: (b): a card rank's bf16 logits within this many bf16 ulps (2^-8) of
+#: the largest logit of the mesh-less card run: the row-parallel partial
+#: products are rounded to bf16 before their all-reduce sums them
+MESH_BF16_ULPS = 16
+#: (b): a router top-k gap under this many bf16 ulps of a probability of
+#: 1 is a near-tie in bf16 (ROUTER_TIE is f32's): a route that parts from
+#: the mesh-less run's must part there (phase 18 (c)'s rule)
+MESH_ROUTER_TIE_ULPS = 8
+#: (b): reduced models in f32, card ranks against CPU ranks
+MESH_REDUCED = (("qwen2-moe", MOE_ARCH, {}, {}),
+                ("jamba", "jamba-1.5-large-398b", {}, {}),
+                ("qwen2-moe ep2d cap 64", MOE_ARCH,
+                 {"moe_capacity_factor": 64.0}, {"ep2d": True}))
+#: phase 18 (c)'s shape, where its tolerances were set
+MESH_REDUCED_BATCH, MESH_REDUCED_PROMPT, MESH_REDUCED_STEPS = \
+    MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_STEPS
+MESH_REDUCED_ATOL = {"jamba": 1e-3}
+#: (c): reduced stablelm-3b, f32, two ranks
+MESH_TRAIN_SHAPES = ((2, 1), (1, 2))
+MESH_TRAIN = dict(batch=4, seq=128, steps=3, warmup=1, lr=1e-3)
+#: (e): the compressed collectives' operand, one row a rank
+MESH_GRAD_N = 1 << 16
+
+
+def mesh_greedy(model, prompts, emb, steps, forced=None, ref=None,
+                trace=False):
+    """A prefill and ``steps`` greedy decode steps of ``model`` (on a mesh,
+    the rank's shard of the batch): (logits of each step (steps + 1, B, V)
+    f32 on the host, argmax ids (B, steps + 1), dropped assignments over
+    the run, and with ``trace`` or ``ref`` a record). Each step feeds
+    ``forced[:, i]`` when given (both runs of a comparison step on the
+    same tokens), else its own argmax.
+
+    ``trace``: the record holds each step's MoE routes (call, every
+    token's experts sorted (T, k), its top-k gap (T,)) and the cache after
+    it, on the host. ``ref`` (such a record of a mesh-less run, the whole
+    batch) applies phase 18 (c)'s rule: a step whose routes part from the
+    reference's is excused when every token of the first MoE call that
+    parts sits at a router near-tie (a top-k gap under
+    MESH_ROUTER_TIE_ULPS bf16 ulps; later calls' partings may follow from
+    it), and the rank then takes the reference's cache (its rows and
+    heads) before the next step; the record lists the excused steps and
+    their first partings."""
+    import torch
+
+    sh = model.shard
+    rows = slice(None) if sh is None else sh.set_batch(prompts.shape[0])
+    toks, kw = prompts[rows], {k: v[rows] for k, v in emb.items()}
+    dropped, calls = [], []
+
+    def on_moe(m, args, kwargs, out):
+        x = args[0]
+        dropped.append(m.dropped(x, kwargs.get("decode", False)))
+        if trace or ref is not None:
+            _, ids, probs = m.route(x.reshape(-1, x.shape[-1]))
+            top = torch.topk(probs, m.cfg.moe_top_k + 1, dim=-1).values
+            gap = top[:, -2] - top[:, -1]
+            ids = ids.sort(-1).values.view(x.shape[0], -1)
+            gap = gap.view(x.shape[0], -1)
+            if sh is not None and sh.split:
+                ids, gap = sh.batch_cat(ids, 0), sh.batch_cat(gap, 0)
+            calls.append((len(calls), ids.reshape(-1, m.cfg.moe_top_k).cpu(),
+                          gap.reshape(-1).cpu()))
+
+    hooks = [blk.ff.register_forward_hook(on_moe, with_kwargs=True)
+             for blk in model.layers if blk.spec.ff == "moe"]
+    s = toks.shape[1] + (kw["modal_embeds"].shape[1]
+                         if "modal_embeds" in kw else 0)
+    record = {"routes": [], "caches": [], "excused": []}
+    tie = MESH_ROUTER_TIE_ULPS * 2.0 ** -8
+
+    def end_step(i, cache):
+        step_calls = list(calls)
+        calls.clear()
+        if trace:
+            record["routes"].append(step_calls)
+            record["caches"].append([{k: v.cpu() for k, v in c.items()}
+                                     for c in cache])
+        if ref is None:
+            return cache
+        want = ref["routes"][i]
+        expect(len(want) == len(step_calls), f"step {i}: "
+               f"{len(step_calls)} MoE calls, the reference {len(want)}")
+        parted = []
+        for (layer, ids, _), (_, wids, wgap) in zip(step_calls, want):
+            parted = [(layer, t, float(wgap[t])) for t in (ids != wids)
+                      .any(-1).nonzero().flatten().tolist()]
+            if parted:      # the first parting call: later ones follow it
+                break
+        if not parted:
+            return cache
+        expect(all(g <= tie for _, _, g in parted), f"step {i}: routes "
+               f"part from the reference's away from a near-tie: (call, "
+               f"token, top-k gap) {parted[:8]} (tie {tie})")
+        record["excused"].append((i, parted))
+        return [_rank_cache(model, c, rows) for c in ref["caches"][i]]
+
+    logits, cache = model.prefill(toks, max_len=s + steps, **kw)
+    cache = end_step(0, cache)
+    out, ids = [logits[:, -1].float()], []
+    for i in range(steps + 1):
+        ids.append(logits[:, -1].argmax(-1, keepdim=True))
+        if i < steps:
+            tok = ids[-1] if forced is None else forced[rows, i:i + 1]
+            logits, cache = model.decode_step(cache, tok, s + i)
+            cache = end_step(i + 1, cache)
+            out.append(logits[:, -1].float())
+    for h in hooks:
+        h.remove()
+    lg, ids = torch.stack(out), torch.cat(ids, 1)
+    if sh is not None and sh.split:
+        lg, ids = sh.batch_cat(lg.contiguous(), 1), sh.batch_cat(ids, 0)
+    drops = int(sum(dropped)) if dropped else 0
+    if trace or ref is not None:
+        return lg.cpu(), ids.cpu(), drops, record
+    return lg.cpu(), ids.cpu(), drops
+
+
+def _rank_cache(model, layer_cache, rows):
+    """A mesh-less run's cache entry of one layer (host tensors) as this
+    rank holds it: its batch rows and its K/V heads (or SSM channels)."""
+    sh, dev = model.shard, model.device
+    out = {}
+    for k, v in layer_cache.items():
+        v = v[rows]
+        if sh is not None and k in ("k", "v", "xk", "xv") and sh.msize > 1:
+            hkv = model.layers[0].mixer.hkv_loc
+            if v.shape[2] != hkv:
+                v = v[:, :, sh.mrank * hkv:(sh.mrank + 1) * hkv]
+        out[k] = v.to(dev).contiguous()
+    return out
+
+
+def lm_mesh_one_rank(dev, total):
+    """(a) granite-8b and qwen2-moe-a2.7b at full width in bf16 at phase
+    7's shape, mesh-less and over a one-rank NCCL mesh (qwen2-moe through
+    the expert-parallel branch: the model axis divides its experts): ids
+    and every step's logits equal bit for bit (a one-rank all-reduce adds
+    nothing); launches counted by kind; prefill and decode tok/s of each."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import build, random_embeds, random_prompts
+
+    mesh = make_host_mesh(1, 1, device=dev)
+    b, s, n = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    for arch in MESH_ONE:
+        runs = {}
+        for where in ("mesh-less", "(1, 1) mesh"):
+            torch.cuda.empty_cache()
+            model = build(arch, seed=0, device=dev, dtype=torch.bfloat16,
+                          mesh=None if where == "mesh-less" else mesh)
+            prompts = random_prompts(model, b, s)
+            emb = random_embeds(model, b, s)
+            mesh_greedy(model, prompts[:, :64], {}, 1)       # warm-up
+            walls = []
+            for _ in range(2):   # the second run's wall: both warm
+                sync()
+                t0 = time.perf_counter()
+                (lg, ids, drops), counts = counted(total, lambda: mesh_greedy(
+                    model, prompts, emb, n - 1))
+                sync()
+                walls.append(time.perf_counter() - t0)
+            runs[where] = (lg, ids, drops, counts, walls[-1])
+            if where != "mesh-less":
+                moe = [blk.ff for blk in model.layers
+                       if blk.spec.ff == "moe"]
+                expect(all(m.use_ep for m in moe), f"phase 20 (a) {arch}: "
+                       f"the MoE did not take the expert-parallel branch")
+            del model
+        (la, ia, da, ca, ta), (lb, ib, db, cb, tb) = runs.values()
+        expect(torch.equal(ia, ib), f"phase 20 (a) {arch}: the one-rank "
+               f"mesh's ids differ from the mesh-less run's")
+        expect(torch.equal(la, lb), f"phase 20 (a) {arch}: the one-rank "
+               f"mesh's logits differ from the mesh-less run's (max "
+               f"{float((la - lb).abs().max())})")
+        expect(da == db, f"phase 20 (a) {arch}: drops {da} vs {db}")
+        for k in ("flash_prefill", "decode_attention"):
+            expect(cb[k] > 0 and cb[k] == ca[k], f"phase 20 (a) {arch}: "
+                   f"{k} launched {cb[k]} times over the mesh, {ca[k]} "
+                   f"without")
+        log(f"phase 20 (a) {arch} full width bf16 batch={b} prompt={s} "
+            f"gen={n}: one-rank NCCL mesh == mesh-less, ids and logits bit "
+            f"for bit; dropped={db}; wall s (prefill + {n - 1} decode "
+            f"steps) mesh-less {ta:.4f} mesh {tb:.4f}; launches mesh="
+            f"{json.dumps(cb)}")
+        del runs
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _reduced_cfg(arch, repl):
+    import dataclasses
+
+    from repro_torch.models.arch import get_arch
+
+    return dataclasses.replace(get_arch(arch).reduced(), **repl)
+
+
+def _mesh_serve_rank(rank, world, store, out_dir, dev, plan):
+    """One rank of (b) and (e) on ``dev`` (cuda:0 for every rank, gloo on
+    CUDA tensors; or the CPU), by ``plan`` (the configs and sizes, so a
+    rank needs no registry): the scout over each of its shapes on the
+    tokens of the mesh-less run (when ``plan["scout"]``), the reduced
+    models, and the compressed collectives; writes its results and launch
+    counts."""
+    import pickle
+
+    import torch
+    from repro_torch import interop
+    from repro_torch.comm import (compressed_pmean, error_feedback_apply,
+                                  error_feedback_init, quantize_tensor)
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch.mesh import (init_rank, make_host_mesh,
+                                         make_trial_mesh)
+    from repro_torch.launch.serve import random_embeds, random_prompts
+    from repro_torch.models.transformer import Transformer
+
+    on_card = dev.startswith("cuda")
+    init_rank(rank, world, store, device=dev,
+              backend=WIRE_BACKEND if on_card else "gloo")
+    if not on_card:
+        torch.set_num_threads(1)
+    reset_launches()
+    res = {}
+    if plan["scout"] is not None:
+        cfg, b, s, n, forced, records = plan["scout"]
+        forced = forced.to(dev)
+        for shape in plan["shapes"]:
+            mesh = make_host_mesh(*shape, device=dev)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            model = Transformer(cfg, device=dev, dtype=torch.bfloat16,
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(0), mesh=mesh)
+            held = sum(p.numel() for p in model.parameters())
+            t0 = time.perf_counter()
+            lg, ids, drops, record = mesh_greedy(
+                model, random_prompts(model, b, s), random_embeds(
+                    model, b, s), n, forced, ref=records[shape[0]])
+            if on_card:
+                torch.cuda.synchronize()
+            res["scout", shape] = (
+                lg, ids, drops, held, model.param_count(),
+                time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() if on_card else 0,
+                record["excused"])
+            del model
+    gen = torch.Generator().manual_seed(7)
+    b, s, n = plan["reduced_shape"]
+    for name, cfg, layout in plan["reduced"]:
+        prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen).to(dev)
+        # the same f32 weights on the card and the CPU: drawn on the CPU
+        tree = interop.lm_params_to_numpy(Transformer(
+            cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
+        for shape in plan["shapes"]:
+            if layout.get("ep2d") and shape[0] == 1:
+                continue
+            mesh = make_host_mesh(*shape, device=dev)
+            model = interop.lm_params_from_numpy(cfg, tree, device=dev,
+                                                 mesh=mesh, **layout)
+            res[name, shape] = mesh_greedy(model, prompts, {}, n)
+            del model
+    data = make_trial_mesh(world, device=dev)
+    g = torch.from_numpy(plan["grads"][rank]).to(dev)
+    group = data.get_group("data")
+    codes, _ = quantize_tensor(g, 4)
+    pm = compressed_pmean(g, group, 6)
+    ef = error_feedback_init({"g": torch.zeros_like(g)})
+    acc = torch.zeros_like(g)
+    for _ in range(8):
+        got, ef = error_feedback_apply({"g": g}, ef, group, 3)
+        acc += got["g"]
+    one, _ = error_feedback_apply({"g": g}, {"g": torch.zeros_like(g)},
+                                  group, 3)
+    res["compressed"] = (codes.cpu(), pm.cpu(), (acc / 8).cpu(),
+                         one["g"].cpu())
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump((res, launches()), f)
+    torch.distributed.destroy_process_group()
+
+
+def _reduced_alone(dev, plan):
+    """{name: max |logit| difference of the mesh-less card and CPU runs}
+    of the reduced models on the ranks' weights and prompts."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.models.transformer import Transformer
+
+    gen = torch.Generator().manual_seed(7)
+    b, s, n = plan["reduced_shape"]
+    out = {}
+    for name, cfg, _ in plan["reduced"]:
+        prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+        cpu = Transformer(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+        card = interop.lm_params_from_numpy(
+            cfg, interop.lm_params_to_numpy(cpu), device=dev)
+        lg_h, _, _ = mesh_greedy(cpu, prompts, {}, n)
+        lg_c, _, _ = mesh_greedy(card, prompts.to(dev), {}, n,
+                                 lg_h.argmax(-1).t()[:, :n].to(dev))
+        out[name] = float((lg_c - lg_h)[..., :cfg.vocab].abs().max())
+    return out
+
+
+def _mesh_grads():
+    import numpy as np
+
+    return np.random.default_rng(0).standard_normal(
+        (MESH_RANKS, MESH_GRAD_N)).astype(np.float32)
+
+
+def _spawn_ranks(fn, world, work, *args):
+    """``world`` ranks of ``fn`` (spawned; a FileStore under ``work``):
+    [(results, launches)] in rank order."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mp.spawn(fn, args=(world, os.path.join(work, "store"), work) + args,
+             nprocs=world)
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    shutil.rmtree(work)
+    return out
+
+
+def near_tie_partings(ref_logits, ids, want_ids, bound):
+    """(row, step, the reference's top-2 gap) of every id that differs
+    from the reference's; raises unless each gap is within ``bound``."""
+    partings = []
+    for r, i in (ids != want_ids).nonzero().tolist():
+        top = ref_logits[i, r].topk(2).values
+        gap = float(top[0] - top[1])
+        expect(gap <= bound, f"an id differs at row {r} step {i} where the "
+               f"reference's top-2 gap is {gap} > {bound}")
+        partings.append((r, i, gap))
+    return partings
+
+
+def lm_mesh_ranks(dev, total):
+    """(b) MESH_RANKS gloo ranks on the card: llama4-scout at full width
+    cut to 2 layers in bf16 over (1, 4) and (2, 2) against the mesh-less
+    card run on the same tokens (ids equal but at near-ties, logits within
+    MESH_BF16_ULPS bf16 ulps of the largest logit); reduced qwen2-moe and
+    jamba in f32 (and one ep2d decode) against the same ranks on the CPU
+    (logits within 1e-4, jamba 1e-3, ids and drops equal). (e) on the same
+    ranks: quantize_tensor's codes equal the CPU's bit for bit, and
+    ``repro``'s bounds hold for compressed_pmean (rate 6) and
+    error_feedback_apply (rate 3, 8 rounds)."""
+    import torch
+    from repro_torch.comm import quantize_tensor
+    from repro_torch.launch.serve import build, random_embeds, random_prompts
+
+    work = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    b, s, n = MESH_SCOUT_BATCH, MESH_SCOUT_PROMPT, MESH_SCOUT_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(MESH_SCOUT, seed=0, device=dev, dtype=torch.bfloat16,
+                  layers=MESH_SCOUT_LAYERS)
+    prompts, emb = random_prompts(model, b, s), random_embeds(model, b, s)
+    t0 = time.perf_counter()
+    ref, ref_ids, ref_drops = mesh_greedy(model, prompts, emb, n)
+    sync()
+    t_ref, peak_ref = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    # over D data shards the experts' capacity is per shard, by design:
+    # the reference is the mesh-less model on each shard's rows, on the
+    # same tokens (traced: routes and caches for the ranks)
+    refs = {}
+    for d in {shape[0] for shape in MESH_SHAPES}:
+        k = b // d
+        parts = [mesh_greedy(model, prompts[i * k:(i + 1) * k],
+                             {key: v[i * k:(i + 1) * k]
+                              for key, v in emb.items()}, n,
+                             ref_ids[i * k:(i + 1) * k].to(dev), trace=True)
+                 for i in range(d)]
+        record = {"routes": [], "caches": []}
+        for step in range(n + 1):
+            record["routes"].append([
+                (c[0][0], torch.cat([p[3]["routes"][step][j][1]
+                                     for p in parts]),
+                 torch.cat([p[3]["routes"][step][j][2] for p in parts]))
+                for j, c in enumerate(zip(*[p[3]["routes"][step]
+                                            for p in parts]))])
+            record["caches"].append([
+                {key: torch.cat([p[3]["caches"][step][j][key]
+                                 for p in parts]) for key in c0}
+                for j, c0 in enumerate(parts[0][3]["caches"][step])])
+        refs[d] = (torch.cat([p[0] for p in parts], 1),
+                   sum(p[2] for p in parts), record)
+    full, scout_cfg = model.param_count(), model.cfg
+    del model
+    torch.cuda.empty_cache()
+    plan = {"shapes": MESH_SHAPES, "grads": _mesh_grads(),
+            "reduced_shape": (MESH_REDUCED_BATCH, MESH_REDUCED_PROMPT,
+                              MESH_REDUCED_STEPS),
+            "reduced": [(name, _reduced_cfg(arch, repl), layout)
+                        for name, arch, repl, layout in MESH_REDUCED],
+            "scout": (scout_cfg, b, s, n, ref_ids,
+                      {d: r[2] for d, r in refs.items()})}
+    rank_dev = "cuda:0" if str(dev).startswith("cuda") else "cpu"
+    t0 = time.perf_counter()
+    card = _spawn_ranks(_mesh_serve_rank, MESH_RANKS,
+                        os.path.join(work, "card"), rank_dev, plan)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = _spawn_ranks(_mesh_serve_rank, MESH_RANKS,
+                        os.path.join(work, "cpu"), "cpu",
+                        {**plan, "scout": None})
+    t_host = time.perf_counter() - t0
+    launches = {}
+    for _, counts in card:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+            total[k] += v
+    for k in ("flash_prefill", "decode_attention", "quantize_fused"):
+        expect(launches[k] > 0, f"phase 20 (b) launched no {k}")
+    vocab = scout_cfg.vocab
+    bound = MESH_BF16_ULPS * 2.0 ** -8 * float(ref[..., :vocab].abs().max())
+    for shape in MESH_SHAPES:
+        lg, ids, drops, held, params, secs, peak, excused = \
+            card[0][0]["scout", shape]
+        want, want_drops, _ = refs[shape[0]]
+        for r in range(1, MESH_RANKS):
+            expect(torch.equal(card[r][0]["scout", shape][1], ids),
+                   f"phase 20 (b) scout {shape}: rank {r}'s ids differ")
+        skip = {i for i, _ in excused}
+        kept = [i for i in range(n + 1) if i not in skip]
+        expect(len(kept) > n // 2, f"phase 20 (b) scout {shape}: "
+               f"{len(skip)} of {n + 1} steps part at router near-ties")
+        lg, want = lg[kept, :, :vocab], want[kept, :, :vocab]
+        err = float((lg - want).abs().max())
+        expect(err <= bound, f"phase 20 (b) scout {shape}: logits differ "
+               f"by {err} > {bound}")
+        ties = near_tie_partings(want, ids[:, kept], want.argmax(-1).t(),
+                                 bound)
+        if excused:
+            log(f"phase 20 (b) scout {shape}: steps routed differently at "
+                f"router near-ties, excused (the ranks took the mesh-less "
+                f"caches): " + json.dumps([(i, len(p), max(
+                    g for _, _, g in p)) for i, p in excused]))
+        expect(params == full, f"phase 20 (b) {shape}: the mesh's model "
+               f"has {params} parameters, not {full}")
+        if shape == (1, 4):
+            expect(held <= 0.3 * full, f"phase 20 (b) (1, 4): a rank holds "
+                   f"{held} of {full} parameters")
+        log(f"phase 20 (b) {MESH_SCOUT} full width, {MESH_SCOUT_LAYERS} "
+            f"layers, bf16, batch={b} prompt={s} steps={n} over {shape} "
+            f"({MESH_RANKS} gloo ranks on the card): max |logit - "
+            f"mesh-less card| {err:.4e} (bound {bound:.4e} = "
+            f"{MESH_BF16_ULPS} bf16 ulps of the largest logit); ids == "
+            f"mesh-less{' but at near-ties ' + json.dumps(ties) if ties else ''}"
+            f"{'' if shape[0] == 1 else ' (the mesh-less model on each data shard)'}"
+            f" on {len(kept)} of {n + 1} steps; "
+            f"dropped {drops} (mesh-less {want_drops}); rank 0 holds {held} "
+            f"of {params} parameters, peak_bytes {peak} (mesh-less "
+            f"{peak_ref}); rank 0 wall s {secs:.4f} (mesh-less {t_ref:.4f})")
+    alone = _reduced_alone(dev, plan)
+    for name, _, _, _ in MESH_REDUCED:
+        atol = MESH_REDUCED_ATOL.get(name, 1e-4)
+        for key in [k for k in card[0][0] if k[0] == name]:
+            lg, ids, drops = card[0][0][key]
+            hl, hids, hdrops = host[0][0][key]
+            for r in range(1, MESH_RANKS):
+                expect(torch.equal(card[r][0][key][1], ids) and torch.equal(
+                    host[r][0][key][1], hids), f"phase 20 (b) {key}: ranks "
+                    f"disagree")
+            expect(torch.equal(ids, hids), f"phase 20 (b) {key}: card ids "
+                   f"differ from the CPU ranks'")
+            err = float((lg - hl).abs().max())
+            expect(err <= atol, f"phase 20 (b) {key}: card - CPU logits "
+                   f"{err} > {atol}")
+            expect(drops == hdrops, f"phase 20 (b) {key}: dropped card "
+                   f"{drops} CPU {hdrops}")
+            log(f"phase 20 (b) reduced {key[0]} f32 over {key[1]}: card "
+                f"ranks == CPU ranks (ids, dropped {drops}), max |logit "
+                f"diff| {err:.3e} (tolerance {atol}; mesh-less card - CPU "
+                f"{alone[name]:.3e})")
+    grads = _mesh_grads()
+    want = grads.mean(0)
+    for r, (res, _) in enumerate(card):
+        codes, pm, ef, one = res["compressed"]
+        expect(torch.equal(codes, quantize_tensor(
+            torch.from_numpy(grads[r]), 4)[0]), f"phase 20 (e) rank {r}: "
+            f"the card's codes differ from the CPU's")
+    codes, pm, ef, one = card[0][0]["compressed"]
+    rms = float(((pm.numpy() - want) ** 2).mean() ** 0.5
+                / (want ** 2).mean() ** 0.5)
+    rel = float(((ef.numpy() - want) ** 2).sum() ** 0.5
+                / (want ** 2).sum() ** 0.5)
+    rel1 = float(((one.numpy() - want) ** 2).sum() ** 0.5
+                 / (want ** 2).sum() ** 0.5)
+    expect(rms < 0.15, f"phase 20 (e) compressed_pmean error {rms}")
+    expect(rel < 0.7 * rel1 and rel < 0.15, f"phase 20 (e) error feedback "
+           f"{rel} vs one-shot {rel1}")
+    log(f"phase 20 (e) {MESH_RANKS} gloo ranks on the card, n={MESH_GRAD_N} "
+        f"a rank: quantize_tensor codes == CPU bit for bit (rate 4); "
+        f"compressed_pmean rate 6 rel RMSE {rms:.4f} (< 0.15); error "
+        f"feedback rate 3 x 8 rel {rel:.4f} vs one-shot {rel1:.4f}")
+    log(f"phase 20 (b)+(e) spawn to end: card {t_card:.1f} s, CPU "
+        f"{t_host:.1f} s; launches (card ranks)={json.dumps(launches)}")
+
+
+def _mesh_train_rank(rank, world, store, out_dir, dev, c):
+    """One rank of (c): reduced stablelm-3b over each of MESH_TRAIN_SHAPES
+    (3 steps), the trainer's resume on (1, 2) and its checkpoint loaded on
+    (2, 1)."""
+    import contextlib
+    import pickle
+
+    import torch
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import init_rank, make_host_mesh
+    from repro_torch.optim import AdamW
+
+    on_card = dev.startswith("cuda")
+    init_rank(rank, world, store, device=dev,
+              backend=WIRE_BACKEND if on_card else "gloo")
+    if not on_card:
+        torch.set_num_threads(1)
+    reset_launches()
+    res = {}
+    for shape in MESH_TRAIN_SHAPES:
+        res[shape] = _train_steps(dev, make_host_mesh(*shape, device=dev), c)
+    mesh = make_host_mesh(*MESH_TRAIN_SHAPES[1], device=dev)
+    kw = dict(reduced=True, steps=4, batch=c["batch"], seq=c["seq"],
+              lr=c["lr"], warmup=c["warmup"], device=dev, log_every=100,
+              mesh=mesh)
+    straight = ttrain.train(TRAIN_ARCH, **kw)
+    ckpt = os.path.join(out_dir, "ckpt")
+
+    def preempt(step, *_):
+        if step == 1:
+            raise _Preempted
+
+    with contextlib.suppress(_Preempted):
+        ttrain.train(TRAIN_ARCH, ckpt_dir=ckpt, ckpt_every=2,
+                     on_step=preempt, **kw)
+    resumed = ttrain.train(TRAIN_ARCH, ckpt_dir=ckpt, ckpt_every=2, **kw)
+    pa = list(straight.model.named_parameters())
+    pb = list(resumed.model.named_parameters())
+    ma = straight.optimizer.state_tree(pa)["moments"]
+    mb = resumed.optimizer.state_tree(pb)["moments"]
+    res["resume"] = (resumed.start, resumed.losses == straight.losses[2:],
+                     all(torch.equal(a, b) for (_, a), (_, b) in zip(pa, pb))
+                     and all(torch.equal(ma[m][k], mb[m][k])
+                             for m in ma for k in ma[m]))
+    other = make_host_mesh(*MESH_TRAIN_SHAPES[0], device=dev)
+    model = type(straight.model)(straight.model.cfg, device=dev, mesh=other,
+                                 fsdp=True)
+    opt = AdamW(model.parameters())
+    ttrain.restore(model, opt, ckpt, 2)
+    named = list(model.named_parameters())
+    moved = {f"params/{k}": v.cpu() for k, v in
+             model.full_named(dict(named)).items()}
+    for m, t in opt.state_tree(named)["moments"].items():
+        moved.update({f"opt/moments/{m}/{k}": v.cpu()
+                      for k, v in model.full_named(t).items()})
+    res["moved"] = (opt.step_count, len(moved), _saved_equal(
+        os.path.join(ckpt, "step_00000002.npz"), moved))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump((res, launches()), f)
+    torch.distributed.destroy_process_group()
+
+
+def _saved_equal(path, leaves) -> bool:
+    """Whether every leaf of ``leaves`` ({checkpoint key: tensor}) equals
+    the one the checkpoint at ``path`` holds, bit for bit."""
+    import numpy as np
+    import torch
+
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        saved = {rec["key"]: (z[f"leaf_{i}"], rec["dtype"])
+                 for i, rec in enumerate(meta["leaves"])}
+    for key, t in leaves.items():
+        arr, dtype = saved[key]
+        if dtype == "bfloat16":
+            arr = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            arr = torch.from_numpy(arr)
+        if not torch.equal(arr, t):
+            return False
+    return True
+
+
+def _train_steps(dev, mesh, c):
+    """``c``'s (MESH_TRAIN's) steps of reduced stablelm-3b from seed-0
+    weights (on ``mesh`` if given, FSDP'd as the trainer does): (per-step
+    metrics, the initial and the final full parameters on the host)."""
+    import torch
+    from repro_torch.data import TokenStream, token_batches
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    model = Transformer(cfg, device=dev, mesh=mesh, fsdp=mesh is not None,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+    def full():
+        return {k: v.detach().cpu().clone() for k, v in model.full_named(
+            dict(model.named_parameters())).items()}
+
+    init = full()
+    model.requires_grad_(True)
+    opt = AdamW(model.parameters())
+    step = make_train_step(cfg, InputShape("cli", "train", c["seq"],
+                                           c["batch"]),
+                           linear_warmup_cosine(c["lr"], c["warmup"],
+                                                c["steps"]))
+    rows = None if model.shard is None else model.shard.set_batch(c["batch"])
+    stream = TokenStream(cfg.vocab, c["seq"], c["batch"], seed=0)
+    metrics = [{k: float(v) for k, v in step(model, opt, b).items()}
+               for b in token_batches(stream, device=dev, stop=c["steps"],
+                                      rows=rows)]
+    return metrics, init, full()
+
+
+def lm_mesh_train(dev, total):
+    """(c) two gloo ranks on the card: reduced stablelm-3b's 3 steps over
+    (2, 1) and (1, 2) held to the mesh-less card steps by phase 16 (c)'s
+    rule (loss and grad norm within TRAIN_RTOL, each parameter's
+    difference within TRAIN_PARAM_REL of its update's norm); the trainer's
+    resume on (1, 2) equal to its straight run bit for bit; its step-2
+    checkpoint, saved on (1, 2), loaded on (2, 1) gives back the saved
+    leaves bit for bit."""
+    import torch
+
+    work = os.path.join(ROOT, "build", "chip_smoke_mesh_train")
+    alone, init, final = _train_steps(dev, None, MESH_TRAIN)
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_mesh_train_rank, 2, work,
+                         "cuda:0" if str(dev).startswith("cuda") else "cpu",
+                         MESH_TRAIN)
+    secs = time.perf_counter() - t0
+    for _, counts in ranks:
+        for k, v in counts.items():
+            total[k] += v
+    res = ranks[0][0]
+    for shape in MESH_TRAIN_SHAPES:
+        metrics, init_m, final_m = res[shape]
+        for i, (a, b) in enumerate(zip(metrics, alone)):
+            expect(a["lr"] == b["lr"], f"phase 20 (c) {shape} step {i}: lr")
+            for k in ("loss", "grad_norm"):
+                expect(abs(a[k] - b[k]) <= TRAIN_RTOL * abs(b[k]),
+                       f"phase 20 (c) {shape} step {i}: {k} mesh {a[k]} "
+                       f"mesh-less {b[k]}")
+        worst = 0.0
+        for name, w in final.items():
+            expect(torch.equal(init_m[name], init[name]), f"phase 20 (c) "
+                   f"{shape}: the sharded init of {name} is not the full "
+                   f"init's slice")
+            upd = (w - init[name]).norm().clamp_min(1e-30)
+            rel = float((final_m[name] - w).norm() / upd)
+            worst = max(worst, rel)
+            expect(rel <= TRAIN_PARAM_REL, f"phase 20 (c) {shape} {name}: "
+                   f"mesh - mesh-less is {rel} of the update's norm")
+        log(f"phase 20 (c) reduced {TRAIN_ARCH} f32 over {shape} (2 gloo "
+            f"ranks on the card), {MESH_TRAIN['steps']} steps: losses "
+            f"{[m['loss'] for m in metrics]} (mesh-less "
+            f"{[m['loss'] for m in alone]}); worst |mesh - mesh-less| / "
+            f"|update| {worst:.3e} (tolerance {TRAIN_PARAM_REL})")
+    start, same_losses, same_state = res["resume"]
+    expect(start == 2 and same_losses and same_state, "phase 20 (c): the "
+           "resumed run on (1, 2) is not the straight run bit for bit")
+    count, n_leaves, equal = res["moved"]
+    expect(count == 2 and equal, "phase 20 (c): the checkpoint saved on "
+           "(1, 2) and loaded on (2, 1) does not give back its leaves")
+    log(f"phase 20 (c) resume on (1, 2) == straight bit for bit; the "
+        f"step-2 checkpoint saved on (1, 2) and loaded on (2, 1) gives "
+        f"back its {n_leaves} parameter and moment leaves bit for bit; "
+        f"spawn to end {secs:.1f} s")
+
+
+def mesh_server(dev, total, workdir):
+    """(d) the structure server with ``use_mesh=True`` (a one-card tenant
+    mesh) on phase 11's sign trace: states equal the mesh-less server's
+    bit for bit."""
+    import shutil
+
+    from repro_torch.serve import (ServeConfig, StructureServer,
+                                   TrafficConfig, make_trace)
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    trace = make_trace(TrafficConfig(**CRASH_TRAFFIC))
+    srv = {}
+    for mesh in (False, True):
+        srv[mesh] = StructureServer(ServeConfig(**CRASH_SERVE,
+                                                use_mesh=mesh),
+                                    os.path.join(workdir, str(mesh)))
+        counted(total, lambda: _drive(srv[mesh], trace))
+    expect(srv[True].table.mesh is not None
+           and srv[True].table.mesh.size == 1, "phase 20 (d): the tenant "
+           "mesh is not one card")
+    _equal_states(srv[False], srv[True], "phase 20 (d) tenant mesh")
+    for v in srv.values():
+        v.close()
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase 20 (d) structure server (d={CRASH_SERVE['d']}) over a "
+        f"one-card tenant mesh == mesh-less, state bit for bit")
+
+
+def lm_mesh(dev, total):
+    """Phase 20: parts (a)-(e) above; adds the phase's launches to
+    ``total``."""
+    t0 = time.perf_counter()
+    mine = {k: 0 for k in total}
+    for part, args in ((lm_mesh_one_rank, ()), (lm_mesh_ranks, ()),
+                       (lm_mesh_train, ()),
+                       (mesh_server, (os.path.join(ROOT, "build",
+                                                   "chip_smoke_mesh_srv"),))):
+        t = time.perf_counter()
+        part(dev, mine, *args)
+        log(f"phase 20 {part.__name__} took {time.perf_counter() - t:.1f} s")
+    for k, v in mine.items():
+        total[k] += v
+    log(f"phase 20 launches={json.dumps(mine)}; took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4428,6 +5178,7 @@ def main() -> int:
     for r in records:
         if r["name"] in stubs:
             r["stubs"] = stubs[r["name"]]
+    lm_mesh("cuda", total)
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

@@ -12,6 +12,12 @@ file, then ``os.replace``), so a save cut short never replaces the
 previous snapshot.
 
 Leaves may be numpy arrays, torch tensors or Python scalars.
+
+On a mesh (``shardings``: a tree of the same structure whose leaves are
+``models.sharding.Placement``s, or None for a leaf every rank holds
+whole), a save gathers each leaf in turn to the full array ``repro``
+saves, rank 0 writes and the others wait; a load places each leaf's
+local slice, so a run saved on one mesh resumes on another.
 """
 from __future__ import annotations
 
@@ -104,18 +110,53 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save_checkpoint(directory: str, step: int, tree) -> str:
-    """Serialize ``tree`` to ``directory/step_<step>.npz`` atomically."""
-    os.makedirs(directory, exist_ok=True)
+def _placement(shardings, path):
+    """The placement ``shardings`` gives the leaf at ``path`` (None when
+    it has none there)."""
+    node = shardings
+    for k in path:
+        if node is None:
+            return None
+        if _is_namedtuple(node) and isinstance(k, str):
+            node = getattr(node, k, None)
+        elif isinstance(node, dict):
+            node = node.get(k)
+        else:
+            node = node[k] if k < len(node) else None
+    return node
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def save_checkpoint(directory: str, step: int, tree, *,
+                    shardings=None) -> str:
+    """Serialize ``tree`` to ``directory/step_<step>.npz`` atomically.
+    With ``shardings``, every rank of the mesh calls it: each placed leaf
+    is gathered whole, rank 0 writes and the others wait for it."""
+    import torch.distributed as dist
+
     arrays: dict[str, np.ndarray] = {}
     meta = {"step": step, "leaves": [],
             "treedef": f"PyTreeDef({_treedef(tree)})"}
+    write = shardings is None or _writer()
     for i, (path, leaf) in enumerate(_flatten(tree)):
-        arr, dtype = _to_numpy(leaf)
+        place = None if shardings is None else _placement(shardings, path)
+        if place is not None:
+            leaf = place.gather(leaf)
+        arr, dtype = _to_numpy(leaf) if write else (None, None)
         arrays[f"leaf_{i}"] = arr
         meta["leaves"].append({"key": _leaf_key(path), "dtype": dtype})
-
     path = os.path.join(directory, f"step_{step:08d}.npz")
+    if not write:
+        dist.barrier()
+        return path
+    os.makedirs(directory, exist_ok=True)
+
     fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -125,6 +166,8 @@ def save_checkpoint(directory: str, step: int, tree) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    if shardings is not None and dist.is_initialized():
+        dist.barrier()
     return path
 
 
@@ -140,7 +183,7 @@ def latest_step(directory: str) -> int | None:
 
 
 def load_checkpoint(directory: str, step: int, target_tree, *,
-                    to_numpy: bool = False, device=None):
+                    to_numpy: bool = False, device=None, shardings=None):
     """Restore into the structure of ``target_tree``.
 
     Leaves are matched positionally against the target's flatten order
@@ -150,8 +193,9 @@ def load_checkpoint(directory: str, step: int, target_tree, *,
     serving plane's float64 accumulators and int64 cursors); numpy has no
     bfloat16, so bf16 leaves come back as CPU bf16 tensors. Otherwise
     every leaf is a tensor on ``device`` (default ``cuda``; raises
-    without CUDA unless ``device="cpu"``). Placing leaves on a mesh
-    (``repro``'s ``shardings``) arrives with the port's mesh.
+    without CUDA unless ``device="cpu"``). ``shardings`` (``repro``'s):
+    a placed leaf comes back as this rank's local slice of it, on
+    ``device``, cut from the full leaf one leaf at a time.
     """
     from repro_torch._device import resolve_device
 
@@ -172,11 +216,16 @@ def load_checkpoint(directory: str, step: int, target_tree, *,
                     f"leaf {i} key mismatch: checkpoint {rec['key']!r} vs "
                     f"target {tkey!r}")
             arr = np.array(z[f"leaf_{i}"])  # npz leaves are lazy: copy out
+            place = None if shardings is None else \
+                _placement(shardings, tpath)
             if rec["dtype"] == "bfloat16":
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-                out.append(t if to_numpy else t.to(dev))
-            elif to_numpy:
+            elif to_numpy and place is None:
                 out.append(arr)
+                continue
             else:
-                out.append(torch.from_numpy(arr).to(dev))
+                t = torch.from_numpy(arr)
+            if dev is not None:
+                t = t.to(dev)
+            out.append(t if place is None else place.cut(t))
         return _unflatten(target_tree, iter(out))

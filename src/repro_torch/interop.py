@@ -190,7 +190,8 @@ def lm_tree_from_named(cfg, named: dict) -> dict:
 
 
 def lm_params_from_numpy(cfg, tree: dict, *, device=None,
-                         dtype: torch.dtype = torch.float32):
+                         dtype: torch.dtype = torch.float32, mesh=None,
+                         fsdp: bool = False, ep2d: bool = False):
     """A loaded ``Transformer`` from ``repro``'s params pytree as numpy.
 
     ``tree`` holds ``embed`` (V, D), ``unembed`` (D, V) unless embeddings
@@ -207,25 +208,34 @@ def lm_params_from_numpy(cfg, tree: dict, *, device=None,
     ``n_rep``; into ``enc_layers``) and ``enc_norm.scale``. Each leaf is copied in its
     parameter's dtype: ``dtype``, but f32 for the router, ``a_log``,
     ``dt_bias`` and ``ssm_d``. The parameters come back frozen, as
-    ``Transformer`` makes them.
+    ``Transformer`` makes them. With a ``mesh`` (and ``fsdp`` /
+    ``ep2d``, as ``Transformer`` takes them) each rank keeps its slices
+    of the full leaves.
     """
     from repro_torch.models.transformer import Transformer
 
-    model = Transformer(cfg, device=device, dtype=dtype)
+    model = Transformer(cfg, device=device, dtype=dtype, mesh=mesh,
+                        fsdp=fsdp, ep2d=ep2d)
     arrays = _named_from_tree(cfg, tree)
+    lays = model.param_layouts()
     with torch.no_grad():
         for name, param in model.named_parameters():
             a = np.asarray(arrays[name])
-            if tuple(param.shape) != a.shape:
+            lay = lays[name]
+            full = tuple(param.shape) if lay is None else lay.shape
+            if full != a.shape:
                 raise ValueError(f"{name}: shape {a.shape} does not fit the "
-                                 f"port's {tuple(param.shape)}")
-            param.copy_(torch.tensor(a))
+                                 f"port's {full}")
+            t = torch.tensor(a).to(device=param.device, dtype=param.dtype)
+            param.copy_(t if lay is None else model.shard.cut(t, lay))
     return model
 
 
 def lm_params_to_numpy(model) -> dict:
-    """``model``'s parameters in ``repro``'s params layout, as numpy."""
-    return lm_tree_from_named(model.cfg, dict(model.named_parameters()))
+    """``model``'s parameters in ``repro``'s params layout, as numpy (on a
+    mesh the full leaves, gathered: every rank calls it)."""
+    return lm_tree_from_named(
+        model.cfg, model.full_named(dict(model.named_parameters())))
 
 
 def opt_state_from_numpy(cfg, model, optimizer, tree: dict) -> None:

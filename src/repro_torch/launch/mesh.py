@@ -1,5 +1,6 @@
-"""Meshes for the trial plane and for local hosts, on ``torch.distributed``
-(the port of ``repro.launch.mesh``'s trial and host meshes).
+"""Meshes for the production pods, the trial plane, local hosts and the
+structure server's tenants, on ``torch.distributed`` (the port of
+``repro.launch.mesh``).
 
 ``repro`` runs one process that owns every device; here every rank is a
 process, and a mesh is a ``torch.distributed.device_mesh.DeviceMesh``
@@ -9,13 +10,22 @@ over the ranks of the default process group, with ``repro``'s axis names
 
 The backend follows the device: ``cuda`` means NCCL, one rank a card
 (``cuda:{LOCAL_RANK}``); ``cpu`` means gloo. When no default group is
-initialized, the first mesh initializes a one-rank group on an in-memory
-store, so a plain ``python3`` process gets a mesh of one rank with no
-launcher. Several ranks on one host are joined by :func:`init_rank`
-(``torch.multiprocessing.spawn`` the ranks, each calls it first).
+initialized, the first mesh joins the launcher's group when the process
+runs under ``torchrun`` (``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` in
+the environment, ``env://``), else initializes a one-rank group on an
+in-memory store, so a plain ``python3`` process gets a mesh of one rank
+with no launcher. Several ranks on one host are joined by
+:func:`init_rank` (``torch.multiprocessing.spawn`` the ranks, each calls
+it first).
+
+The tenant mesh is different: ``repro``'s structure server is one process
+over every local device, and so is the port's. :func:`make_tenant_mesh`
+returns a :class:`TenantMesh`, a list of local devices in this process,
+not a group of ranks.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import math
 import os
@@ -62,10 +72,21 @@ def _world_size(device) -> tuple[int, str]:
                                    int(os.environ.get("LOCAL_RANK", "0")))
             torch.cuda.set_device(dev)
             kw["device_id"] = dev
-        dist.init_process_group(
-            "nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(),
-            rank=0, world_size=1, **kw)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if _under_launcher():
+            dist.init_process_group(backend, init_method="env://",
+                                    timeout=RANK_TIMEOUT, **kw)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1, **kw)
     return dist.get_world_size(), dev.type
+
+
+def _under_launcher() -> bool:
+    """Whether ``torchrun`` (or any ``env://`` launcher) started this
+    process: it sets RANK, WORLD_SIZE and MASTER_ADDR."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                         "MASTER_ADDR"))
 
 
 def _mesh(device_type: str, shape: tuple[int, ...], names: tuple[str, ...]):
@@ -73,6 +94,21 @@ def _mesh(device_type: str, shape: tuple[int, ...], names: tuple[str, ...]):
 
     ranks = torch.arange(math.prod(shape)).reshape(shape)
     return DeviceMesh(device_type, ranks, mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production topology of ``repro``: (16, 16) ``("data",
+    "model")`` over 256 ranks, or (2, 16, 16) ``("pod", "data",
+    "model")`` over 512 (the pod axis an outer pure-DP axis: no weight
+    shard spans pods). ``repro`` builds it over a TPU pod's chips; here
+    one rank is a card, and any other world size raises."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n, kind = _world_size(device)
+    if n != math.prod(shape):
+        raise ValueError(f"the production mesh {shape} needs "
+                         f"{math.prod(shape)} ranks, the world has {n}")
+    return _mesh(kind, shape, axes)
 
 
 def make_trial_mesh(data: int | None = None, model: int | None = None, *,
@@ -116,3 +152,34 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device=None):
     if data * model > n:
         raise ValueError(f"requested {data}x{model} mesh on {n} devices")
     return _mesh(kind, (data, model), ("data", "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantMesh:
+    """The structure server's ``("tenant",)`` mesh: local devices of this
+    process, in order. A slot bucket split over it puts part i on
+    ``devices[i]``."""
+    devices: tuple
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_tenant_mesh(tenants: int | None = None, *, devices=None
+                     ) -> TenantMesh:
+    """``repro``'s tenant mesh: the largest power of two <= min(tenants,
+    local devices) of ``devices`` (default every local card, ``cuda:0``
+    first; raises without CUDA). Slot buckets are powers of two, so the
+    mesh divides every launch it can take, and tenants are independent,
+    so splitting a batch over it cannot change a tenant's bits."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = tuple(torch.device(d) for d in devices)
+    n = len(devices)
+    size = n if tenants is None else min(tenants, n)
+    while size > 1 and (size & (size - 1)):  # largest pow2 <= size
+        size &= size - 1
+    return TenantMesh(devices[:max(size, 1)])

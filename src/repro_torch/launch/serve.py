@@ -23,6 +23,17 @@ encoder frames) are random draws too.
       --batch 8 --prompt-len 2048 --gen 32
   python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
       --layers 8 --batch 8 --prompt-len 2048 --gen 32
+
+With ``--data-par D --model-par M`` the model is sharded over a (D, M)
+mesh (``repro``'s ``make_host_mesh``; D * M must not exceed the world
+size): one rank a card under ``torchrun`` (NCCL), or gloo ranks on the
+CPU. Every rank draws the same prompts, runs its shard of the batch and
+its slices of the weights (the layout ``steps.inference_layout``
+chooses), and rank 0 prints:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch llama4-scout-17b-a16e --model-par 4 --batch 8 \\
+      --prompt-len 2048 --gen 32
 """
 from __future__ import annotations
 
@@ -31,12 +42,14 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.models.arch import get_arch
 from repro_torch.models.transformer import Transformer
 
-from .steps import modal_tokens, stub_rows
+from .mesh import _under_launcher, make_host_mesh
+from .steps import inference_layout, modal_tokens, stub_rows
 
 
 @dataclasses.dataclass
@@ -60,8 +73,17 @@ def serve(model: Transformer, prompts: torch.Tensor, *, gen: int,
     encoder-decoder model, and decode ``gen`` tokens greedily (the first
     from the prefill's logits) at positions P + S onwards. Positions are
     host ints, so the loop reads nothing back from the device until it
-    ends. Raises if a sampled id is a vocab-padding id."""
+    ends. Raises if a sampled id is a vocab-padding id.
+
+    On a mesh every rank passes the whole batch and runs its shard of it
+    (``LMShard.set_batch``); ``ids`` comes back whole on every rank."""
     cfg, dev = model.cfg, model.device
+    sh = model.shard
+    if sh is not None:
+        rows = sh.set_batch(prompts.shape[0])
+        prompts = prompts[rows]
+        modal_embeds, enc_embeds = (None if e is None else e[rows]
+                                    for e in (modal_embeds, enc_embeds))
     # positions the prefill fills: the modal prefix, then the prompt
     s = prompts.shape[1] + (0 if modal_embeds is None
                             else modal_embeds.shape[1])
@@ -86,18 +108,23 @@ def serve(model: Transformer, prompts: torch.Tensor, *, gen: int,
     _sync(dev)
     decode_s = time.perf_counter() - t0
     ids = torch.cat(out, dim=1)
+    if sh is not None and sh.split:
+        ids = sh.batch_cat(ids)
+        finite = sh.batch_sum(finite.to(torch.int64)) == sh.bsize
     if int(ids.max()) >= vocab:
         raise RuntimeError("sampled a vocab-padding id")
     return ServeResult(ids, prefill_s, decode_s, bool(finite))
 
 
 def build(arch: str, *, reduced: bool = False, seed: int = 0, device=None,
-          dtype: torch.dtype | None = None, layers: int = 0) -> Transformer:
+          dtype: torch.dtype | None = None, layers: int = 0, mesh=None,
+          fsdp: bool = False, ep2d: bool = False) -> Transformer:
     """The model ``--arch`` names, weights drawn on ``device`` from a
     generator seeded with ``seed``; dtype defaults to bf16 on the card and
     f32 on the CPU. ``layers`` cuts the decoder's depth (a multiple of the
     pattern's length) and keeps every width, for a model one card cannot
-    hold whole."""
+    hold whole. ``mesh`` (with ``fsdp`` / ``ep2d``) shards it: every rank
+    draws the same full leaves and keeps its slices."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -108,7 +135,8 @@ def build(arch: str, *, reduced: bool = False, seed: int = 0, device=None,
         dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return Transformer(cfg, device=dev, dtype=dtype, generator=gen)
+    return Transformer(cfg, device=dev, dtype=dtype, generator=gen,
+                       mesh=mesh, fsdp=fsdp, ep2d=ep2d)
 
 
 def random_prompts(model: Transformer, batch: int, length: int,
@@ -153,25 +181,39 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                     help="default: bfloat16 on cuda, float32 on cpu")
     ap.add_argument("--data-par", type=int, default=None,
-                    help="not accepted: the port has no mesh yet")
+                    help="shard the batch (and FSDP) over D ranks")
     ap.add_argument("--model-par", type=int, default=None,
-                    help="not accepted: the port has no mesh yet")
+                    help="tensor/expert-parallel over M ranks")
     args = ap.parse_args(argv)
-    if args.data_par is not None or args.model_par is not None:
-        ap.error("--data-par/--model-par need a device mesh, which the "
-                 "port does not have yet")
 
     dtype = None if args.dtype is None else getattr(torch, args.dtype)
+    mesh, layout = None, {}
+    if args.data_par or args.model_par or _under_launcher():
+        mesh = make_host_mesh(args.data_par or 1, args.model_par or 1,
+                              device=args.device)
+        cfg = get_arch(args.arch)
+        cfg = cfg.reduced() if args.reduced else cfg
+        if args.layers:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        wdt = dtype or (torch.bfloat16 if mesh.device_type == "cuda"
+                        else torch.float32)
+        layout = inference_layout(cfg, mesh, dtype=wdt)
     model = build(args.arch, reduced=args.reduced, seed=args.seed,
-                  device=args.device, dtype=dtype, layers=args.layers)
+                  device=args.device, dtype=dtype, layers=args.layers,
+                  mesh=mesh, **layout)
     cfg = model.cfg
     prompts = random_prompts(model, args.batch, args.prompt_len)
     embeds = random_embeds(model, args.batch, args.prompt_len)
     res = serve(model, prompts, gen=args.gen, window=args.window, **embeds)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return res
     b, s, gen = args.batch, args.prompt_len, args.gen
+    where = "" if mesh is None else \
+        f" mesh=({args.data_par or 1}, {args.model_par or 1}) " + \
+        " ".join(f"{k}={v}" for k, v in layout.items())
     print(f"arch={cfg.name} batch={b} prompt={s} gen={gen} "
           f"modal={modal_tokens(cfg)} device={model.device} "
-          f"dtype={model.dtype}")
+          f"dtype={model.dtype}{where}")
     print(f"prefill: {res.prefill_s:.3f}s ({b * s / res.prefill_s:.0f} tok/s)")
     print(f"decode : {res.decode_s:.3f}s "
           f"({b * (gen - 1) / max(res.decode_s, 1e-9):.0f} tok/s)")

@@ -1,22 +1,31 @@
 """Step builders: the train step (loss, gradient, clip, update), the
-prefill step and the serve step.
+prefill step and the serve step, and the layouts a mesh gives the
+parameters, the batch and the cache.
 
-The port of ``repro.launch.steps``'s step functions for one device. A
-``repro`` step is a pure function of (params, opt_state, batch); here the
-model and the optimizer hold that state and the step updates them in
-place. ``repro``'s optimizer is a stateless (init, update) recipe that
-its builder takes; the port's optimizer object carries its recipe and its
-state, so the builder takes none and the step takes the optimizer.
-``batch_specs``, the sharding functions and ``build_program`` arrive with
-the LM mesh.
+The port of ``repro.launch.steps``. A ``repro`` step is a pure function
+of (params, opt_state, batch); here the model and the optimizer hold
+that state and the step updates them in place. ``repro``'s optimizer is
+a stateless (init, update) recipe that ``make_train_step`` takes; the
+port's optimizer object carries its recipe and its state, so
+``make_train_step`` takes none and the step takes the optimizer.
+
+On a mesh (a model built with one) the step runs on the rank's shard of
+the batch: the loss is the rank's masked sum over the global count, the
+gradients of FSDP'd weights come reduce-scattered over ``data`` out of
+the backward, the others are summed over ``data`` (and ``pod``), and
+the global norm counts each element once. ``repro``'s ``build_program``
+and ``lower_program`` lower XLA programs, which the port does not have;
+:func:`inference_layout` is their inference choice of layout.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 
 from repro_torch.models.arch import ArchConfig
+from repro_torch.models.sharding import axis_size
 from repro_torch.optim import clip_by_global_norm
 
 from .shapes import InputShape
@@ -86,6 +95,8 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, schedule: Callable,
         return loss + MOE_AUX_WEIGHT * aux, loss, aux
 
     def train_step(model, optimizer, batch: dict) -> dict:
+        if model.shard is not None:
+            return _sharded_step(model, optimizer, batch)
         params = [p for g in optimizer.param_groups for p in g["params"]]
         if microbatches == 1:
             total, loss, aux = loss_fn(model, batch)
@@ -112,15 +123,66 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, schedule: Callable,
         optimizer.step(lr, grads)
         return {"loss": loss, "moe_aux": aux, "grad_norm": gnorm, "lr": lr}
 
+    def _sharded_step(model, optimizer, batch: dict) -> dict:
+        sh = model.shard
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        names = {id(p): n for n, p in model.named_parameters()}
+        lays = model.param_layouts()
+        layouts = [lays[names[id(p)]] for p in params]
+        b = batch["tokens"].shape[0]
+        if b % microbatches:
+            raise ValueError(f"a batch of {b} does not split into "
+                             f"{microbatches} microbatches")
+        size = b // microbatches
+        # a replicated batch runs whole on every data rank: its loss is
+        # counted once over them
+        aux_w = MOE_AUX_WEIGHT if sh.split else MOE_AUX_WEIGHT / sh.bsize
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        loss = aux = 0.0
+        for i in range(microbatches):
+            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            m = mb.get("mask")
+            count = (m.sum() if m is not None else torch.tensor(
+                float(mb["labels"].numel()), device=mb["labels"].device))
+            count = sh.batch_sum(count.to(torch.float32))
+            h, a = model(mb["tokens"], modal_embeds=mb.get("modal_embeds"),
+                         enc_embeds=mb.get("enc_embeds"), window=window)
+            if n_modal:
+                h = h[:, n_modal:, :]
+            ce = model.lm_loss(h, mb["labels"], m, denom=count)
+            for acc, g in zip(gsum, torch.autograd.grad(ce + aux_w * a,
+                                                        params)):
+                acc += g.to(torch.float32)
+            loss = loss + sh.batch_sum(ce.detach())
+            aux = aux + a.detach()
+        grads = []
+        for g, p, lay in zip(gsum, params, layouts):
+            if lay is None or lay.ddim is None:
+                g = sh.batch_sum(g)
+            elif sh.psize > 1:
+                g = sh.reduce(g, sh.pgroup)
+            grads.append((g / microbatches).to(p.dtype))
+        loss, aux = loss / microbatches, aux / microbatches
+        grads, gnorm = clip_by_global_norm(
+            grads, grad_clip, weights=[sh.replication(l) for l in layouts],
+            reduce=sh.world_sum)
+        lr = schedule(optimizer.step_count)
+        optimizer.step(lr, grads)
+        return {"loss": loss, "moe_aux": aux, "grad_norm": gnorm, "lr": lr}
+
     return train_step
 
 
-def auto_microbatches(cfg: ArchConfig, shape: InputShape,
+def auto_microbatches(cfg: ArchConfig, shape: InputShape, mesh=None,
                       budget_bytes: float = 2 * 2**30) -> int:
-    """Smallest power-of-two microbatch count keeping the residual stack
-    the checkpointed blocks keep (n_rep x B x S x d x 2 bytes) under
-    ``budget_bytes``: ``repro``'s rule with one data shard."""
-    b = max(shape.global_batch, 1)
+    """Smallest power-of-two microbatch count keeping the per-rank
+    residual stack the checkpointed blocks keep (n_rep x B_loc x S x d x
+    2 bytes) under ``budget_bytes``, B_loc the global batch over the
+    mesh's (pod, data) shards (``repro``'s rule; one shard without a
+    mesh)."""
+    dshard = 1 if mesh is None else \
+        axis_size(mesh, "pod") * axis_size(mesh, "data")
+    b = max(shape.global_batch // dshard, 1)
     stack = cfg.n_rep * b * shape.seq_len * cfg.d_model * 2
     if cfg.is_encoder_decoder:
         stack *= 2  # encoder stack of similar depth
@@ -152,3 +214,82 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape):
         return model.decode_step(cache, token, pos, window=window)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Layouts on a mesh
+# ---------------------------------------------------------------------------
+
+def batch_axes_for(mesh, b: int):
+    """Largest divisible batch sharding among (pod+data), data, nothing
+    (``repro``'s; ``LMShard.set_batch`` cuts a batch so)."""
+    pod, data = axis_size(mesh, "pod"), axis_size(mesh, "data")
+    if "pod" in (mesh.mesh_dim_names or ()) and b % (pod * data) == 0:
+        return ("pod", "data")
+    if b % data == 0:
+        return ("data",)
+    return None
+
+
+def cache_pspec(key_leaf: str, shape: tuple, cfg: ArchConfig, mesh,
+                batch) -> tuple:
+    """The spec of one cache leaf of the port's per-layer cache (no n_rep
+    axis): ``repro``'s, with the port's two differences. K/V (B, S, Hkv,
+    Dh): kv heads over ``model`` when it divides them; otherwise ``repro``
+    splits head_dim, which the kernels cannot take, and each rank keeps
+    the K/V heads its Q heads read ("model*": the heads of
+    ``layers.kv_heads_kept``). Conv (B, W-1, C): ``repro`` splits the
+    channels evenly; the port keeps its heads' x channels and every B and
+    C channel ("model*"). SSM (B, H, P, N): heads over ``model``."""
+    m = axis_size(mesh, "model")
+    if key_leaf in ("k", "v", "xk", "xv") or key_leaf.endswith(
+            ("_xk", "_xv")):
+        if m == 1 or cfg.n_heads % m:
+            return (batch, None, None, None)
+        return (batch, None, "model" if shape[2] % m == 0 else "model*",
+                None)
+    if key_leaf == "conv":
+        tp = m > 1 and cfg.ssm_heads % m == 0
+        return (batch, None, "model*" if tp else None)
+    if key_leaf == "ssm":
+        return (batch, "model" if shape[1] % m == 0 and m > 1 else None,
+                None, None)
+    return (None,) * len(shape)
+
+
+def param_bytes(cfg: ArchConfig, dtype: torch.dtype) -> int:
+    """Bytes of ``cfg``'s parameters in ``dtype`` (the router and the SSM
+    constants in f32), from a model on the meta device."""
+    from repro_torch.models.transformer import Transformer
+
+    model = Transformer(cfg, device="meta", dtype=dtype)
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+#: ``repro``'s inference budget, 12e9 bytes of a TPU v5e's 16 GiB, as a
+#: share of the card's memory
+BUDGET_SHARE = 12e9 / 16e9
+
+
+def inference_layout(cfg: ArchConfig, mesh, *, dtype: torch.dtype,
+                     budget: float | None = None) -> dict:
+    """``repro``'s inference choice of parameter layout (``build_program``)
+    for a model that prefills and decodes: model-TP alone unless the
+    per-rank weights exceed ``budget``, then FSDP over ``data`` too; for
+    a MoE model the experts 2-D instead (ep2d: experts over ``model``,
+    d_ff over the data axes; its prefill gathers their d_ff blocks, as
+    ``repro``'s FSDP prefill program does) and the rest model-TP alone.
+    Returns ``Transformer``'s {"fsdp", "ep2d"}. The budget defaults to
+    ``BUDGET_SHARE`` of the card's memory (none on the CPU); ``repro``'s
+    is 12e9."""
+    if budget is None:
+        if mesh.device_type != "cuda":
+            budget = math.inf
+        else:
+            props = torch.cuda.get_device_properties(torch.cuda.current_device())
+            budget = BUDGET_SHARE * props.total_memory
+    per_rank = param_bytes(cfg, dtype) / axis_size(mesh, "model")
+    fsdp = per_rank > budget
+    dshards = axis_size(mesh, "data") * axis_size(mesh, "pod")
+    ep2d = fsdp and cfg.moe_experts > 0 and cfg.d_ff % dshards == 0
+    return {"fsdp": fsdp and not ep2d, "ep2d": ep2d}

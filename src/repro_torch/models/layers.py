@@ -1,10 +1,17 @@
 """Building blocks of the LM: RMSNorm, RoPE, GQA attention, the SwiGLU
 MLP, the token-choice MoE and the Mamba2 (SSD) mixer, as ``nn.Module``s.
 
-The port of ``repro.models.layers`` on one device (its expert-parallel
-MoE branches arrive with the LM mesh). Weights keep
-``repro``'s (d_in, d_out) layout and apply as ``x @ W``, so carrying
-``repro``'s params across is a copy. The dtype policy is ``repro``'s:
+The port of ``repro.models.layers``, on one device or on a mesh. Weights
+keep ``repro``'s (d_in, d_out) layout and apply as ``x @ W``, so carrying
+``repro``'s params across is a copy. Built with a ``shard``
+(``sharding.LMShard``), each module holds the rank's slices of its
+weights and runs ``repro``'s sharded branches with explicit collectives:
+attention over its Q heads (and the K/V heads they read), ``wo``
+row-parallel and all-reduced; the MLP column- then row-parallel; the MoE
+expert-parallel over ``model`` (capacity per data shard), or 2-D (ep2d:
+experts over ``model``, d_ff over ``data``, the decode tokens gathered);
+Mamba2 over its heads, the gated norm's mean of squares all-reduced.
+Each rank's attention still runs the kernels, on its own heads. The dtype policy is ``repro``'s:
 weights and activations in the parameter dtype, norm statistics and
 softmax in f32, and the MoE router and the SSM scan in f32 with their
 f32 leaves (``router``, ``a_log``, ``dt_bias``, ``ssm_d``) f32 whatever
@@ -24,28 +31,6 @@ from torch import nn
 
 from repro_torch.kernels import decode_attention, flash_prefill
 from repro_torch.kernels.flash_prefill import largest_divisor
-
-
-def normal_param(shape, *, device, dtype, generator=None, std: float = 1.0
-                 ) -> nn.Parameter:
-    """A frozen parameter on ``device``: N(0, std^2) drawn there in f32 and
-    cast to ``dtype`` (``repro`` draws in f32 and casts), or left
-    uninitialised for a loader when ``generator`` is None."""
-    if generator is None:
-        w = torch.empty(shape, device=device, dtype=dtype)
-    else:
-        w = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32).mul_(std).to(dtype)
-    return nn.Parameter(w, requires_grad=False)
-
-
-def dense_param(shape, *, device, dtype, generator=None, scale: float = 1.0
-                ) -> nn.Parameter:
-    """``repro``'s ``_dense_init``: normal times ``scale / sqrt(fan_in)``,
-    fan_in the second-to-last axis."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return normal_param(shape, device=device, dtype=dtype,
-                        generator=generator, std=scale / math.sqrt(fan_in))
 
 
 def _rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float
@@ -92,6 +77,87 @@ def const_param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def add_param(mod: nn.Module, name: str, shape: tuple, *, device, dtype,
+              generator=None, std: float | None = None,
+              fill: torch.Tensor | None = None, shard=None, tp: bool = True,
+              model_index=None) -> None:
+    """Register frozen parameter ``name`` of full ``shape`` on ``mod``:
+    ``fill`` (a full tensor), else N(0, std^2) drawn on ``device`` in f32
+    and cast (the same draws as without a mesh), else uninitialised for a
+    loader. With a ``shard`` the rank keeps its slice of the full leaf by
+    ``shard.layout(name, shape, tp=, model_index=)``, drawn whole and cut
+    one leaf at a time, and the layout goes into ``mod.layouts``."""
+    lay = None if shard is None else shard.layout(
+        name, shape, tp=tp, model_index=model_index)
+    full = fill
+    if full is None and generator is not None:
+        full = torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32).mul_(std).to(dtype)
+    if full is None:
+        local = torch.empty(shape if lay is None else shard.local_shape(lay),
+                            device=device, dtype=dtype)
+    else:
+        local = full if lay is None else shard.cut(full, lay)
+    del full
+    setattr(mod, name, nn.Parameter(local, requires_grad=False))
+    if lay is not None:
+        mod.layouts[name] = lay
+
+
+def add_dense(mod, name, shape, *, scale: float = 1.0, **kw) -> None:
+    """:func:`add_param` with ``repro``'s ``_dense_init``: normal times
+    ``scale / sqrt(fan_in)``, fan_in the full shape's second-to-last."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    add_param(mod, name, shape, std=scale / math.sqrt(fan_in), **kw)
+
+
+class Sharded(nn.Module):
+    """A module that may hold its weights' slices on a mesh: ``shard`` (an
+    ``LMShard`` or None), ``layouts`` {parameter name: Layout}, and
+    :meth:`w`, a weight as the rank computes with it."""
+
+    def __init__(self, shard=None):
+        super().__init__()
+        self.shard = shard
+        self.layouts: dict = {}
+
+    def w(self, name: str, gather: bool | None = None) -> torch.Tensor:
+        p = getattr(self, name)
+        if self.shard is None:
+            return p
+        return self.shard.use(p, self.layouts.get(name), gather)
+
+    def _enter(self, x):
+        return self.shard.enter(x) if self.tp > 1 else x
+
+    def _reduce(self, x):
+        return self.shard.reduce(x) if self.tp > 1 else x
+
+    def _tp(self, units: int) -> int:
+        """The model-parallel degree over ``units`` (heads, columns,
+        experts): the model axis when it divides them, else 1."""
+        m = 1 if self.shard is None else self.shard.msize
+        return m if m > 1 and units % m == 0 else 1
+
+
+class _ReduceBoth(torch.autograd.Function):
+    """All-reduce forward and backward: a sum every rank's output uses on
+    its own slice (the gated norm's mean of squares)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from .sharding import all_reduce
+
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .sharding import all_reduce
+
+        return all_reduce(g, ctx.group), None
+
+
 class RMSNorm(nn.Module):
     """:func:`rmsnorm` with a scale of ones and ``eps``."""
 
@@ -125,36 +191,76 @@ def init_kv_cache(b: int, sbuf: int, hkv: int, hd: int, *, device, dtype
             "v": torch.zeros((b, sbuf, hkv, hd), device=device, dtype=dtype)}
 
 
-class Attention(nn.Module):
-    """GQA attention with RoPE, or cross-attention over an encoder's
-    memory without it; ``cfg.n_kv_heads`` divides ``cfg.n_heads``."""
+def kv_heads_kept(h: int, hkv: int, m: int) -> torch.Tensor:
+    """(m, k) K/V heads each of ``m`` model ranks keeps when it holds the
+    Q heads [r*h/m, (r+1)*h/m): a contiguous block of hkv/m when m
+    divides hkv; else the heads its Q heads read, k of them serving h/(mk)
+    consecutive Q heads each when every rank's heads group so evenly,
+    and otherwise one per Q head (k = h/m, repeats allowed)."""
+    if hkv % m == 0:
+        return torch.arange(hkv).view(m, hkv // m)
+    g, hl = h // hkv, h // m
+    per = [[(r * hl + j) // g for j in range(hl)] for r in range(m)]
+    kept = [sorted(set(p)) for p in per]
+    k = len(kept[0])
+    if all(len(u) == k for u in kept) and hl % k == 0 and all(
+            per[r][j] == kept[r][j // (hl // k)]
+            for r in range(m) for j in range(hl)):
+        return torch.tensor(kept)
+    return torch.tensor(per)
 
-    def __init__(self, cfg, *, device, dtype, generator=None):
-        super().__init__()
+
+class Attention(Sharded):
+    """GQA attention with RoPE, or cross-attention over an encoder's
+    memory without it; ``cfg.n_kv_heads`` divides ``cfg.n_heads``. On a
+    mesh whose model axis divides the heads, a rank holds ``h_loc`` Q
+    heads and the ``hkv_loc`` K/V heads they read (``kv_heads_kept``),
+    and ``wo``'s product is all-reduced over ``model``."""
+
+    def __init__(self, cfg, *, device, dtype, generator=None, shard=None):
+        super().__init__(shard)
         self.cfg = cfg
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        kw = dict(device=device, dtype=dtype, generator=generator)
-        self.wq = dense_param((d, h * hd), **kw)
-        self.wk = dense_param((d, hkv * hd), **kw)
-        self.wv = dense_param((d, hkv * hd), **kw)
-        self.wo = dense_param((h * hd, d), **kw)
+        self.tp = self._tp(h)
+        self.h_loc, self.hkv_loc = h // self.tp, hkv
+        kv_index = None
+        if self.tp > 1:
+            kept = kv_heads_kept(h, hkv, self.tp)
+            self.hkv_loc = kept.shape[1]
+            if hkv % self.tp:
+                kv_index = (1, (kept[..., None] * hd
+                                + torch.arange(hd)).flatten(1))
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  shard=shard, tp=self.tp > 1)
+        add_dense(self, "wq", (d, h * hd), **kw)
+        add_dense(self, "wk", (d, hkv * hd), model_index=kv_index, **kw)
+        add_dense(self, "wv", (d, hkv * hd), model_index=kv_index, **kw)
+        add_dense(self, "wo", (h * hd, d), **kw)
+
+    def kv(self, src: torch.Tensor):
+        """The rank's K/V heads of ``src`` (B, S, D): (B, S, hkv_loc, Dh)
+        each, before RoPE."""
+        b, sm, _ = src.shape
+        hkv, hd = self.hkv_loc, self.cfg.hd
+        return ((src @ self.w("wk")).view(b, sm, hkv, hd),
+                (src @ self.w("wv")).view(b, sm, hkv, hd))
 
     def forward(self, x: torch.Tensor, *, causal: bool = True,
                 window: int = 0, positions: torch.Tensor | None = None,
                 memory: torch.Tensor | None = None):
         """x (B, S, D) -> (out (B, S, D), (k, v)), each (B, Skv, Hkv, Dh)
-        — exactly what the decode cache holds. Self-attention: the
-        post-RoPE K/V of x. Cross-attention (``memory`` (B, Sm, D)): K/V
-        are ``memory @ wk`` / ``memory @ wv``, no RoPE on q or k, and every
-        query sees every memory row (``causal`` and ``window`` apply to
-        self-attention only, as in ``repro``)."""
+        — exactly what the decode cache holds (the rank's heads on a
+        mesh). Self-attention: the post-RoPE K/V of x. Cross-attention
+        (``memory`` (B, Sm, D)): K/V are ``memory @ wk`` / ``memory @ wv``,
+        no RoPE on q or k, and every query sees every memory row
+        (``causal`` and ``window`` apply to self-attention only, as in
+        ``repro``)."""
         b, s, _ = x.shape
-        h, hkv, hd = self.cfg.n_heads, self.cfg.n_kv_heads, self.cfg.hd
-        src = x if memory is None else memory
-        sm = src.shape[1]
-        q = (x @ self.wq).view(b, s, h, hd)
-        k = (src @ self.wk).view(b, sm, hkv, hd)
-        v = (src @ self.wv).view(b, sm, hkv, hd)
+        h, hd = self.h_loc, self.cfg.hd
+        x = self._enter(x)
+        src = x if memory is None else self._enter(memory)
+        q = (x @ self.w("wq")).view(b, s, h, hd)
+        k, v = self.kv(src)
         if memory is None:
             if positions is None:
                 positions = torch.arange(s, device=x.device)[None, :]
@@ -163,7 +269,8 @@ class Attention(nn.Module):
         else:
             causal, window = False, 0
         out = flash_prefill(q, k, v, causal=causal, window=window)
-        return out.reshape(b, s, h * hd).to(x.dtype) @ self.wo, (k, v)
+        out = out.reshape(b, s, h * hd).to(x.dtype) @ self.w("wo")
+        return self._reduce(out), (k, v)
 
     def decode(self, x: torch.Tensor, cache: dict, pos: int, *,
                window: int = 0) -> torch.Tensor:
@@ -174,10 +281,9 @@ class Attention(nn.Module):
         valid entries are the first ``min(pos + 1, Sbuf)`` slots in both
         cases, in whatever order, which is all the softmax needs."""
         b = x.shape[0]
-        h, hkv, hd = self.cfg.n_heads, self.cfg.n_kv_heads, self.cfg.hd
-        q = (x @ self.wq).view(b, 1, h, hd)
-        k_new = (x @ self.wk).view(b, 1, hkv, hd)
-        v_new = (x @ self.wv).view(b, 1, hkv, hd)
+        h, hd = self.h_loc, self.cfg.hd
+        q = (x @ self.w("wq")).view(b, 1, h, hd)
+        k_new, v_new = self.kv(x)
         positions = torch.arange(pos, pos + 1, device=x.device)[None, :]
         q = rope(q, positions, self.cfg.rope_theta)
         k_new = rope(k_new, positions, self.cfg.rope_theta)
@@ -187,7 +293,8 @@ class Attention(nn.Module):
         cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
         o = decode_attention(q.view(b, h, hd), cache["k"].transpose(1, 2),
                              cache["v"].transpose(1, 2), min(pos + 1, sbuf))
-        return o.reshape(b, 1, h * hd).to(x.dtype) @ self.wo
+        return self._reduce(o.reshape(b, 1, h * hd).to(x.dtype)
+                            @ self.w("wo"))
 
     def decode_cross(self, x: torch.Tensor, xk: torch.Tensor,
                      xv: torch.Tensor) -> torch.Tensor:
@@ -195,25 +302,32 @@ class Attention(nn.Module):
         Sm, Hkv, Dh): no RoPE, nothing written, every slot valid (the port
         of ``repro``'s ``attention_decode(memory_kv=)``)."""
         b = x.shape[0]
-        h, hd = self.cfg.n_heads, self.cfg.hd
-        q = (x @ self.wq).view(b, h, hd)
+        h, hd = self.h_loc, self.cfg.hd
+        q = (x @ self.w("wq")).view(b, h, hd)
         o = decode_attention(q, xk.transpose(1, 2), xv.transpose(1, 2),
                              xk.shape[1])
-        return o.reshape(b, 1, h * hd).to(x.dtype) @ self.wo
+        return self._reduce(o.reshape(b, 1, h * hd).to(x.dtype)
+                            @ self.w("wo"))
 
 
-class MLP(nn.Module):
-    """SwiGLU: (silu(x @ wgate) * (x @ wi)) @ w_down."""
+class MLP(Sharded):
+    """SwiGLU: (silu(x @ wgate) * (x @ wi)) @ w_down; on a mesh ``wgate``
+    and ``wi`` column-parallel, ``w_down`` row-parallel and all-reduced."""
 
-    def __init__(self, d: int, f: int, *, device, dtype, generator=None):
-        super().__init__()
-        kw = dict(device=device, dtype=dtype, generator=generator)
-        self.wgate = dense_param((d, f), **kw)
-        self.wi = dense_param((d, f), **kw)
-        self.w_down = dense_param((f, d), **kw)
+    def __init__(self, d: int, f: int, *, device, dtype, generator=None,
+                 shard=None):
+        super().__init__(shard)
+        self.tp = self._tp(f)
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  shard=shard, tp=self.tp > 1)
+        add_dense(self, "wgate", (d, f), **kw)
+        add_dense(self, "wi", (d, f), **kw)
+        add_dense(self, "w_down", (f, d), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (nn.functional.silu(x @ self.wgate) * (x @ self.wi)) @ self.w_down
+        x = self._enter(x)
+        hidden = nn.functional.silu(x @ self.w("wgate")) * (x @ self.w("wi"))
+        return self._reduce(hidden @ self.w("w_down"))
 
 
 def moe_capacity(cfg, t: int, e: int) -> int:
@@ -228,49 +342,87 @@ def moe_slots(exp_ids: torch.Tensor, e: int, cap: int
     """``repro``'s sort-based capacity assignment of the flat assignments
     ``t * k + j`` of ``exp_ids`` (T, k) to ``e * cap`` expert slots: a
     stable sort by expert keeps each expert's first ``cap`` assignments
-    in flat order and drops the rest. Returns (slot of each flat
-    assignment (T * k,), ``e * cap`` where dropped; assignments an expert
-    received (e,)). Fixed-length counts and no host read, so a decode
-    step stays free of device-to-host syncs."""
+    in flat order and drops the rest. Ids outside [0, e) are another
+    rank's experts (``repro``'s expert-parallel remap): they take no slot.
+    Returns (slot of each flat assignment (T * k,), ``e * cap`` where
+    dropped or not this rank's; assignments each expert received (e,)).
+    Fixed-length counts and no host read, so a decode step stays free of
+    device-to-host syncs."""
     flat = exp_ids.reshape(-1)
-    order = torch.sort(flat, stable=True).indices
-    sorted_exp = flat[order]
-    counts = torch.zeros(e, dtype=torch.long, device=flat.device)
-    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    key = torch.where((flat >= 0) & (flat < e), flat, e)
+    order = torch.sort(key, stable=True).indices
+    sorted_key = key[order]
+    counts = torch.zeros(e + 1, dtype=torch.long, device=flat.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
     starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(flat.numel(), device=flat.device) - starts[sorted_exp]
-    slot_sorted = torch.where(pos < cap, sorted_exp * cap + pos, e * cap)
-    return torch.empty_like(flat).scatter_(0, order, slot_sorted), counts
+    pos = torch.arange(flat.numel(), device=flat.device) - starts[sorted_key]
+    keep = (pos < cap) & (sorted_key < e)
+    slot_sorted = torch.where(keep, sorted_key * cap + pos, e * cap)
+    return torch.empty_like(flat).scatter_(0, order, slot_sorted), counts[:e]
 
 
-class MoE(nn.Module):
+class _GatherRows(torch.autograd.Function):
+    """All-gather of the batch's shards along dim 0 forward; backward, the
+    rank's own rows (its output rows depend on no other shard's tokens
+    through a gradient: routing is discrete)."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard, ctx.rows = shard, x.shape[0]
+        return shard.batch_cat(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.shard.brank
+        return g[r * ctx.rows:(r + 1) * ctx.rows], None
+
+
+class MoE(Sharded):
     """Token-choice top-k mixture of experts with capacity and drops, and
-    the always-on shared expert (the port of ``repro``'s ``moe`` without a
-    mesh). The router is f32; padding experts (``padded_experts`` rounds
-    the count to 16) get logit -1e30.
+    the always-on shared expert (the port of ``repro``'s ``moe``). The
+    router is f32; padding experts (``padded_experts`` rounds the count to
+    16) get logit -1e30.
 
     The combine gathers each token's k slot outputs (0 where dropped),
     scales them by their gates and adds them in ascending expert order:
     the order of ``repro``'s slot-order scatter-add, computed without
     atomics, so it is the same on every run and device.
+
+    On a mesh, ``repro``'s rule picks the branch: when the model axis
+    divides the experts (a (1, 1) mesh included) the layer is expert
+    parallel (``_moe_expert_parallel``): each rank routes its data
+    shard's tokens, runs its E/M experts at a capacity per data shard
+    (``moe_capacity`` of the shard's tokens), and one all-reduce over
+    ``model`` sums the experts' parts, combined in expert order on each
+    rank before it; the aux loss is averaged over the batch's shards. A
+    decode step of a model built 2-D (``LMShard.ep2d``) gathers the
+    step's tokens over the data axes instead and runs its experts' d_ff
+    slice (``_moe_ep2d``, one all-reduce over model and data). Otherwise
+    (the model axis does not divide the experts) the tokens are gathered
+    and every rank runs every expert, as ``repro``'s global dispatch.
     """
 
-    def __init__(self, cfg, *, device, dtype, generator=None):
-        super().__init__()
+    def __init__(self, cfg, *, device, dtype, generator=None, shard=None):
+        super().__init__(shard)
         self.cfg = cfg
         d, f, e = cfg.d_model, cfg.d_ff, cfg.padded_experts
-        kw = dict(device=device, dtype=dtype, generator=generator)
-        self.router = dense_param((d, e), **{**kw, "dtype": torch.float32})
-        self.exp_wgate = dense_param((e, d, f), **kw)
-        self.exp_wi = dense_param((e, d, f), **kw)
-        self.exp_w_down = dense_param((e, f, d), **kw)
-        self.shared = MLP(d, cfg.moe_shared_ff, **kw) \
+        self.use_ep = shard is not None and e % shard.msize == 0
+        self.tp = shard.msize if self.use_ep else 1
+        self.e_loc = e // self.tp
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  shard=shard, tp=self.tp > 1)
+        add_dense(self, "router", (d, e), **{**kw, "dtype": torch.float32})
+        add_dense(self, "exp_wgate", (e, d, f), **kw)
+        add_dense(self, "exp_wi", (e, d, f), **kw)
+        add_dense(self, "exp_w_down", (e, f, d), **kw)
+        self.shared = MLP(d, cfg.moe_shared_ff, device=device, dtype=dtype,
+                          generator=generator, shard=shard) \
             if cfg.moe_shared_ff else None
 
     def route(self, xf: torch.Tensor):
         """xf (T, D) -> (gate (T, k) f32, exp_ids (T, k), probs (T, E))."""
         cfg = self.cfg
-        logits = xf.to(torch.float32) @ self.router
+        logits = xf.to(torch.float32) @ self.w("router")
         if cfg.padded_experts != cfg.moe_experts:
             pad = torch.arange(cfg.padded_experts, device=xf.device) \
                 >= cfg.moe_experts
@@ -280,48 +432,150 @@ class MoE(nn.Module):
         gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
         return gate, exp_ids, probs
 
-    def dropped(self, x: torch.Tensor) -> torch.Tensor:
+    def _branch(self, decode: bool) -> str:
+        """"single", "ep", "ep2d" or "gathered": the branch a call
+        takes."""
+        sh = self.shard
+        if sh is None:
+            return "single"
+        if not self.use_ep:
+            return "gathered"
+        if (decode and sh.ep2d and sh.bsize > 1
+                and self.cfg.d_ff % sh.bsize == 0):
+            return "ep2d"
+        return "ep"
+
+    def dropped(self, x: torch.Tensor, decode: bool = False
+                ) -> torch.Tensor:
         """How many of the token-expert assignments of x (B, S, D) the
-        capacity drops (a 0-d tensor on x's device)."""
-        t, e = x.shape[0] * x.shape[1], self.cfg.padded_experts
+        capacity drops (a 0-d tensor on x's device): on a mesh, the
+        count over the whole mesh under the branch ``forward`` takes
+        (every rank calls it and gets the total)."""
+        branch = self._branch(decode)
+        e = self.cfg.padded_experts
+        if branch in ("ep2d", "gathered") and self.shard.split:
+            x = self.shard.batch_cat(x)
+        t = x.shape[0] * x.shape[1]
         _, exp_ids, _ = self.route(x.reshape(t, -1))
         cap = moe_capacity(self.cfg, t, e)
-        return (moe_slots(exp_ids, e, cap)[1] - cap).clamp(min=0).sum()
+        lo = self.shard.mrank * self.e_loc if self.tp > 1 else 0
+        n = (moe_slots(exp_ids - lo, self.e_loc, cap)[1] - cap) \
+            .clamp(min=0).sum()
+        if branch == "single":
+            return n
+        if self.tp > 1:
+            n = self.shard.reduce(n)
+        if branch == "ep" and self.shard.split:
+            n = self.shard.batch_sum(n)
+        return n
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """x (B, S, D) -> (output (B, S, D), Switch load-balance aux loss
-        f32)."""
-        b, s, d = x.shape
-        e, t = self.cfg.padded_experts, b * s
-        xf = x.reshape(t, d)
-        gate, exp_ids, probs = self.route(xf)
-        first = torch.zeros(e, dtype=torch.float32, device=x.device)
-        first.scatter_add_(0, exp_ids[:, 0], torch.ones_like(gate[:, 0]))
-        aux = e * torch.sum(first / t * probs.mean(0))
-
-        cap = moe_capacity(self.cfg, t, e)
-        slot, counts = moe_slots(exp_ids, e, cap)
-        n_slots = e * cap
-        tok = torch.arange(slot.numel(), device=x.device) // gate.shape[1]
+    def _experts(self, xf, gate, exp_ids, lo: int, cap: int,
+                 gather: bool = True):
+        """(T, D) output of the experts [lo, lo + e_loc) for the
+        assignments routed to them within ``cap`` slots each, each token's
+        parts added in ascending expert order; 0 for the others. The
+        weights' data blocks are all-gathered first unless ``gather`` is
+        False (ep2d: the rank's d_ff slice, a partial sum)."""
+        t, d = xf.shape
+        e_loc = self.exp_wgate.shape[0]
+        slot, counts = moe_slots(exp_ids - lo, e_loc, cap)
+        n_slots = e_loc * cap
+        tok = torch.arange(slot.numel(), device=xf.device) // gate.shape[1]
         tok_for_slot = torch.zeros(n_slots + 1, dtype=torch.long,
-                                   device=x.device).scatter_(0, slot, tok)
-        valid = torch.arange(cap, device=x.device)[None, :] < counts[:, None]
-        buf = torch.where(valid.reshape(-1, 1), xf[tok_for_slot[:n_slots]], 0)
-        buf = buf.view(e, cap, d)
-        hidden = nn.functional.silu(torch.bmm(buf, self.exp_wgate)) \
-            * torch.bmm(buf, self.exp_wi)
-        out_buf = torch.bmm(hidden, self.exp_w_down).view(n_slots, d)
+                                   device=xf.device).scatter_(0, slot, tok)
+        valid = torch.arange(cap, device=xf.device)[None, :] \
+            < counts[:, None]
+        buf = torch.where(valid.reshape(-1, 1),
+                          xf[tok_for_slot[:n_slots]], 0)
+        buf = buf.view(e_loc, cap, d)
+        wg, wi, wd = (self.w(n, gather) for n in ("exp_wgate", "exp_wi",
+                                                   "exp_w_down"))
+        hidden = nn.functional.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wi)
+        out_buf = torch.bmm(hidden, wd).view(n_slots, d)
         out_buf = torch.cat([out_buf, out_buf.new_zeros(1, d)])
 
         _, by_expert = torch.sort(exp_ids, dim=-1)
         slot = slot.view(t, -1).gather(1, by_expert)
-        gate = gate.gather(1, by_expert).to(x.dtype)
+        gate = gate.gather(1, by_expert).to(xf.dtype)
         out = out_buf[slot[:, 0]] * gate[:, :1]
         for j in range(1, slot.shape[1]):
             out = out + out_buf[slot[:, j]] * gate[:, j:j + 1]
-        out = out.view(b, s, d)
+        return out
+
+    @staticmethod
+    def _aux(probs, exp_ids, e: int) -> torch.Tensor:
+        """Switch load-balance loss over the token set of ``probs``."""
+        first = torch.zeros(e, dtype=torch.float32, device=probs.device)
+        first.scatter_add_(0, exp_ids[:, 0],
+                           torch.ones_like(probs[:, 0]))
+        return e * torch.sum(first / probs.shape[0] * probs.mean(0))
+
+    def forward(self, x: torch.Tensor, decode: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, S, D) -> (output (B, S, D), Switch load-balance aux loss
+        f32). ``decode``: a decode step (a 2-D model takes ep2d)."""
+        b, s, d = x.shape
+        e = self.cfg.padded_experts
+        branch = self._branch(decode)
+        if branch == "ep":
+            out, aux = self._moe_expert_parallel(x)
+        elif branch == "single":
+            t = b * s
+            xf = x.reshape(t, d)
+            gate, exp_ids, probs = self.route(xf)
+            aux = self._aux(probs, exp_ids, e)
+            cap = moe_capacity(self.cfg, t, e)
+            out = self._experts(xf, gate, exp_ids, 0, cap).view(b, s, d)
+        else:
+            out, aux = self._moe_gathered(x, branch == "ep2d")
         if self.shared is not None:
             out = out + self.shared(x)
+        return out, aux
+
+    def _moe_expert_parallel(self, x):
+        """``repro``'s ``_moe_expert_parallel`` on this rank's batch
+        shard."""
+        sh = self.shard
+        b, s, d = x.shape
+        e, t = self.cfg.padded_experts, b * s
+        xf = x.reshape(t, d)
+        gate, exp_ids, probs = self.route(xf)
+        aux = self._aux(probs, exp_ids, e)
+        if sh.split:
+            aux = sh.batch_mean(aux)
+        cap = moe_capacity(self.cfg, t, e)
+        lo = sh.mrank * self.e_loc if self.tp > 1 else 0
+        part = self._experts(self._enter(xf), self._enter(gate), exp_ids,
+                             lo, cap)
+        return self._reduce(part).view(b, s, d), aux
+
+    def _moe_gathered(self, x, ep2d: bool):
+        """The step's tokens gathered over the batch's shards: routing and
+        capacity over all of them, the rank's experts (``ep2d``: experts
+        over ``model``, d_ff over ``data``, one all-reduce over both), and
+        the rank's own rows kept (``repro``'s ``_moe_ep2d``; with every
+        expert on every rank, its global dispatch)."""
+        sh = self.shard
+        b, s, d = x.shape
+        e = self.cfg.padded_experts
+        split = sh.split
+        x_all = _GatherRows.apply(x, sh) if split else x
+        xf = x_all.reshape(-1, d)
+        gate, exp_ids, probs = self.route(xf)
+        aux = self._aux(probs, exp_ids, e)
+        cap = moe_capacity(self.cfg, xf.shape[0], e)
+        lo = sh.mrank * self.e_loc if self.tp > 1 else 0
+        part = self._experts(self._enter(xf), self._enter(gate), exp_ids,
+                             lo, cap, gather=not ep2d)
+        if ep2d:
+            part = sh.reduce(sh.reduce(part), sh.dgroup)
+            if sh.pgroup is not None:
+                part = sh.reduce(part, sh.pgroup)
+        else:
+            part = self._reduce(part)
+        out = part.view(-1, s, d)
+        if split:
+            out = out[sh.brank * b:(sh.brank + 1) * b]
         return out, aux
 
 
@@ -382,63 +636,109 @@ def ssd_chunk(b: int, s: int, h: int, budget_bytes: int = 4 * 2**30) -> int:
     return 16
 
 
-def init_mamba_cache(b: int, cfg, *, device, dtype) -> dict:
+def init_mamba_cache(b: int, cfg, *, device, dtype, tp: int = 1) -> dict:
     """One Mamba2 layer's cache: {'conv': the last W - 1 pre-conv inputs
-    (B, W - 1, C) in ``dtype``, 'ssm': the state (B, H, P, N) f32}."""
-    conv_ch = cfg.d_inner + 2 * cfg.ssm_state
+    (B, W - 1, C) in ``dtype``, 'ssm': the state (B, H, P, N) f32}; with
+    ``tp`` model ranks over the heads, one rank's (C = d_inner / tp +
+    2 N, H / tp heads)."""
+    conv_ch = cfg.d_inner // tp + 2 * cfg.ssm_state
     return {"conv": torch.zeros((b, cfg.ssm_conv_width - 1, conv_ch),
                                 device=device, dtype=dtype),
-            "ssm": torch.zeros((b, cfg.ssm_heads, cfg.ssm_head_dim,
+            "ssm": torch.zeros((b, cfg.ssm_heads // tp, cfg.ssm_head_dim,
                                 cfg.ssm_state), device=device,
                                dtype=torch.float32)}
 
 
-class Mamba2(nn.Module):
+class Mamba2(Sharded):
     """The Mamba2 mixer: in_proj to [z, x, B, C, dt], the causal conv over
     [x, B, C], the SSD scan, the skip ``ssm_d``, the silu(z) gate, an
     RMSNorm (eps 1e-5, not ``cfg.norm_eps``, as ``repro``) and out_proj.
-    ``a_log``, ``dt_bias`` and ``ssm_d`` are f32 whatever the dtype."""
+    ``a_log``, ``dt_bias`` and ``ssm_d`` are f32 whatever the dtype.
 
-    def __init__(self, cfg, *, device, dtype, generator=None):
-        super().__init__()
+    On a mesh whose model axis divides the SSM heads, a rank holds its
+    heads' z, x and dt columns of ``in_proj`` and every B and C column
+    (stored [z | x | B | C | dt] as ``repro``'s, the layout is not
+    head-aligned), the conv's x channels of its heads and every B and C
+    channel, its heads' ``a_log``/``dt_bias``/``ssm_d``, its slice of
+    ``norm_scale`` and its rows of ``out_proj`` (all-reduced after). The
+    gated RMSNorm normalises over the whole d_inner: its sum of squares
+    is all-reduced over ``model``."""
+
+    def __init__(self, cfg, *, device, dtype, generator=None, shard=None):
+        super().__init__(shard)
         self.cfg = cfg
         d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        hp = cfg.ssm_head_dim
+        self.tp = self._tp(nh)
+        self.nh_loc, self.di_loc = nh // self.tp, di // self.tp
         conv_ch = di + 2 * n
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        proj_ix = conv_ix = norm_ix = None
+        if self.tp > 1:
+            heads = torch.arange(nh).view(self.tp, -1)
+            ch = (heads[..., None] * hp + torch.arange(hp)).flatten(1)
+            bc = torch.arange(2 * n).expand(self.tp, -1)
+            proj_ix = (1, torch.cat([ch, di + ch, 2 * di + bc,
+                                     2 * di + 2 * n + heads], dim=1))
+            conv_ix = (1, torch.cat([ch, di + bc], dim=1))
+            norm_ix = (0, ch)
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  shard=shard, tp=self.tp > 1)
         f32 = dict(device=device, dtype=torch.float32)
-        self.in_proj = dense_param((d, 2 * di + 2 * n + nh), **kw)
-        self.conv_w = dense_param((cfg.ssm_conv_width, conv_ch), scale=3.0,
-                                  **kw)
-        self.conv_b = const_param(torch.zeros(conv_ch, device=device,
-                                              dtype=dtype))
-        self.a_log = const_param(torch.log(torch.linspace(1.0, 16.0, nh,
-                                                          **f32)))
-        self.dt_bias = const_param(torch.zeros(nh, **f32))
-        self.ssm_d = const_param(torch.ones(nh, **f32))
-        self.out_proj = dense_param((di, d), **kw)
-        self.norm_scale = const_param(torch.ones(di, device=device,
-                                                 dtype=dtype))
+        add_dense(self, "in_proj", (d, 2 * di + 2 * n + nh),
+                  model_index=proj_ix, **kw)
+        add_dense(self, "conv_w", (cfg.ssm_conv_width, conv_ch), scale=3.0,
+                  model_index=conv_ix, **kw)
+        add_param(self, "conv_b", (conv_ch,),
+                  model_index=conv_ix and (0, conv_ix[1]),
+                  fill=torch.zeros(conv_ch, device=device, dtype=dtype),
+                  **kw)
+        kw32 = {**kw, "dtype": torch.float32}
+        add_param(self, "a_log", (nh,), **kw32,
+                  fill=torch.log(torch.linspace(1.0, 16.0, nh, **f32)))
+        add_param(self, "dt_bias", (nh,), fill=torch.zeros(nh, **f32),
+                  **kw32)
+        add_param(self, "ssm_d", (nh,), fill=torch.ones(nh, **f32), **kw32)
+        add_dense(self, "out_proj", (di, d), **kw)
+        add_param(self, "norm_scale", (di,), model_index=norm_ix,
+                  fill=torch.ones(di, device=device, dtype=dtype), **kw)
 
     def _split(self, proj: torch.Tensor):
-        di, n = self.cfg.d_inner, self.cfg.ssm_state
-        return proj.split([di, di, n, n, self.cfg.ssm_heads], dim=-1)
+        di, n = self.di_loc, self.cfg.ssm_state
+        return proj.split([di, di, n, n, self.nh_loc], dim=-1)
+
+    def _norm(self, y: torch.Tensor) -> torch.Tensor:
+        """The gated RMSNorm (eps 1e-5) over the whole d_inner: on a mesh
+        the f32 sum of squares of the rank's slice, all-reduced."""
+        scale = self.w("norm_scale")
+        if self.tp == 1:
+            return rmsnorm(scale, y)
+        yf = y.to(torch.float32)
+        ss = yf.square().sum(-1, keepdim=True)
+        if torch.is_grad_enabled() and ss.requires_grad:
+            ss = _ReduceBoth.apply(ss, self.shard.mgroup)
+        else:
+            ss = self.shard.reduce(ss)
+        rms = torch.rsqrt(ss / self.cfg.d_inner + 1e-5)
+        return (yf * rms).to(y.dtype) * scale
 
     def _out(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         y = y * nn.functional.silu(z)
-        return rmsnorm(self.norm_scale, y) @ self.out_proj
+        return self._reduce(self._norm(y) @ self.w("out_proj"))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """x (B, S, D) -> (out (B, S, D), cache {'conv', 'ssm'}): the
         last W - 1 pre-conv inputs, zero-padded on the left when S < W - 1,
-        and the final SSM state."""
+        and the final SSM state (the rank's channels and heads)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        di, n, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        di, n, nh, hp = self.di_loc, cfg.ssm_state, self.nh_loc, \
             cfg.ssm_head_dim
-        z, xin, bmat, cmat, dt = self._split(x @ self.in_proj)
+        z, xin, bmat, cmat, dt = self._split(self._enter(x)
+                                             @ self.w("in_proj"))
         xbc_raw = torch.cat([xin, bmat, cmat], dim=-1)
-        xin, bmat, cmat = causal_conv(xbc_raw, self.conv_w,
-                                      self.conv_b).split([di, n, n], dim=-1)
+        xin, bmat, cmat = causal_conv(xbc_raw, self.w("conv_w"),
+                                      self.w("conv_b")).split([di, n, n],
+                                                              dim=-1)
         dt = nn.functional.softplus(dt.to(torch.float32) + self.dt_bias)
         xh = xin.reshape(b, s, nh, hp).to(torch.float32)
         y, state = ssd_scan(xh, dt, self.a_log, bmat.to(torch.float32),
@@ -455,13 +755,13 @@ class Mamba2(nn.Module):
         entries it replaces with the stepped ones."""
         cfg = self.cfg
         b = x.shape[0]
-        di, n, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        di, n, nh, hp = self.di_loc, cfg.ssm_state, self.nh_loc, \
             cfg.ssm_head_dim
-        z, xin, bmat, cmat, dt = self._split(x @ self.in_proj)
+        z, xin, bmat, cmat, dt = self._split(x @ self.w("in_proj"))
         conv_in = torch.cat([cache["conv"],
                              torch.cat([xin, bmat, cmat], dim=-1)], dim=1)
-        conv = torch.sum(conv_in * self.conv_w, dim=1, keepdim=True)
-        xin, bmat, cmat = nn.functional.silu(conv + self.conv_b).split(
+        conv = torch.sum(conv_in * self.w("conv_w"), dim=1, keepdim=True)
+        xin, bmat, cmat = nn.functional.silu(conv + self.w("conv_b")).split(
             [di, n, n], dim=-1)
         dt = nn.functional.softplus(dt.to(torch.float32)
                                     + self.dt_bias)[:, 0]         # (B, H)

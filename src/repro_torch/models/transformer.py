@@ -11,8 +11,18 @@ params); an encoder-decoder model has a second list, ``enc_layers``, for
 {'k', 'v': (B, Sbuf, Hkv, Dh)} for attention, {'conv', 'ssm'} for
 Mamba2, and with cross-attention also {'xk', 'xv': (B, Sm, Hkv, Dh)},
 the encoder memory's K/V (``repro``'s ``l<i>_xk`` / ``l<i>_xv``);
-``decode_step`` updates it in place. ``repro``'s sharding constraints are
-no-ops without a mesh and the port has no mesh, so they are dropped.
+``decode_step`` updates it in place.
+
+On a mesh (``Transformer(cfg, mesh=...)``, a ``("data", "model")`` or
+``("pod", "data", "model")`` ``DeviceMesh``) each rank holds its slices
+of the weights (``sharding.LMShard``) and runs its shard of the batch:
+the caller cuts the global batch with ``model.shard.set_batch(B)`` and
+passes the rows it returns. The embedding is vocab-parallel over
+``model`` (a masked local lookup, then an all-reduce), the unembedding
+column-parallel: ``logits`` all-gathers them over ``model`` (serving's
+argmax sees the whole vocabulary) and ``lm_loss`` takes a vocab-parallel
+log-sum-exp. The cache holds the rank's rows, K/V heads and SSM
+channels. Without a mesh the code is the single-device one.
 
 The modality frontends are stubs, as in ``repro``: a vision model takes
 projected patch embeddings (B, P, D) that go before the token embeddings
@@ -26,6 +36,8 @@ loss too, so the (B, S, V) f32 logits never exist at once.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -35,6 +47,7 @@ from repro_torch.kernels.flash_prefill import largest_divisor
 
 from . import layers
 from .arch import ArchConfig, LayerSpec
+from .sharding import all_reduce, shard_of
 
 #: logit of a vocab-padding id
 VOCAB_PAD_NEG = -1e30
@@ -47,29 +60,30 @@ class Block(nn.Module):
     with an MLP or an MoE, or no feed-forward (and no ``ff_norm``)."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, device, dtype,
-                 generator=None):
+                 generator=None, shard=None):
         super().__init__()
         self.spec = spec
         kw = dict(device=device, dtype=dtype)
+        mk = dict(kw, generator=generator, shard=shard)
         self.mixer_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
         mixer = layers.Attention if spec.mixer == "attn" else layers.Mamba2
-        self.mixer = mixer(cfg, generator=generator, **kw)
+        self.mixer = mixer(cfg, **mk)
         if spec.cross_attn:
             self.cross_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
-            self.cross = layers.Attention(cfg, generator=generator, **kw)
+            self.cross = layers.Attention(cfg, **mk)
         if spec.ff != "none":
             self.ff_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
-            self.ff = layers.MoE(cfg, generator=generator, **kw) \
-                if spec.ff == "moe" else \
-                layers.MLP(cfg.d_model, cfg.d_ff, generator=generator, **kw)
+            self.ff = layers.MoE(cfg, **mk) if spec.ff == "moe" else \
+                layers.MLP(cfg.d_model, cfg.d_ff, **mk)
 
-    def feed_forward(self, x):
-        """(x + ff(ff_norm(x)), the MoE's aux loss or None)."""
+    def feed_forward(self, x, decode: bool = False):
+        """(x + ff(ff_norm(x)), the MoE's aux loss or None); ``decode``: a
+        decode step (the MoE's branch may differ)."""
         if self.spec.ff == "none":
             return x, None
         h = self.ff_norm(x)
         if self.spec.ff == "moe":
-            out, aux = self.ff(h)
+            out, aux = self.ff(h, decode=decode)
             return x + out, aux
         return x + self.ff(h), None
 
@@ -110,10 +124,10 @@ class Block(nn.Module):
         if self.spec.cross_attn and "xk" in cache:
             x = x + self.cross.decode_cross(self.cross_norm(x), cache["xk"],
                                             cache["xv"])
-        return self.feed_forward(x)[0]
+        return self.feed_forward(x, decode=True)[0]
 
 
-class Transformer(nn.Module):
+class Transformer(layers.Sharded):
     """The LM for ``cfg``: one ``Block`` per layer, of its ``LayerSpec``,
     and for an encoder-decoder ``cfg`` the encoder's blocks
     (``enc_layers``, ``cfg.encoder_pattern`` repeated) and ``enc_norm``.
@@ -127,33 +141,45 @@ class Transformer(nn.Module):
     activations'; the MoE router and Mamba2's ``a_log``, ``dt_bias`` and
     ``ssm_d`` stay f32 (move a model with ``.to(device)``, never
     ``.to(dtype)``).
+
+    ``mesh`` (a ``DeviceMesh``) shards it (``sharding.LMShard``):
+    ``fsdp`` puts the weights' FSDP dims over ``data``; ``ep2d`` lays the
+    experts out 2-D for decode. With a generator every rank draws each
+    full leaf in turn and keeps its slice, so every mesh serves the same
+    model, and no rank holds more than one full leaf at a time.
     """
 
     def __init__(self, cfg: ArchConfig, *, device=None,
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
-        super().__init__()
+                 generator: torch.Generator | None = None, mesh=None,
+                 fsdp: bool = False, ep2d: bool = False):
+        super().__init__(shard_of(mesh, fsdp=fsdp, ep2d=ep2d))
         self.cfg = cfg
         dev = resolve_device(device)
+        if mesh is not None and mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot hold a "
+                             f"model on {dev}")
         kw = dict(device=dev, dtype=dtype)
+        mk = dict(kw, generator=generator, shard=self.shard)
         d, v = cfg.d_model, cfg.padded_vocab
-        self.embed = layers.normal_param((v, d), generator=generator,
-                                         std=0.02, **kw)
+        self.tp = self._tp(v)
+        layers.add_param(self, "embed", (v, d), std=0.02, tp=self.tp > 1,
+                         **mk)
         self.layers = nn.ModuleList(
-            Block(cfg, spec, generator=generator, **kw)
+            Block(cfg, spec, **mk)
             for _ in range(cfg.n_rep) for spec in cfg.pattern)
         if cfg.is_encoder_decoder:
             pat = cfg.encoder_pattern
             self.enc_layers = nn.ModuleList(
-                Block(cfg, spec, generator=generator, **kw)
+                Block(cfg, spec, **mk)
                 for _ in range(cfg.encoder_layers // len(pat))
                 for spec in pat)
             self.enc_norm = layers.RMSNorm(d, cfg.norm_eps, **kw)
         self.final_norm = layers.RMSNorm(d, cfg.norm_eps, **kw)
         self.unembed = None
         if not cfg.tie_embeddings:
-            self.unembed = layers.normal_param((d, v), generator=generator,
-                                               std=d ** -0.5, **kw)
+            layers.add_param(self, "unembed", (d, v), std=d ** -0.5,
+                             tp=self.tp > 1, **mk)
 
     @property
     def device(self) -> torch.device:
@@ -163,34 +189,89 @@ class Transformer(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
 
+    def param_layouts(self) -> dict:
+        """{parameter name: its ``sharding.Layout``, None where every rank
+        holds it whole} (all None without a mesh)."""
+        out = {}
+        for mname, mod in self.named_modules():
+            lays = getattr(mod, "layouts", {})
+            for pname, _ in mod.named_parameters(recurse=False):
+                out[f"{mname}.{pname}" if mname else pname] = \
+                    lays.get(pname)
+        return out
+
+    def placements(self) -> dict:
+        """{parameter name: ``sharding.Placement``, or None where every
+        rank holds it whole} — ``checkpoint``'s ``shardings``."""
+        from .sharding import Placement
+
+        return {n: None if lay is None else Placement(self.shard, lay)
+                for n, lay in self.param_layouts().items()}
+
+    def full_named(self, named: dict) -> dict:
+        """{name: full leaf} of {name: this rank's tensor} (parameters,
+        gradients or moments, by parameter name); on a mesh every rank
+        calls it and gets the full leaves."""
+        lays = self.param_layouts()
+        return {n: t if lays[n] is None else self.shard.gather(t, lays[n])
+                for n, t in named.items()}
+
+    def full_shapes(self) -> dict:
+        """{parameter name: its full shape} (``repro``'s leaf shapes)."""
+        lays = self.param_layouts()
+        return {n: lays[n].shape if lays[n] is not None else tuple(p.shape)
+                for n, p in self.named_parameters()}
+
     def param_count(self) -> int:
-        return sum(p.numel() for p in self.parameters())
+        """The full model's parameters (on a mesh too)."""
+        return sum(math.prod(s) for s in self.full_shapes().values())
 
     def active_param_count(self) -> int:
         """Parameters a token touches: the MoE's top_k of its padded
         routed experts."""
         e, k = self.cfg.padded_experts, self.cfg.moe_top_k
-        inactive = sum((e - k) * (w.numel() // e)
-                       for blk in self.layers if blk.spec.ff == "moe"
-                       for w in (blk.ff.exp_wgate, blk.ff.exp_wi,
-                                 blk.ff.exp_w_down))
+        shapes = self.full_shapes()
+        inactive = sum((e - k) * (math.prod(s) // e)
+                       for n, s in shapes.items()
+                       if n.rsplit(".", 1)[-1] in ("exp_wgate", "exp_wi",
+                                                   "exp_w_down"))
         return self.param_count() - inactive
 
     def _unembedding(self) -> torch.Tensor:
-        return self.embed.t() if self.unembed is None else self.unembed
+        return self.w("embed").t() if self.unembed is None \
+            else self.w("unembed")
 
-    def _mask_pad_logits(self, logits: torch.Tensor) -> torch.Tensor:
-        """Padding ids' logits at -1e30, out of place (autograd-safe)."""
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; vocab-parallel on a mesh: the rank looks up
+        the ids in its rows, the rest are 0, and an all-reduce over
+        ``model`` completes them."""
+        emb = self.w("embed")
+        if self.tp == 1:
+            return nn.functional.embedding(tokens, emb)
+        lo, rows = self.shard.mrank * emb.shape[0], emb.shape[0]
+        local = tokens - lo
+        ok = (local >= 0) & (local < rows)
+        x = nn.functional.embedding(local.clamp(0, rows - 1), emb)
+        return self.shard.reduce(torch.where(ok[..., None], x, 0))
+
+    def _mask_pad_logits(self, logits: torch.Tensor, lo: int = 0
+                         ) -> torch.Tensor:
+        """Padding ids' logits at -1e30, out of place (autograd-safe);
+        ``logits``' last axis holds the ids from ``lo`` on."""
         if self.cfg.padded_vocab == self.cfg.vocab:
             return logits
-        pad = torch.arange(logits.shape[-1], device=logits.device) \
-            >= self.cfg.vocab
+        pad = torch.arange(lo, lo + logits.shape[-1],
+                           device=logits.device) >= self.cfg.vocab
         return logits.masked_fill(pad, VOCAB_PAD_NEG)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """hidden (..., D) -> logits (..., padded_vocab), padding ids at
-        -1e30 so softmax and argmax never see them."""
-        return self._mask_pad_logits(hidden @ self._unembedding())
+        -1e30 so softmax and argmax never see them (on a mesh, the ranks'
+        vocabulary blocks all-gathered over ``model``)."""
+        logits = hidden @ self._unembedding()
+        if self.tp > 1:
+            logits = self.shard.model_cat(logits, -1)
+        return self._mask_pad_logits(logits)
 
     def _run(self, blocks, x, window: int, positions, memory=None):
         """``blocks`` over x (the training forward): (x, aux summed over
@@ -221,7 +302,7 @@ class Transformer(nn.Module):
         """(x: the modal prefix (cast to the embedding's dtype) before the
         token embeddings, (B, P + S, D); positions ``arange(P + S)``; the
         encoder's memory or None)."""
-        x = nn.functional.embedding(tokens, self.embed)
+        x = self._embed(tokens)
         if modal_embeds is not None:
             x = torch.cat([modal_embeds.to(x.dtype), x], dim=1)
         memory = None
@@ -247,20 +328,37 @@ class Transformer(nn.Module):
         return self.final_norm(x), aux
 
     def _chunk_loss(self, h, t, m, unemb):
-        """(sum of masked token losses, sum of the mask) of one chunk."""
-        logits = self._mask_pad_logits((h @ unemb).to(torch.float32))
-        lse = torch.logsumexp(logits, dim=-1)
-        correct = logits.gather(-1, t[..., None])[..., 0]
+        """(sum of masked token losses, sum of the mask) of one chunk; on a
+        mesh the log-sum-exp and the target's logit are vocab-parallel
+        (the max, the sum of exponentials and the target's logit
+        all-reduced over ``model``)."""
+        if self.tp == 1:
+            logits = self._mask_pad_logits((h @ unemb).to(torch.float32))
+            lse = torch.logsumexp(logits, dim=-1)
+            correct = logits.gather(-1, t[..., None])[..., 0]
+            return ((lse - correct) * m).sum(), m.sum()
+        sh, rows = self.shard, unemb.shape[1]
+        lo = sh.mrank * rows
+        logits = self._mask_pad_logits(
+            (sh.enter(h) @ unemb).to(torch.float32), lo)
+        mx = all_reduce(logits.detach().amax(-1, keepdim=True), sh.mgroup,
+                        torch.distributed.ReduceOp.MAX)
+        lse = mx[..., 0] + sh.reduce((logits - mx).exp().sum(-1)).log()
+        local = t - lo
+        ok = (local >= 0) & (local < rows)
+        mine = logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+        correct = sh.reduce(torch.where(ok, mine, 0.0))
         return ((lse - correct) * m).sum(), m.sum()
 
     def lm_loss(self, hidden: torch.Tensor, targets: torch.Tensor,
-                mask: torch.Tensor | None = None, chunk: int = 512
-                ) -> torch.Tensor:
+                mask: torch.Tensor | None = None, chunk: int = 512,
+                denom: torch.Tensor | None = None) -> torch.Tensor:
         """Mean softmax cross-entropy of ``targets`` (B, S) under the
         logits of ``hidden`` (B, S, D), over ``mask`` (default all ones):
         f32 over ``largest_divisor(S, chunk)``-token chunks, each
         checkpointed when autograd records; the masked sum over
-        ``max(sum(mask), 1)``."""
+        ``max(sum(mask), 1)``, or over ``denom`` when given (a sharded
+        batch's global count)."""
         b, s, _ = hidden.shape
         unemb = self._unembedding()
         if mask is None:
@@ -277,8 +375,9 @@ class Transformer(nn.Module):
                 else self._chunk_loss(*args)
             losses.append(out[0])
             counts.append(out[1])
-        return torch.stack(losses).sum() / torch.clamp(
-            torch.stack(counts).sum(), min=1.0)
+        if denom is None:
+            denom = torch.stack(counts).sum()
+        return torch.stack(losses).sum() / torch.clamp(denom, min=1.0)
 
     def init_cache(self, batch: int, max_len: int, *, window: int = 0,
                    memory_len: int = 0) -> list[dict]:
@@ -286,17 +385,20 @@ class Transformer(nn.Module):
         with ``min(max_len, window)`` slots with a window, else
         ``max_len``; Mamba2's conv tail in the model's dtype and its state
         in f32; with ``memory_len``, a cross-attending layer's 'xk'/'xv'
-        (B, memory_len, Hkv, Dh) in the model's dtype."""
+        (B, memory_len, Hkv, Dh) in the model's dtype. On a mesh, the
+        rank's (``batch`` its rows; its K/V heads and SSM channels, the
+        layout of ``launch.steps.cache_pspec``)."""
         sbuf = min(max_len, window) if window else max_len
         cfg, kw = self.cfg, dict(device=self.device, dtype=self.dtype)
         caches = []
         for blk in self.layers:
-            c = layers.init_kv_cache(batch, sbuf, cfg.n_kv_heads, cfg.hd,
-                                     **kw) if blk.spec.mixer == "attn" \
-                else layers.init_mamba_cache(batch, cfg, **kw)
+            m = blk.mixer
+            c = layers.init_kv_cache(batch, sbuf, m.hkv_loc, cfg.hd, **kw) \
+                if blk.spec.mixer == "attn" \
+                else layers.init_mamba_cache(batch, cfg, tp=m.tp, **kw)
             if blk.spec.cross_attn and memory_len:
-                x = layers.init_kv_cache(batch, memory_len, cfg.n_kv_heads,
-                                         cfg.hd, **kw)
+                x = layers.init_kv_cache(batch, memory_len,
+                                         blk.cross.hkv_loc, cfg.hd, **kw)
                 c.update(xk=x["k"], xv=x["v"])
             caches.append(c)
         return caches
@@ -308,12 +410,11 @@ class Transformer(nn.Module):
         ``memory`` (B, Sm, D) into ``cache``'s 'xk'/'xv' (from
         ``init_cache(memory_len=Sm)``), cast to their dtype, in place
         (``repro``'s ``prefill_cross_cache``); returns ``cache``."""
-        b, sm, _ = memory.shape
-        hkv, hd = self.cfg.n_kv_heads, self.cfg.hd
         for blk, c in zip(self.layers, cache):
             if blk.spec.cross_attn:
-                for name, w in (("xk", blk.cross.wk), ("xv", blk.cross.wv)):
-                    c[name].copy_((memory @ w).view(b, sm, hkv, hd))
+                xk, xv = blk.cross.kv(memory)
+                c["xk"].copy_(xk)
+                c["xv"].copy_(xv)
         return cache
 
     @torch.no_grad()
@@ -348,7 +449,7 @@ class Transformer(nn.Module):
             x, _, c = blk(x, window=window, positions=positions,
                           memory=memory)
             if blk.spec.mixer == "attn":
-                kv = layers.init_kv_cache(b, sbuf, self.cfg.n_kv_heads,
+                kv = layers.init_kv_cache(b, sbuf, blk.mixer.hkv_loc,
                                           self.cfg.hd, device=self.device,
                                           dtype=self.dtype)
                 kv["k"][:, :s] = c["k"]
@@ -365,7 +466,7 @@ class Transformer(nn.Module):
         int); returns (logits (B, 1, V), cache), the cache updated in
         place. MoE layers route the B tokens of the step together and
         drop their aux loss, as ``repro`` does."""
-        x = self.embed[token]
+        x = self._embed(token)
         for blk, c in zip(self.layers, cache):
             x = blk.decode(x, c, int(pos), window=window)
         return self.logits(self.final_norm(x)), cache

@@ -26,17 +26,31 @@ import numpy as np
 import torch
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over the gradients of their f32 sums of squares."""
-    sq = [g.to(torch.float32).square().sum() for g in grads]
-    return torch.stack(sq).sum().sqrt()
+def global_norm(grads, weights=None, reduce=None) -> torch.Tensor:
+    """sqrt of the sum over the gradients of their f32 sums of squares.
+
+    For gradients sharded over ranks: ``weights`` (one per gradient, a
+    float or a tensor broadcast against it) is 1 / how many ranks hold
+    each element, so a replicated element is counted once, and
+    ``reduce`` sums the rank's total over every rank."""
+    if weights is None:
+        sq = [g.to(torch.float32).square().sum() for g in grads]
+    else:
+        sq = [(g.to(torch.float32).square()
+               * (w.to(g.device) if isinstance(w, torch.Tensor) else w)
+               ).sum() for g, w in zip(grads, weights)]
+    total = torch.stack(sq).sum()
+    if reduce is not None:
+        total = reduce(total)
+    return total.sqrt()
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, weights=None, reduce=None):
     """(grads scaled by min(1, max_norm / max(norm, 1e-12)) in f32 and
-    cast back to their dtypes, the pre-clip norm)."""
+    cast back to their dtypes, the pre-clip norm); ``weights`` and
+    ``reduce`` as :func:`global_norm` takes them, for sharded ones."""
     grads = list(grads)
-    norm = global_norm(grads)
+    norm = global_norm(grads, weights, reduce)
     # a true division (``float / tensor`` multiplies by the reciprocal)
     scale = torch.clamp(torch.full_like(norm, max_norm)
                         / torch.clamp(norm, min=1e-12), max=1.0)

@@ -38,9 +38,10 @@ import signal
 import time
 
 import numpy as np
+import torch
 
 from ..checkpoint import ckpt
-from ..core.gram import GramEngine
+from ..core.gram import GramEngine, resolve_engine
 from .ingest import BoundedQueue, IngestLog, Payload
 from .journal import (FoldJournal, prune_segments, scan_segments,
                       segment_path)
@@ -78,7 +79,7 @@ class ServeConfig:
     cusum_k: float = 0.0
     cusum_h: float = 0.0
     engine: GramEngine | None = None  # None = the default (cuda) engine
-    use_mesh: bool = False     # shard over local devices: not ported yet
+    use_mesh: bool = False     # shard batched launches over local devices
     crash_after_journal_records: int | None = None  # test hook: SIGKILL
 
 
@@ -89,14 +90,19 @@ class StructureServer:
         self.config = config
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
+        mesh = None
         if config.use_mesh:
-            raise NotImplementedError(
-                "use_mesh: sharding the tenants over several cards arrives "
-                "with the port's mesh")
+            from ..launch.mesh import make_tenant_mesh
+
+            # every local card; a CPU engine's one device
+            dev = resolve_engine(config.engine).device
+            cpu = dev is not None and torch.device(dev).type == "cpu"
+            mesh = make_tenant_mesh(config.tenants,
+                                    devices=[dev] if cpu else None)
         self.table = TenantTable(
             tenants=config.tenants, d=config.d, method=config.method,
             rate=config.rate, block_n=config.block_n,
-            max_slots=config.max_slots, engine=config.engine,
+            max_slots=config.max_slots, engine=config.engine, mesh=mesh,
             resolve_min_new=config.resolve_min_new,
             resolve_fraction=config.resolve_fraction)
         self.log = IngestLog(

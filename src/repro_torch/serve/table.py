@@ -20,6 +20,12 @@ at b = slots. Structure is re-solved incrementally: only tenants whose
 accumulator changed go through the batched weights -> Boruvka solve,
 and each solve adds the edge symmetric difference against the previous
 one to a drift counter (``experiments.structure_metric_channels``).
+
+With a tenant mesh (``launch.mesh.make_tenant_mesh``: local devices of
+this process) a fold's or a solve's slot bucket is split over the mesh's
+devices when their count divides it: part i folds and solves on
+``devices[i]``, and the parts come back in slot order. Tenants are
+independent, so the split cannot change a tenant's bits.
 """
 from __future__ import annotations
 
@@ -100,14 +106,11 @@ class TenantTable:
     block_n: int = 64       # canonical payload row bucket (n <= block_n)
     max_slots: int = 64     # largest single fold launch
     engine: GramEngine | None = None  # None = the default (cuda) engine
-    mesh: object | None = None  # a tenant mesh: not ported yet
+    mesh: object | None = None  # a TenantMesh: split launches over it
     resolve_min_new: int = 1    # new samples before a re-solve
     resolve_fraction: float = 0.0  # ... or this fraction of solved_n
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a tenant mesh arrives with the port's mesh")
         if self.method == "sign":
             self.rate = 1
         if self.block_n % 8:
@@ -153,8 +156,8 @@ class TenantTable:
             # sign values {-1,0,+1} pass through: 0 = masked entry,
             # drops out of the contraction exactly like padding rows
             batch[i, :p.n] = c
-        g = codes_fold_stage(self._place(batch), self.method, self.rate,
-                             self._eng)
+        g = self._staged(lambda b: codes_fold_stage(
+            b, self.method, self.rate, self._eng), batch)
         return self._scatter(chunk, to_host(g))
 
     def _fold_packed(self, chunk: list[Payload]) -> int:
@@ -168,8 +171,8 @@ class TenantTable:
             self._check(p)
             batch[i, :, :p.packed.shape[1]] = p.packed
             n_valid[i] = p.n
-        g = packed_fold_stage(self._place(batch), self._place(n_valid),
-                              self.block_n, self._eng)
+        g = self._staged(lambda b, n: packed_fold_stage(
+            b, n, self.block_n, self._eng), batch, n_valid)
         return self._scatter(chunk, to_host(g))
 
     def _scatter(self, chunk: list[Payload], g: np.ndarray) -> int:
@@ -231,8 +234,8 @@ class TenantTable:
                 self.gram[part] / safe_n[:, None, None]).astype(np.float32)
             n[:len(part)] = self.n[part]
             prev[:len(part)] = self.adj[part]
-            adj, ch = solve_stage(self._place(stat), self._place(n),
-                                  self._place(prev), self.method)
+            adj, ch = self._staged(lambda *a: solve_stage(*a, self.method),
+                                   stat, n, prev)
             adj = adj[:len(part)].cpu().numpy()
             ch = ch[:len(part)].cpu().numpy()
             ham = ch[:, 1].astype(np.int64)
@@ -246,9 +249,28 @@ class TenantTable:
         return {"solved": solved, "drifted": drifted,
                 "drift_edges": drift_edges}
 
-    def _place(self, arr: np.ndarray) -> torch.Tensor:
-        """Host batch -> the engine's device."""
-        return torch.from_numpy(arr).to(self.device)
+    def _place(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """Host batch -> the engine's device (or ``device``)."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self.device if device is None else device)
+
+    def _staged(self, stage, *arrays):
+        """``stage`` over host batches with a leading slot axis: on the
+        engine's device, or, when a tenant mesh's device count divides
+        the slots, one part a device (``repro``'s ``_place`` shards the
+        batch over the ``("tenant",)`` mesh), the parts' outputs
+        concatenated in slot order on the host."""
+        mesh, slots = self.mesh, arrays[0].shape[0]
+        if mesh is None or mesh.size == 1 or slots % mesh.size:
+            return stage(*(self._place(a) for a in arrays))
+        k = slots // mesh.size
+        outs = [stage(*(self._place(a[i * k:(i + 1) * k], dev)
+                        for a in arrays))
+                for i, dev in enumerate(mesh.devices)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[j].cpu() for o in outs])
+                         for j in range(len(outs[0])))
+        return torch.cat([o.cpu() for o in outs])
 
     # -- state / interop ----------------------------------------------------
 

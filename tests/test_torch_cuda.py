@@ -1026,3 +1026,115 @@ def test_cuda_stub_models_match_cpu(cuda, arch):
         if i < 8:
             lc, cc = cpu.decode_step(cc, tok, p + 40 + i)
             lg, cg = card.decode_step(cg, tok.to(cuda), p + 40 + i)
+
+
+def _mesh_greedy(model, tokens, steps):
+    """Prefill and ``steps`` greedy decode steps: (every step's logits,
+    ids)."""
+    logits, cache = model.prefill(tokens, max_len=tokens.shape[1] + steps)
+    out, ids = [logits], []
+    for i in range(steps):
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        ids.append(tok)
+        logits, cache = model.decode_step(cache, tok, tokens.shape[1] + i)
+        out.append(logits)
+    return torch.cat(out, 1), torch.cat(ids, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen2-moe-a2.7b"])
+def test_cuda_one_rank_lm_mesh_equals_mesh_less(cuda, arch):
+    """Over a one-rank NCCL mesh (the MoE expert-parallel) a bf16 model's
+    greedy run is the mesh-less run bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_arch(arch).reduced()
+    mesh = make_host_mesh(1, 1, device="cuda")
+    runs = []
+    for m in (None, mesh):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        model = Transformer(cfg, device=cuda, dtype=torch.bfloat16,
+                            generator=gen, mesh=m)
+        tokens = torch.randint(0, cfg.vocab, (2, 64), device=cuda,
+                               generator=torch.Generator(device=cuda)
+                               .manual_seed(1))
+        with torch.no_grad():
+            runs.append(_mesh_greedy(model, tokens, 4))
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][0], runs[1][0])
+    dist.destroy_process_group()
+
+
+def _init_rank(rank, world, store, out):
+    import pickle
+
+    from repro_torch.launch.mesh import init_rank, make_host_mesh
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.transformer import Transformer
+
+    init_rank(rank, world, store, device="cuda:0",
+              backend="cuda:gloo,cpu:gloo")
+    cfg = get_arch("jamba-1.5-large-398b").reduced()
+    res = {}
+    for shape in ((1, 2), (2, 1)):
+        gen = torch.Generator(device="cuda:0").manual_seed(0)
+        model = Transformer(cfg, device="cuda:0", generator=gen, fsdp=True,
+                            mesh=make_host_mesh(*shape, device="cuda"))
+        res[shape] = {n: p.cpu() for n, p in model.named_parameters()}
+    with open(f"{out}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_init_is_the_full_inits_slice(cuda, tmp_path):
+    """Two gloo ranks on the card draw reduced jamba (attention, Mamba2,
+    MoE) over (1, 2) and (2, 1) with FSDP: each rank's tensors are its
+    slices (``LMShard.cut``) of the mesh-less model's on the card."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.sharding import LMShard
+    from repro_torch.models.transformer import Transformer
+
+    mp.spawn(_init_rank, args=(2, str(tmp_path / "store"), str(tmp_path)),
+             nprocs=2)
+    cfg = get_arch("jamba-1.5-large-398b").reduced()
+    full = Transformer(cfg, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    named = {n: p.cpu() for n, p in full.named_parameters()}
+    for rank in range(2):
+        got = pickle.load(open(tmp_path / f"rank{rank}.pkl", "rb"))
+        for shape, params in got.items():
+            mesh = _FakeMesh(shape, rank)
+            sharded = Transformer(cfg, device="meta", mesh=mesh, fsdp=True)
+            lays = sharded.param_layouts()
+            for n, t in params.items():
+                want = named[n] if lays[n] is None else LMShard.cut(
+                    sharded.shard, named[n], lays[n])
+                assert torch.equal(t, want), (shape, rank, n)
+
+
+class _FakeMesh:
+    """A (data, model) mesh's coordinates for ``LMShard``'s layouts and
+    cuts, without a process group."""
+
+    device_type = "meta"
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape, rank):
+        self.shape_ = shape
+        self.coords = {"data": rank // shape[1], "model": rank % shape[1]}
+
+    def size(self, i):
+        return self.shape_[i]
+
+    def get_local_rank(self, name):
+        return self.coords[name]
+
+    def get_group(self, name):
+        return None

@@ -167,14 +167,19 @@ def test_port_imports_neither_jax_nor_repro():
         " 'repro_torch.data.ggm', 'repro_torch.data.tokens',"
         " 'repro_torch.optim.optimizers', 'repro_torch.optim.schedules',"
         " 'repro_torch.launch.steps', 'repro_torch.launch.train',"
-        " 'repro_torch.launch.shapes'}\n"
+        " 'repro_torch.launch.shapes', 'repro_torch.launch.serve',"
+        " 'repro_torch.models.sharding', 'repro_torch.models.layers',"
+        " 'repro_torch.models.transformer', 'repro_torch.interop',"
+        " 'repro_torch.checkpoint.ckpt', 'repro_torch.serve.table',"
+        " 'repro_torch.serve.server'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20  # every module was imported
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
+                                             "lm_mesh_timing.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     pattern = re.compile(_IMPORT_WALL, re.MULTILINE)

@@ -212,7 +212,8 @@ def test_serve_main_end_to_end(capsys):
     out = capsys.readouterr().out
     assert "arch=granite-8b" in out and "dtype=torch.float32" in out
     assert "prefill:" in out and "decode :" in out
-    with pytest.raises(SystemExit):
+    # repro's size check: a 2x1 mesh on a one-rank world
+    with pytest.raises(ValueError, match="requested 2x1 mesh on 1 devices"):
         t_serve.main(["--arch", "granite-8b", "--reduced", "--device", "cpu",
                       "--data-par", "2"])
 

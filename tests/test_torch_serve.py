@@ -494,8 +494,20 @@ def test_table_case(case):
 
 
 def test_table_needs_cuda_by_default_and_has_no_mesh(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        TenantTable(tenants=1, d=4, engine=CPU, mesh=object())
+    """A tenant mesh splits a fold over its devices (here two CPU
+    devices): the table folds to the bits of one without a mesh."""
+    from repro_torch.launch.mesh import make_tenant_mesh
+
+    mesh = make_tenant_mesh(2, devices=["cpu", "cpu"])
+    tables = [TenantTable(tenants=2, d=4, engine=CPU, mesh=m)
+              for m in (None, mesh)]
+    signs = np.random.default_rng(0).choice(np.array([-1, 1], np.int8),
+                                            (2, 8, 4))
+    for t in tables:
+        t.fold([Payload(tenant=i, machine=0, seq=1, codes=signs[i])
+                for i in range(2)])
+    assert tables[1].mesh.size == 2
+    np.testing.assert_array_equal(tables[0].gram, tables[1].gram)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TenantTable(tenants=1, d=4)
@@ -691,9 +703,11 @@ def test_server_cusum_alarms_and_survive_recovery(tmp_path):
 
 
 def test_server_needs_cuda_by_default_and_has_no_mesh(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError):
-        StructureServer(ServeConfig(**_SCFG, engine=CPU, use_mesh=True),
-                        str(tmp_path / "m"))
+    """``use_mesh`` builds the tenant mesh: a CPU engine's one device."""
+    srv = StructureServer(ServeConfig(**_SCFG, engine=CPU, use_mesh=True),
+                          str(tmp_path / "m"))
+    assert srv.table.mesh is not None and srv.table.mesh.size == 1
+    srv.close()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         StructureServer(ServeConfig(**_SCFG), str(tmp_path / "c"))

@@ -296,7 +296,8 @@ def test_train_main_loss_falls(capsys):
     assert all(np.isfinite(res.losses)) and all(np.isfinite(res.grad_norms))
     assert res.lrs[0] == 0.0
     assert res.final_loss < res.losses[0] - 0.5
-    with pytest.raises(NotImplementedError, match="13.5"):
+    # repro's size check: a 2x1 mesh on a one-rank world
+    with pytest.raises(ValueError, match="requested 2x1 mesh on 1 devices"):
         ttrain.main(["--arch", "stablelm-3b", "--reduced", "--device", "cpu",
                      "--data-par", "2"])
 
