@@ -91,19 +91,16 @@ def _sample_rows(trans: np.ndarray, state: np.ndarray, rng) -> np.ndarray:
     return (u > cdf).sum(axis=1).astype(np.int64).clip(0, trans.shape[0] - 1)
 
 
-def _to_device(arrs: dict, dev: torch.device, rows: slice | None = None
-               ) -> dict:
-    """Tokens and labels as int64 (torch's index dtype), the mask f32;
-    ``rows`` of each (all by default)."""
-    rows = slice(None) if rows is None else rows
-    return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
+def _to_device(arrs: dict, dev: torch.device) -> dict:
+    """Tokens and labels as int64 (torch's index dtype), the mask f32."""
+    return {k: torch.from_numpy(v).to(
         dev, torch.int64 if v.dtype == np.int32 else None)
         for k, v in arrs.items()}
 
 
 def token_batches(stream: TokenStream, start_step: int = 0, *, device=None,
-                  prefetch: int = 0, stop: int | None = None,
-                  rows: slice | None = None) -> Iterator[dict]:
+                  prefetch: int = 0, stop: int | None = None
+                  ) -> Iterator[dict]:
     """Batches ``start_step``, ``start_step + 1``, ... (up to ``stop``
     exclusive, else without end) as tensors on ``device`` (default cuda;
     raises without it unless ``device="cpu"``).
@@ -111,10 +108,7 @@ def token_batches(stream: TokenStream, start_step: int = 0, *, device=None,
     ``prefetch > 0`` draws up to ``prefetch`` batches ahead in as many
     worker threads (never past ``stop``); the batches are the same, in the
     same order. Closing the iterator cancels what has not started and
-    waits for what has. ``rows`` keeps those rows of each global batch (a
-    data rank's shard, as ``repro``'s ``token_batches(sharding=)`` places
-    them; ``LMShard.set_batch`` gives them): the batch is drawn whole, a
-    function of (seed, step), and cut.
+    waits for what has.
     """
     dev = resolve_device(device)
     _cached_tables(stream)      # once, before any worker needs it
@@ -122,7 +116,7 @@ def token_batches(stream: TokenStream, start_step: int = 0, *, device=None,
         else iter(range(start_step, stop))
     if prefetch <= 0:
         for step in steps:
-            yield _to_device(stream.batch(step), dev, rows)
+            yield _to_device(stream.batch(step), dev)
         return
     with ThreadPoolExecutor(prefetch, thread_name_prefix="tokens") as ex:
         pending = collections.deque(
@@ -133,7 +127,7 @@ def token_batches(stream: TokenStream, start_step: int = 0, *, device=None,
                 arrs = pending.popleft().result()
                 for s in itertools.islice(steps, 1):
                     pending.append(ex.submit(stream.batch, s))
-                yield _to_device(arrs, dev, rows)
+                yield _to_device(arrs, dev)
         finally:
             for f in pending:
                 f.cancel()

@@ -75,15 +75,17 @@ def serve(model: Transformer, prompts: torch.Tensor, *, gen: int,
     host ints, so the loop reads nothing back from the device until it
     ends. Raises if a sampled id is a vocab-padding id.
 
-    On a mesh every rank passes the whole batch and runs its shard of it
-    (``LMShard.set_batch``); ``ids`` comes back whole on every rank."""
+    On a mesh every rank passes the whole batch and the model runs its
+    rows of it (``Transformer.batch_shard``): each step's ids are
+    gathered over the batch's shards for the next, and ``ids`` comes back
+    whole on every rank."""
     cfg, dev = model.cfg, model.device
-    sh = model.shard
-    if sh is not None:
-        rows = sh.set_batch(prompts.shape[0])
-        prompts = prompts[rows]
-        modal_embeds, enc_embeds = (None if e is None else e[rows]
-                                    for e in (modal_embeds, enc_embeds))
+    sh, batch = model.shard, model.batch_shard(prompts.shape[0])
+    axes = () if batch is None else batch.axes
+
+    def whole(tok):
+        return sh.batch_cat(tok, axes) if axes else tok
+
     # positions the prefill fills: the modal prefix, then the prompt
     s = prompts.shape[1] + (0 if modal_embeds is None
                             else modal_embeds.shape[1])
@@ -97,20 +99,19 @@ def serve(model: Transformer, prompts: torch.Tensor, *, gen: int,
     prefill_s = time.perf_counter() - t0
 
     finite = torch.isfinite(logits[..., :vocab]).all()
-    tok = logits[:, -1, :].argmax(-1, keepdim=True)
+    tok = whole(logits[:, -1, :].argmax(-1, keepdim=True))
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
         logits, cache = model.decode_step(cache, tok, s + i, window=window)
         finite &= torch.isfinite(logits[..., :vocab]).all()
-        tok = logits[:, -1, :].argmax(-1, keepdim=True)
+        tok = whole(logits[:, -1, :].argmax(-1, keepdim=True))
         out.append(tok)
     _sync(dev)
     decode_s = time.perf_counter() - t0
     ids = torch.cat(out, dim=1)
-    if sh is not None and sh.split:
-        ids = sh.batch_cat(ids)
-        finite = sh.batch_sum(finite.to(torch.int64)) == sh.bsize
+    if axes:
+        finite = sh.batch_sum(finite.to(torch.int64), axes) == batch.size
     if int(ids.max()) >= vocab:
         raise RuntimeError("sampled a vocab-padding id")
     return ServeResult(ids, prefill_s, decode_s, bool(finite))

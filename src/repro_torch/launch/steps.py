@@ -25,7 +25,8 @@ from typing import Callable
 import torch
 
 from repro_torch.models.arch import ArchConfig
-from repro_torch.models.sharding import axis_size
+from repro_torch.models.sharding import (  # noqa: F401  (repro's names)
+    axis_size, batch_axes_for, cache_pspec)
 from repro_torch.optim import clip_by_global_norm
 
 from .shapes import InputShape
@@ -134,31 +135,30 @@ def make_train_step(cfg: ArchConfig, shape: InputShape, schedule: Callable,
             raise ValueError(f"a batch of {b} does not split into "
                              f"{microbatches} microbatches")
         size = b // microbatches
-        # a replicated batch runs whole on every data rank: its loss is
-        # counted once over them
-        aux_w = MOE_AUX_WEIGHT if sh.split else MOE_AUX_WEIGHT / sh.bsize
+        # each microbatch is global rows [i * size, (i + 1) * size), of
+        # which the model runs its own (``Transformer.batch_shard``); rows
+        # that several ranks run (a batch the data axes do not divide)
+        # count once over them
+        rows = model.batch_shard(size)
+        axes, w = rows.axes, 1.0 / rows.replicas
         gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss = aux = 0.0
         for i in range(microbatches):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            m = mb.get("mask")
-            count = (m.sum() if m is not None else torch.tensor(
-                float(mb["labels"].numel()), device=mb["labels"].device))
-            count = sh.batch_sum(count.to(torch.float32))
             h, a = model(mb["tokens"], modal_embeds=mb.get("modal_embeds"),
                          enc_embeds=mb.get("enc_embeds"), window=window)
             if n_modal:
                 h = h[:, n_modal:, :]
-            ce = model.lm_loss(h, mb["labels"], m, denom=count)
-            for acc, g in zip(gsum, torch.autograd.grad(ce + aux_w * a,
-                                                        params)):
+            ce = model.lm_loss(h, mb["labels"], mb.get("mask"))
+            for acc, g in zip(gsum, torch.autograd.grad(
+                    w * (ce + MOE_AUX_WEIGHT * a), params)):
                 acc += g.to(torch.float32)
-            loss = loss + sh.batch_sum(ce.detach())
+            loss = loss + sh.batch_sum(ce.detach(), axes)
             aux = aux + a.detach()
         grads = []
         for g, p, lay in zip(gsum, params, layouts):
             if lay is None or lay.ddim is None:
-                g = sh.batch_sum(g)
+                g = sh.batch_sum(g, sh.batch_axes)
             elif sh.psize > 1:
                 g = sh.reduce(g, sh.pgroup)
             grads.append((g / microbatches).to(p.dtype))
@@ -219,43 +219,6 @@ def make_serve_step(cfg: ArchConfig, shape: InputShape):
 # ---------------------------------------------------------------------------
 # Layouts on a mesh
 # ---------------------------------------------------------------------------
-
-def batch_axes_for(mesh, b: int):
-    """Largest divisible batch sharding among (pod+data), data, nothing
-    (``repro``'s; ``LMShard.set_batch`` cuts a batch so)."""
-    pod, data = axis_size(mesh, "pod"), axis_size(mesh, "data")
-    if "pod" in (mesh.mesh_dim_names or ()) and b % (pod * data) == 0:
-        return ("pod", "data")
-    if b % data == 0:
-        return ("data",)
-    return None
-
-
-def cache_pspec(key_leaf: str, shape: tuple, cfg: ArchConfig, mesh,
-                batch) -> tuple:
-    """The spec of one cache leaf of the port's per-layer cache (no n_rep
-    axis): ``repro``'s, with the port's two differences. K/V (B, S, Hkv,
-    Dh): kv heads over ``model`` when it divides them; otherwise ``repro``
-    splits head_dim, which the kernels cannot take, and each rank keeps
-    the K/V heads its Q heads read ("model*": the heads of
-    ``layers.kv_heads_kept``). Conv (B, W-1, C): ``repro`` splits the
-    channels evenly; the port keeps its heads' x channels and every B and
-    C channel ("model*"). SSM (B, H, P, N): heads over ``model``."""
-    m = axis_size(mesh, "model")
-    if key_leaf in ("k", "v", "xk", "xv") or key_leaf.endswith(
-            ("_xk", "_xv")):
-        if m == 1 or cfg.n_heads % m:
-            return (batch, None, None, None)
-        return (batch, None, "model" if shape[2] % m == 0 else "model*",
-                None)
-    if key_leaf == "conv":
-        tp = m > 1 and cfg.ssm_heads % m == 0
-        return (batch, None, "model*" if tp else None)
-    if key_leaf == "ssm":
-        return (batch, "model" if shape[1] % m == 0 and m > 1 else None,
-                None, None)
-    return (None,) * len(shape)
-
 
 def param_bytes(cfg: ArchConfig, dtype: torch.dtype) -> int:
     """Bytes of ``cfg``'s parameters in ``dtype`` (the router and the SSM

@@ -159,7 +159,6 @@ def train(arch: str, *, reduced: bool = False, steps: int = 100,
     model = Transformer(cfg, device=dev, dtype=dtype, generator=gen,
                         mesh=mesh, fsdp=mesh is not None)
     model.requires_grad_(True)
-    rows = None if model.shard is None else model.shard.set_batch(batch)
     shape = InputShape("cli", "train", seq, batch)
     optimizer = AdamW(model.parameters())
     schedule = linear_warmup_cosine(lr, warmup, steps)
@@ -184,15 +183,13 @@ def train(arch: str, *, reduced: bool = False, steps: int = 100,
     res = TrainResult(model, optimizer, start, [], [], [], [], [], 0.0,
                       0.0)
     batches = token_batches(stream, start, device=dev, prefetch=PREFETCH,
-                            stop=steps, rows=rows)
+                            stop=steps)
     t_log = time.time()
     try:
         for step in range(start, steps):
             t0 = time.perf_counter()
             emb = step_embeds(cfg, seed, step, batch, seq, dev)
-            b = {**next(batches),
-                 **{k: v[rows] if rows is not None else v
-                    for k, v in emb.items()}}
+            b = {**next(batches), **emb}
             t1 = time.perf_counter()
             metrics = step_fn(model, optimizer, b)
             res.losses.append(float(metrics["loss"]))

@@ -367,14 +367,14 @@ class _GatherRows(torch.autograd.Function):
     through a gradient: routing is discrete)."""
 
     @staticmethod
-    def forward(ctx, x, shard):
-        ctx.shard, ctx.rows = shard, x.shape[0]
-        return shard.batch_cat(x)
+    def forward(ctx, x, shard, batch):
+        ctx.index, ctx.rows = batch.index, x.shape[0]
+        return shard.batch_cat(x, batch.axes)
 
     @staticmethod
     def backward(ctx, g):
-        r = ctx.shard.brank
-        return g[r * ctx.rows:(r + 1) * ctx.rows], None
+        r = ctx.index
+        return g[r * ctx.rows:(r + 1) * ctx.rows], None, None
 
 
 class MoE(Sharded):
@@ -445,16 +445,18 @@ class MoE(Sharded):
             return "ep2d"
         return "ep"
 
-    def dropped(self, x: torch.Tensor, decode: bool = False
+    def dropped(self, x: torch.Tensor, decode: bool = False, batch=None
                 ) -> torch.Tensor:
         """How many of the token-expert assignments of x (B, S, D) the
         capacity drops (a 0-d tensor on x's device): on a mesh, the
         count over the whole mesh under the branch ``forward`` takes
-        (every rank calls it and gets the total)."""
+        (every rank calls it with ``forward``'s ``batch`` and gets the
+        total)."""
         branch = self._branch(decode)
+        batch = self._batch(batch)
         e = self.cfg.padded_experts
-        if branch in ("ep2d", "gathered") and self.shard.split:
-            x = self.shard.batch_cat(x)
+        if branch in ("ep2d", "gathered"):
+            x = self.shard.batch_cat(x, batch.axes)
         t = x.shape[0] * x.shape[1]
         _, exp_ids, _ = self.route(x.reshape(t, -1))
         cap = moe_capacity(self.cfg, t, e)
@@ -465,9 +467,18 @@ class MoE(Sharded):
             return n
         if self.tp > 1:
             n = self.shard.reduce(n)
-        if branch == "ep" and self.shard.split:
-            n = self.shard.batch_sum(n)
+        if branch == "ep":
+            n = self.shard.batch_sum(n, batch.axes)
         return n
+
+    def _batch(self, batch):
+        """``batch`` (a ``sharding.BatchShard``), which a call on a mesh
+        must pass: whether x is the rank's block of a global batch
+        decides what the capacity counts."""
+        if self.shard is not None and batch is None:
+            raise ValueError("a MoE layer on a mesh needs its batch's "
+                             "BatchShard (Transformer passes it)")
+        return batch
 
     def _experts(self, xf, gate, exp_ids, lo: int, cap: int,
                  gather: bool = True):
@@ -510,15 +521,18 @@ class MoE(Sharded):
                            torch.ones_like(probs[:, 0]))
         return e * torch.sum(first / probs.shape[0] * probs.mean(0))
 
-    def forward(self, x: torch.Tensor, decode: bool = False
+    def forward(self, x: torch.Tensor, decode: bool = False, batch=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """x (B, S, D) -> (output (B, S, D), Switch load-balance aux loss
-        f32). ``decode``: a decode step (a 2-D model takes ep2d)."""
+        f32). ``decode``: a decode step (a 2-D model takes ep2d);
+        ``batch``: on a mesh, how the global batch lies on it (x holds
+        the rank's rows of it)."""
         b, s, d = x.shape
         e = self.cfg.padded_experts
         branch = self._branch(decode)
+        batch = self._batch(batch)
         if branch == "ep":
-            out, aux = self._moe_expert_parallel(x)
+            out, aux = self._moe_expert_parallel(x, batch)
         elif branch == "single":
             t = b * s
             xf = x.reshape(t, d)
@@ -527,12 +541,12 @@ class MoE(Sharded):
             cap = moe_capacity(self.cfg, t, e)
             out = self._experts(xf, gate, exp_ids, 0, cap).view(b, s, d)
         else:
-            out, aux = self._moe_gathered(x, branch == "ep2d")
+            out, aux = self._moe_gathered(x, branch == "ep2d", batch)
         if self.shared is not None:
             out = out + self.shared(x)
         return out, aux
 
-    def _moe_expert_parallel(self, x):
+    def _moe_expert_parallel(self, x, batch):
         """``repro``'s ``_moe_expert_parallel`` on this rank's batch
         shard."""
         sh = self.shard
@@ -540,16 +554,14 @@ class MoE(Sharded):
         e, t = self.cfg.padded_experts, b * s
         xf = x.reshape(t, d)
         gate, exp_ids, probs = self.route(xf)
-        aux = self._aux(probs, exp_ids, e)
-        if sh.split:
-            aux = sh.batch_mean(aux)
+        aux = sh.batch_mean(self._aux(probs, exp_ids, e), batch.axes)
         cap = moe_capacity(self.cfg, t, e)
         lo = sh.mrank * self.e_loc if self.tp > 1 else 0
         part = self._experts(self._enter(xf), self._enter(gate), exp_ids,
                              lo, cap)
         return self._reduce(part).view(b, s, d), aux
 
-    def _moe_gathered(self, x, ep2d: bool):
+    def _moe_gathered(self, x, ep2d: bool, batch):
         """The step's tokens gathered over the batch's shards: routing and
         capacity over all of them, the rank's experts (``ep2d``: experts
         over ``model``, d_ff over ``data``, one all-reduce over both), and
@@ -558,8 +570,8 @@ class MoE(Sharded):
         sh = self.shard
         b, s, d = x.shape
         e = self.cfg.padded_experts
-        split = sh.split
-        x_all = _GatherRows.apply(x, sh) if split else x
+        split = bool(batch.axes)
+        x_all = _GatherRows.apply(x, sh, batch) if split else x
         xf = x_all.reshape(-1, d)
         gate, exp_ids, probs = self.route(xf)
         aux = self._aux(probs, exp_ids, e)
@@ -575,7 +587,7 @@ class MoE(Sharded):
             part = self._reduce(part)
         out = part.view(-1, s, d)
         if split:
-            out = out[sh.brank * b:(sh.brank + 1) * b]
+            out = out[batch.index * b:(batch.index + 1) * b]
         return out, aux
 
 

@@ -79,31 +79,28 @@ _EP2D_RULES = {
 }
 
 
-def _rule(name: str, first_match: bool):
-    """The rule for leaf ``name``: ``repro``'s first match in table order,
-    or the most specific (longest) match."""
+def _rule(name: str):
+    """The rule for leaf ``name``: the most specific (longest) match.
+
+    ``repro`` takes the first match in table order, which gives
+    ``unembed`` and ``pos_embed`` the ``embed`` rule and the experts the
+    dense MLP's (GSPMD reshards them inside its expert-parallel
+    ``shard_map``). The port's modules compute on the layout they store,
+    so it takes the rule that names the leaf: ``unembed``
+    column-parallel, the experts over ``model``. Every other leaf gets
+    the same rule from both."""
     hits = [(m.end() - m.start(), spec) for pat, spec in _RULES
             if (m := re.search(pat, name))]
-    if not hits:
-        return None
-    return hits[0][1] if first_match else max(hits, key=lambda h: h[0])[1]
+    return max(hits, key=lambda h: h[0])[1] if hits else None
 
 
-def spec_for(path: str, ndim: int, *, fsdp: bool = True,
-             first_match: bool = True) -> tuple:
-    """``repro``'s spec of the leaf at ``path`` (its last ``/``- or
-    ``.``-separated name picks the rule): one axis name or None per dim;
+def spec_for(path: str, ndim: int, *, fsdp: bool = True) -> tuple:
+    """The spec of the leaf at ``path`` (its last ``/``- or ``.``-separated
+    name picks the rule, :func:`_rule`): one axis name or None per dim;
     with ``fsdp`` the first replicated dim of a >= 2-D rule goes over
-    ``data``; leading stacked dims are None.
-
-    ``repro`` takes the first rule that matches, which gives ``unembed``
-    the ``embed`` rule and the experts the dense MLP's (GSPMD reshards
-    them inside its expert-parallel ``shard_map``).
-    ``first_match=False`` takes the most specific rule instead: the port's
-    layouts do, since its modules compute on the layout they store
-    (``unembed`` column-parallel, experts over ``model``)."""
+    ``data``; leading stacked dims are None."""
     name = re.split(r"[/.]", path)[-1]
-    spec = _rule(name, first_match)
+    spec = _rule(name)
     if spec is None:
         return (None,) * ndim
     spec = list(spec)
@@ -164,6 +161,45 @@ def batch_axes(mesh) -> tuple | None:
     return tuple(a for a in ("pod", "data") if a in names) or None
 
 
+def batch_axes_for(mesh, b: int):
+    """Largest divisible batch sharding among (pod+data), data, nothing
+    (``repro``'s ``launch.steps.batch_axes_for``;
+    :meth:`LMShard.batch` cuts a batch so)."""
+    pod, data = axis_size(mesh, "pod"), axis_size(mesh, "data")
+    if "pod" in (mesh.mesh_dim_names or ()) and b % (pod * data) == 0:
+        return ("pod", "data")
+    if b % data == 0:
+        return ("data",)
+    return None
+
+
+def cache_pspec(key_leaf: str, shape: tuple, cfg, mesh, batch) -> tuple:
+    """The spec of one cache leaf of the port's per-layer cache (no n_rep
+    axis), ``batch`` the batch dim's: ``repro``'s
+    ``launch.steps.cache_pspec``, with the port's two differences. K/V
+    (B, S, Hkv, Dh): kv heads over ``model`` when it divides them;
+    otherwise ``repro`` splits head_dim, which the kernels cannot take,
+    and each rank keeps the K/V heads its Q heads read ("model*": the
+    heads of ``layers.kv_heads_kept``). Conv (B, W-1, C): ``repro`` splits
+    the channels evenly; the port keeps its heads' x channels and every B
+    and C channel ("model*"). SSM (B, H, P, N): heads over ``model``.
+    ``Transformer.init_cache`` sizes each rank's cache by it."""
+    m = axis_size(mesh, "model")
+    if key_leaf in ("k", "v", "xk", "xv") or key_leaf.endswith(
+            ("_xk", "_xv")):
+        if m == 1 or cfg.n_heads % m:
+            return (batch, None, None, None)
+        return (batch, None, "model" if shape[2] % m == 0 else "model*",
+                None)
+    if key_leaf == "conv":
+        tp = m > 1 and cfg.ssm_heads % m == 0
+        return (batch, None, "model*" if tp else None)
+    if key_leaf == "ssm":
+        return (batch, "model" if shape[1] % m == 0 and m > 1 else None,
+                None, None)
+    return (None,) * len(shape)
+
+
 def fsdp_axis(mesh) -> str | None:
     if mesh is None:
         return None
@@ -173,7 +209,9 @@ def fsdp_axis(mesh) -> str | None:
 def local_slice(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of ``full`` under ``spec`` on ``mesh``: each dim
     cut into equal contiguous blocks over its axes (several axes: the
-    first outermost), as ``jax.sharding`` tiles. A copy."""
+    first outermost), as ``jax.sharding`` tiles. A cut block is a copy
+    of its own, so it never keeps ``full``'s storage alive; an uncut
+    leaf is ``full`` itself (contiguous)."""
     spec = _drop_indivisible(mesh, spec, tuple(full.shape))
     t = full
     for dim, s in enumerate(spec):
@@ -186,7 +224,9 @@ def local_slice(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
             idx = idx * n + mesh.get_local_rank(a)
             size *= n
         t = t.chunk(size, dim)[idx]
-    return t.contiguous()
+    if t is full:
+        return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +248,13 @@ class Layout:
     gather: bool = False
     #: whether an index along ``mdim`` sits on more than one rank
     dup: bool = False
+    #: the spec :func:`local_slice` cuts by: the rule's axes that cut
+    #: contiguous blocks (``model`` only where ``mindex`` is the rule's
+    #: own contiguous cut)
+    spec: tuple = ()
+    #: whether ``mindex`` is a module's own index (heads kept, Mamba2's
+    #: columns), taken before the contiguous cut
+    custom: bool = False
 
 
 def _backend(group) -> str:
@@ -328,19 +375,16 @@ class LMShard:
             setattr(self, f"{short}size", axis_size(mesh, a))
             setattr(self, f"{short}rank", mesh.get_local_rank(a) if has else 0)
             setattr(self, f"{short}group", mesh.get_group(a) if has else None)
-        #: the batch's shards: pod-major over (pod, data)
+        #: the mesh's batch axes, (pod, data) where present, and how many
+        #: ranks they span
+        self.batch_axes = batch_axes(mesh) or ()
         self.bsize = self.psize * self.dsize
-        self.brank = self.prank * self.dsize + self.drank
-        #: whether the batch the model runs is this rank's shard of a
-        #: global batch (set by :meth:`set_batch`)
-        self.split = self.bsize > 1
 
     # -- layouts ----------------------------------------------------------
 
     def spec(self, name: str, ndim: int) -> tuple:
-        if self.ep2d and name in _EP2D_RULES:
-            return param_specs({name: (0,) * ndim}, expert_data=True)[name]
-        return spec_for(name, ndim, fsdp=self.fsdp, first_match=False)
+        return param_specs({name: (0,) * ndim}, fsdp=self.fsdp,
+                           expert_data=self.ep2d)[name]
 
     def layout(self, name: str, shape: tuple, *, tp: bool = True,
                model_index=None) -> Layout:
@@ -351,9 +395,9 @@ class LMShard:
         spec = _drop_indivisible(self.mesh, self.spec(name, len(shape)),
                                  tuple(shape))
         mdim = spec.index("model") if "model" in spec and tp else None
-        mindex = None
+        mindex, custom = None, False
         if model_index is not None and tp and self.msize > 1:
-            mdim, mindex = model_index
+            (mdim, mindex), custom = model_index, True
         elif mdim is not None and self.msize > 1:
             k = shape[mdim] // self.msize
             mindex = torch.arange(shape[mdim]).view(self.msize, k)
@@ -365,7 +409,11 @@ class LMShard:
                                            name in _EP2D_RULES)
         dup = mindex is not None and \
             int(mindex.unique().numel()) < mindex.numel()
-        return Layout(tuple(shape), mdim, mindex, ddim, gather, dup)
+        cut = tuple(a if (a == "model" and mdim is not None and not custom)
+                    or (a == "data" and ddim is not None) else None
+                    for a in spec)
+        return Layout(tuple(shape), mdim, mindex, ddim, gather, dup, cut,
+                      custom)
 
     def local_shape(self, lay: Layout) -> tuple:
         shape = list(lay.shape)
@@ -376,14 +424,12 @@ class LMShard:
         return tuple(shape)
 
     def cut(self, full: torch.Tensor, lay: Layout) -> torch.Tensor:
-        """This rank's local tensor of the full leaf ``full``."""
-        t = full
-        if lay.mdim is not None:
-            t = t.index_select(lay.mdim,
-                               lay.mindex[self.mrank].to(t.device))
-        if lay.ddim is not None:
-            t = t.chunk(self.dsize, lay.ddim)[self.drank]
-        return t.contiguous()
+        """This rank's local tensor of the full leaf ``full``: a module's
+        own model index first, then :func:`local_slice`'s blocks."""
+        if lay.custom:
+            full = full.index_select(lay.mdim,
+                                     lay.mindex[self.mrank].to(full.device))
+        return local_slice(full, lay.spec, self.mesh)
 
     def gather(self, local: torch.Tensor, lay: Layout) -> torch.Tensor:
         """The full leaf from every rank's local tensor (every rank of the
@@ -446,38 +492,46 @@ class LMShard:
         return all_gather_dim(x, self.mgroup, dim % x.dim()) \
             if self.msize > 1 else x
 
-    def batch_cat(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """The batch shards concatenated over (pod, data) (no gradient)."""
-        if self.psize > 1:
-            x = all_gather_dim(x, self.dgroup, dim)
-            return all_gather_dim(x, self.pgroup, dim)
-        return all_gather_dim(x, self.dgroup, dim) if self.dsize > 1 else x
+    def batch(self, b: int) -> "BatchShard":
+        """A global batch of ``b`` rows on the mesh: sharded over
+        ``batch_axes_for``'s axes (pod-major), else run whole on every
+        rank."""
+        axes = batch_axes_for(self.mesh, b) or ()
+        size, index = 1, 0
+        for a in axes:
+            n = axis_size(self.mesh, a)
+            size, index = size * n, index * n + self.mesh.get_local_rank(a)
+        n = b // size
+        return BatchShard(axes, size, index, slice(index * n, (index + 1) * n),
+                          self.bsize // size)
 
-    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over the batch's shards (no gradient)."""
-        for g in (self.dgroup, self.pgroup):
-            if g is not None and dist.get_world_size(g) > 1:
-                x = all_reduce(x, g)
+    def _batch_groups(self, axes: tuple) -> list:
+        """The groups of ``axes``, innermost (data) first."""
+        return [g for a, g in (("data", self.dgroup), ("pod", self.pgroup))
+                if a in axes and g is not None
+                and dist.get_world_size(g) > 1]
+
+    def batch_cat(self, x: torch.Tensor, axes: tuple, dim: int = 0
+                  ) -> torch.Tensor:
+        """The blocks of a batch sharded over ``axes`` concatenated in
+        block order (no gradient)."""
+        for g in self._batch_groups(axes):
+            x = all_gather_dim(x, g, dim)
         return x
 
-    def set_batch(self, b: int) -> slice:
-        """Take a global batch of ``b`` rows: this rank's rows of it
-        (``repro``'s ``batch_axes_for``: sharded over (pod, data) when
-        they divide it, else replicated, every rank running all of it);
-        sets :attr:`split` for the modules."""
-        self.split = self.bsize > 1 and b % self.bsize == 0
-        if not self.split:
-            return slice(0, b)
-        n = b // self.bsize
-        return slice(self.brank * n, (self.brank + 1) * n)
+    def batch_sum(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
+        """The sum over the ranks of ``axes`` (no gradient)."""
+        for g in self._batch_groups(axes):
+            x = all_reduce(x, g)
+        return x
 
-    def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The mean over the batch's shards (``repro``'s ``pmean`` over
+    def batch_mean(self, x: torch.Tensor, axes: tuple) -> torch.Tensor:
+        """The mean over the ranks of ``axes`` (``repro``'s ``pmean`` over
         the data axes), each rank's gradient passed to its own term."""
-        for g in (self.dgroup, self.pgroup):
-            if g is not None and dist.get_world_size(g) > 1:
-                x = self.reduce(x, g)
-        return x / self.bsize
+        n = 1
+        for g in self._batch_groups(axes):
+            x, n = self.reduce(x, g), n * dist.get_world_size(g)
+        return x / n
 
     def replication(self, lay: Layout | None) -> torch.Tensor | float:
         """1 / how many ranks hold each element of a parameter of layout
@@ -496,6 +550,19 @@ class LMShard:
             shape[lay.mdim] = -1
             return (w / mine).view(shape)
         return w
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """How a global batch lies on the mesh (:meth:`LMShard.batch`): cut
+    over ``axes`` (() when every rank runs all of it) into ``size``
+    blocks, this rank's block ``index`` and its ``rows``; ``replicas``
+    ranks of the batch axes run each row."""
+    axes: tuple
+    size: int
+    index: int
+    rows: slice
+    replicas: int
 
 
 @dataclasses.dataclass(frozen=True)

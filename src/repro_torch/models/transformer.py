@@ -15,9 +15,11 @@ the encoder memory's K/V (``repro``'s ``l<i>_xk`` / ``l<i>_xv``);
 
 On a mesh (``Transformer(cfg, mesh=...)``, a ``("data", "model")`` or
 ``("pod", "data", "model")`` ``DeviceMesh``) each rank holds its slices
-of the weights (``sharding.LMShard``) and runs its shard of the batch:
-the caller cuts the global batch with ``model.shard.set_batch(B)`` and
-passes the rows it returns. The embedding is vocab-parallel over
+of the weights (``sharding.LMShard``). Every rank passes the global
+batch to ``forward``, ``prefill``, ``decode_step``, ``init_cache`` and
+``lm_loss``; the model takes its rows (``batch_shard``: sharded over the
+data axes when they divide it, else all of it) and returns theirs. The
+embedding is vocab-parallel over
 ``model`` (a masked local lookup, then an all-reduce), the unembedding
 column-parallel: ``logits`` all-gathers them over ``model`` (serving's
 argmax sees the whole vocabulary) and ``lm_loss`` takes a vocab-parallel
@@ -47,7 +49,7 @@ from repro_torch.kernels.flash_prefill import largest_divisor
 
 from . import layers
 from .arch import ArchConfig, LayerSpec
-from .sharding import all_reduce, shard_of
+from .sharding import all_reduce, cache_pspec, shard_of
 
 #: logit of a vocab-padding id
 VOCAB_PAD_NEG = -1e30
@@ -76,18 +78,20 @@ class Block(nn.Module):
             self.ff = layers.MoE(cfg, **mk) if spec.ff == "moe" else \
                 layers.MLP(cfg.d_model, cfg.d_ff, **mk)
 
-    def feed_forward(self, x, decode: bool = False):
+    def feed_forward(self, x, decode: bool = False, batch=None):
         """(x + ff(ff_norm(x)), the MoE's aux loss or None); ``decode``: a
-        decode step (the MoE's branch may differ)."""
+        decode step (the MoE's branch may differ); ``batch``: on a mesh,
+        the global batch's ``BatchShard``."""
         if self.spec.ff == "none":
             return x, None
         h = self.ff_norm(x)
         if self.spec.ff == "moe":
-            out, aux = self.ff(h, decode=decode)
+            out, aux = self.ff(h, decode=decode, batch=batch)
             return x + out, aux
         return x + self.ff(h), None
 
-    def forward(self, x, *, window: int, positions, memory=None):
+    def forward(self, x, *, window: int, positions, memory=None,
+                batch=None):
         """(x out, the MoE's aux or None, this layer's cache entries:
         {'k', 'v'} of the prompt or Mamba2's {'conv', 'ssm'}, and the
         cross K/V {'xk', 'xv'} of ``memory`` (B, Sm, D) when the layer
@@ -104,17 +108,19 @@ class Block(nn.Module):
             h, (xk, xv) = self.cross(self.cross_norm(x), memory=memory)
             x = x + h
             cache = {**cache, "xk": xk, "xv": xv}
-        x, aux = self.feed_forward(x)
+        x, aux = self.feed_forward(x, batch=batch)
         return x, aux, cache
 
-    def train_forward(self, x, window: int, positions, memory=None):
+    def train_forward(self, x, window: int, positions, memory=None,
+                      batch=None):
         """forward without the cache (the function each checkpoint
         reruns; ``memory`` is an input, so its gradient reaches the
         encoder)."""
         return self(x, window=window, positions=positions,
-                    memory=memory)[:2]
+                    memory=memory, batch=batch)[:2]
 
-    def decode(self, x, cache: dict, pos: int, *, window: int):
+    def decode(self, x, cache: dict, pos: int, *, window: int,
+               batch=None):
         h = self.mixer_norm(x)
         if self.spec.mixer == "attn":
             h = self.mixer.decode(h, cache, pos, window=window)
@@ -124,7 +130,7 @@ class Block(nn.Module):
         if self.spec.cross_attn and "xk" in cache:
             x = x + self.cross.decode_cross(self.cross_norm(x), cache["xk"],
                                             cache["xv"])
-        return self.feed_forward(x, decode=True)[0]
+        return self.feed_forward(x, decode=True, batch=batch)[0]
 
 
 class Transformer(layers.Sharded):
@@ -273,7 +279,21 @@ class Transformer(layers.Sharded):
             logits = self.shard.model_cat(logits, -1)
         return self._mask_pad_logits(logits)
 
-    def _run(self, blocks, x, window: int, positions, memory=None):
+    def batch_shard(self, b: int):
+        """How a global batch of ``b`` rows lies on the mesh (a
+        ``sharding.BatchShard``: its axes and this rank's rows); None
+        without a mesh."""
+        return None if self.shard is None else self.shard.batch(b)
+
+    @staticmethod
+    def _rows(batch, *xs):
+        """``xs`` (global batches, or None) cut to ``batch``'s rows."""
+        if batch is None:
+            return xs
+        return tuple(None if x is None else x[batch.rows] for x in xs)
+
+    def _run(self, blocks, x, window: int, positions, memory=None,
+             batch=None):
         """``blocks`` over x (the training forward): (x, aux summed over
         the MoE layers), each block checkpointed when autograd records."""
         remat = torch.is_grad_enabled()
@@ -281,10 +301,11 @@ class Transformer(layers.Sharded):
         for blk in blocks:
             if remat:
                 x, a = checkpoint(blk.train_forward, x, window, positions,
-                                  memory, use_reentrant=False,
+                                  memory, batch, use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a = blk.train_forward(x, window, positions, memory)
+                x, a = blk.train_forward(x, window, positions, memory,
+                                         batch)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -292,16 +313,21 @@ class Transformer(layers.Sharded):
     def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
         """The encoder over frame embeddings (B, Sm, D), cast to the
         model's dtype: its blocks (RoPE over ``arange(Sm)``, no window;
-        bidirectional where the pattern says so), then ``enc_norm``."""
-        x = enc_embeds.to(self.dtype)
+        bidirectional where the pattern says so), then ``enc_norm``. On a
+        mesh, the rank's rows of the global batch."""
+        batch = self.batch_shard(enc_embeds.shape[0])
+        (x,) = self._rows(batch, enc_embeds.to(self.dtype))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, _ = self._run(self.enc_layers, x, 0, positions)
+        x, _ = self._run(self.enc_layers, x, 0, positions, batch=batch)
         return self.enc_norm(x)
 
     def _inputs(self, tokens, modal_embeds, enc_embeds):
         """(x: the modal prefix (cast to the embedding's dtype) before the
         token embeddings, (B, P + S, D); positions ``arange(P + S)``; the
-        encoder's memory or None)."""
+        encoder's memory or None; the batch's ``BatchShard``): on a mesh
+        the rank's rows of the global inputs."""
+        batch = self.batch_shard(tokens.shape[0])
+        tokens, modal_embeds = self._rows(batch, tokens, modal_embeds)
         x = self._embed(tokens)
         if modal_embeds is not None:
             x = torch.cat([modal_embeds.to(x.dtype), x], dim=1)
@@ -312,7 +338,7 @@ class Transformer(layers.Sharded):
                                  f"model: pass enc_embeds")
             memory = self.encode(enc_embeds)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        return x, positions, memory
+        return x, positions, memory, batch
 
     def forward(self, tokens: torch.Tensor, *,
                 modal_embeds: torch.Tensor | None = None,
@@ -322,9 +348,12 @@ class Transformer(layers.Sharded):
         ``modal_embeds`` (B, P, D) and the encoder's ``enc_embeds``
         (B, Sm, D) -> (final-normed hidden (B, P + S, D), aux loss f32):
         ``repro``'s MoE load-balance terms summed over the MoE layers, 0
-        without one. Each block is checkpointed when autograd records."""
-        x, positions, memory = self._inputs(tokens, modal_embeds, enc_embeds)
-        x, aux = self._run(self.layers, x, window, positions, memory)
+        without one. Each block is checkpointed when autograd records. On
+        a mesh the inputs are the global batch and the hidden the rank's
+        rows."""
+        x, positions, memory, batch = self._inputs(tokens, modal_embeds,
+                                                   enc_embeds)
+        x, aux = self._run(self.layers, x, window, positions, memory, batch)
         return self.final_norm(x), aux
 
     def _chunk_loss(self, h, t, m, unemb):
@@ -351,19 +380,26 @@ class Transformer(layers.Sharded):
         return ((lse - correct) * m).sum(), m.sum()
 
     def lm_loss(self, hidden: torch.Tensor, targets: torch.Tensor,
-                mask: torch.Tensor | None = None, chunk: int = 512,
-                denom: torch.Tensor | None = None) -> torch.Tensor:
+                mask: torch.Tensor | None = None, chunk: int = 512
+                ) -> torch.Tensor:
         """Mean softmax cross-entropy of ``targets`` (B, S) under the
         logits of ``hidden`` (B, S, D), over ``mask`` (default all ones):
         f32 over ``largest_divisor(S, chunk)``-token chunks, each
         checkpointed when autograd records; the masked sum over
-        ``max(sum(mask), 1)``, or over ``denom`` when given (a sharded
-        batch's global count)."""
-        b, s, _ = hidden.shape
+        ``max(sum(mask), 1)``. On a mesh ``targets`` and ``mask`` are the
+        global batch and ``hidden`` the rank's rows (``forward``'s): the
+        rank's masked sum over the global count, its share of the
+        mean."""
         unemb = self._unembedding()
         if mask is None:
-            mask = torch.ones((b, s), dtype=torch.float32,
+            mask = torch.ones(targets.shape, dtype=torch.float32,
                               device=hidden.device)
+        denom = None
+        if self.shard is not None:
+            denom = mask.sum()
+            targets, mask = self._rows(self.batch_shard(targets.shape[0]),
+                                       targets, mask)
+        s = hidden.shape[1]
         c = largest_divisor(s, chunk)
         remat = torch.is_grad_enabled()
         losses, counts = [], []
@@ -381,27 +417,57 @@ class Transformer(layers.Sharded):
 
     def init_cache(self, batch: int, max_len: int, *, window: int = 0,
                    memory_len: int = 0) -> list[dict]:
-        """Zeroed caches, one per layer: attention's in the model's dtype
-        with ``min(max_len, window)`` slots with a window, else
-        ``max_len``; Mamba2's conv tail in the model's dtype and its state
-        in f32; with ``memory_len``, a cross-attending layer's 'xk'/'xv'
-        (B, memory_len, Hkv, Dh) in the model's dtype. On a mesh, the
-        rank's (``batch`` its rows; its K/V heads and SSM channels, the
-        layout of ``launch.steps.cache_pspec``)."""
+        """Zeroed caches, one per layer, for a (global) batch of ``batch``
+        rows: attention's in the model's dtype with ``min(max_len,
+        window)`` slots with a window, else ``max_len``; Mamba2's conv
+        tail in the model's dtype and its state in f32; with
+        ``memory_len``, a cross-attending layer's 'xk'/'xv' (B,
+        memory_len, Hkv, Dh) in the model's dtype. On a mesh each leaf is
+        the rank's block of it by ``sharding.cache_pspec``: its rows, its
+        K/V heads (the heads it keeps where the spec says "model*") and
+        its SSM heads and conv channels."""
         sbuf = min(max_len, window) if window else max_len
-        cfg, kw = self.cfg, dict(device=self.device, dtype=self.dtype)
+        cfg, dt = self.cfg, self.dtype
+        bs = self.batch_shard(batch)
+        f32 = torch.float32
         caches = []
         for blk in self.layers:
             m = blk.mixer
-            c = layers.init_kv_cache(batch, sbuf, m.hkv_loc, cfg.hd, **kw) \
-                if blk.spec.mixer == "attn" \
-                else layers.init_mamba_cache(batch, cfg, tp=m.tp, **kw)
+            if blk.spec.mixer == "attn":
+                kv = (batch, sbuf, cfg.n_kv_heads, cfg.hd)
+                c = {k: self._cache_leaf(k, kv, m.hkv_loc, bs, dt)
+                     for k in ("k", "v")}
+            else:
+                conv = (batch, cfg.ssm_conv_width - 1,
+                        cfg.d_inner + 2 * cfg.ssm_state)
+                ssm = (batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                       cfg.ssm_state)
+                c = {"conv": self._cache_leaf(
+                        "conv", conv, m.di_loc + 2 * cfg.ssm_state, bs, dt),
+                     "ssm": self._cache_leaf("ssm", ssm, None, bs, f32)}
             if blk.spec.cross_attn and memory_len:
-                x = layers.init_kv_cache(batch, memory_len,
-                                         blk.cross.hkv_loc, cfg.hd, **kw)
-                c.update(xk=x["k"], xv=x["v"])
+                kv = (batch, memory_len, cfg.n_kv_heads, cfg.hd)
+                c.update({k: self._cache_leaf(k, kv, blk.cross.hkv_loc, bs,
+                                              dt) for k in ("xk", "xv")})
             caches.append(c)
         return caches
+
+    def _cache_leaf(self, name: str, shape: tuple, kept, batch, dtype
+                    ) -> torch.Tensor:
+        """Zeros of the rank's block of a cache leaf of global ``shape``
+        (``kept``: its size along a "model*" dim)."""
+        local = list(shape)
+        if self.shard is not None:
+            spec = cache_pspec(name, shape, self.cfg, self.shard.mesh,
+                               batch.axes or None)
+            for i, a in enumerate(spec):
+                if a == "model":
+                    local[i] //= self.shard.msize
+                elif a == "model*":
+                    local[i] = kept
+                elif a is not None:
+                    local[i] //= batch.size
+        return torch.zeros(local, device=self.device, dtype=dtype)
 
     @torch.no_grad()
     def prefill_cross_cache(self, cache: list[dict], memory: torch.Tensor
@@ -437,8 +503,12 @@ class Transformer(layers.Sharded):
         state, never padded. A cross-attending layer's 'xk'/'xv' are the
         memory's K/V as its cross-attention computed them, uncast (as
         ``repro``'s ``prefill_cross_cache_from``).
+
+        On a mesh the inputs are the global batch; the logits and the
+        cache are the rank's rows.
         """
-        x, positions, memory = self._inputs(tokens, modal_embeds, enc_embeds)
+        x, positions, memory, batch = self._inputs(tokens, modal_embeds,
+                                                   enc_embeds)
         b, s = x.shape[:2]
         if window and s > window:
             raise ValueError(f"windowed prefill of {s} positions is longer "
@@ -447,7 +517,7 @@ class Transformer(layers.Sharded):
         cache = []
         for blk in self.layers:
             x, _, c = blk(x, window=window, positions=positions,
-                          memory=memory)
+                          memory=memory, batch=batch)
             if blk.spec.mixer == "attn":
                 kv = layers.init_kv_cache(b, sbuf, blk.mixer.hkv_loc,
                                           self.cfg.hd, device=self.device,
@@ -465,8 +535,12 @@ class Transformer(layers.Sharded):
         """One serve step: token (B, 1) at absolute position ``pos`` (a host
         int); returns (logits (B, 1, V), cache), the cache updated in
         place. MoE layers route the B tokens of the step together and
-        drop their aux loss, as ``repro`` does."""
+        drop their aux loss, as ``repro`` does. On a mesh ``token`` is the
+        global batch's and the logits the rank's rows (``prefill``'s
+        cache)."""
+        batch = self.batch_shard(token.shape[0])
+        (token,) = self._rows(batch, token)
         x = self._embed(token)
         for blk, c in zip(self.layers, cache):
-            x = blk.decode(x, c, int(pos), window=window)
+            x = blk.decode(x, c, int(pos), window=window, batch=batch)
         return self.logits(self.final_norm(x)), cache

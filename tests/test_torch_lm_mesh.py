@@ -75,29 +75,28 @@ def _greedy(model, tokens, emb, steps):
     steps + 1), dropped assignments over the run), the batch whole on
     every rank."""
     sh = model.shard
-    rows = sh.set_batch(tokens.shape[0])
-    toks = torch.from_numpy(tokens[rows]).long()
-    kw = {k: torch.from_numpy(v[rows]) for k, v in emb.items()}
+    axes = model.batch_shard(tokens.shape[0]).axes
+    toks = torch.from_numpy(tokens).long()
+    kw = {k: torch.from_numpy(v) for k, v in emb.items()}
     dropped = []
     hooks = [blk.ff.register_forward_hook(
         lambda m, args, kwargs, out: dropped.append(int(m.dropped(
-            args[0], kwargs.get("decode", False)))), with_kwargs=True)
+            args[0], kwargs.get("decode", False), kwargs["batch"]))),
+        with_kwargs=True)
         for blk in model.layers if blk.spec.ff == "moe"]
     s = toks.shape[1] + (kw["modal_embeds"].shape[1]
                          if "modal_embeds" in kw else 0)
     logits, cache = model.prefill(toks, max_len=s + steps, **kw)
     out, ids = [logits[:, -1]], []
     for i in range(steps + 1):
-        tok = logits[:, -1].argmax(-1, keepdim=True)
+        tok = sh.batch_cat(logits[:, -1].argmax(-1, keepdim=True), axes)
         ids.append(tok)
         if i < steps:
             logits, cache = model.decode_step(cache, tok, s + i)
             out.append(logits[:, -1])
     for h in hooks:
         h.remove()
-    lg, ids = torch.stack(out), torch.cat(ids, 1)
-    if sh.split:
-        lg, ids = sh.batch_cat(lg.contiguous(), 1), sh.batch_cat(ids, 0)
+    lg, ids = sh.batch_cat(torch.stack(out), axes, 1), torch.cat(ids, 1)
     return lg.numpy(), ids.numpy(), sum(dropped)
 
 
@@ -119,9 +118,15 @@ def _rank_main(rank, world, store, inputs, out_dir):
                     cfg, params, device="cpu", mesh=mesh,
                     **CASES[case][3])
                 res[case, mesh_shape] = _greedy(model, tokens, emb, STEPS)
-                # every rank holds a 1/M share of the experts and heads
-                res[case, mesh_shape, "local"] = sum(
-                    p.numel() for p in model.parameters())
+                # the bytes the rank's parameters own and the bytes their
+                # storages hold (a slice kept as a view of its full leaf
+                # would hold the whole leaf)
+                held = list(model.parameters())
+                res[case, mesh_shape, "local"] = (
+                    sum(p.numel() * p.element_size() for p in held),
+                    sum({p.untyped_storage().data_ptr():
+                         p.untyped_storage().nbytes()
+                         for p in held}.values()))
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     dist.destroy_process_group()
@@ -265,7 +270,7 @@ def runs(tmp_path_factory):
     res = [pickle.load(open(tmp / f"rank{r}.pkl", "rb")) for r in range(4)]
     for other in res[1:]:
         for key, val in res[0].items():
-            if isinstance(val, tuple):
+            if key[-1] != "local":      # ranks hold different shares
                 np.testing.assert_array_equal(other[key][1], val[1])
                 np.testing.assert_array_equal(other[key][0], val[0])
                 assert other[key][2] == val[2], key
@@ -283,7 +288,9 @@ def runs(tmp_path_factory):
     (case, m) for case, (_, _, meshes, _) in CASES.items() for m in meshes],
     ids=lambda v: v if isinstance(v, str) else "x".join(map(str, v)))
 def test_sharded_greedy_matches_repro(runs, case, mesh):
-    (logits, ids, drops), (w_logits, w_ids, w_drops), _ = runs[case, mesh]
+    (logits, ids, drops), (w_logits, w_ids, w_drops), (own, stored) = \
+        runs[case, mesh]
+    assert stored == own     # no rank keeps a full leaf behind a slice
     np.testing.assert_array_equal(ids, w_ids)
     np.testing.assert_allclose(logits, w_logits, rtol=0,
                                atol=ATOL.get(case, 1e-4))
@@ -293,11 +300,12 @@ def test_sharded_greedy_matches_repro(runs, case, mesh):
 
 
 def test_model_axis_holds_a_share_of_the_weights(runs):
-    """Over (1, 4) a rank holds about a quarter of llama4-scout (the norms
-    and the router are whole on every rank)."""
-    (_, _, _), _, local = runs["llama4-scout", (1, 4)]
-    (_, _, _), _, local_d = runs["llama4-scout", (4, 1)]
-    assert local < 0.3 * local_d
+    """Over (1, 4) a rank holds about a quarter of llama4-scout's bytes in
+    its parameters' storages (the norms and the router are whole on
+    every rank)."""
+    (_, _, _), _, (_, stored) = runs["llama4-scout", (1, 4)]
+    (_, _, _), _, (_, stored_d) = runs["llama4-scout", (4, 1)]
+    assert stored < 0.3 * stored_d
 
 
 # -- the rules and the layout choices -------------------------------------------
@@ -308,27 +316,64 @@ LEAVES = ("embed", "unembed", "wq", "wk", "wv", "wo", "wgate", "wi", "w_down",
           "scale", "norm_scale", "pos_embed", "other")
 
 
+#: the leaves where ``repro``'s first match is not the rule that names
+#: them (the ``embed`` rule matches ``unembed`` and ``pos_embed``, the MLP's
+#: the experts): the port lays them out by the named rule
+NAMED_RULE = {"unembed": "unembed$", "pos_embed": "pos_embed$",
+              "exp_wgate": r"exp_w(i|gate)$", "exp_wi": r"exp_w(i|gate)$",
+              "exp_w_down": "exp_w_down$"}
+
+
+def _first_match_rule(name):
+    """``repro``'s lookup over the port's copy of the table: the first
+    rule in table order that matches."""
+    import re
+
+    from repro_torch.models import sharding as t_sh
+
+    return next((spec for pat, spec in t_sh._RULES if re.search(pat, name)),
+                None)
+
+
 @pytest.mark.parametrize("fsdp", [False, True])
-def test_spec_rules_are_repros(fsdp):
-    """``spec_for`` and ``param_specs`` (``repro``'s first-match rules) give
-    ``repro``'s specs for every leaf name, plain and scan-stacked, and with
-    the 2-D experts."""
+def test_spec_rules_are_repros(fsdp, monkeypatch):
+    """The port's copy of the rules table under ``repro``'s first-match
+    lookup gives ``repro``'s specs (``spec_for``, ``param_specs``, the 2-D
+    experts) for every leaf name, plain and scan-stacked; the port's own
+    lookup (the most specific rule) differs only where the first match is
+    not the rule that names the leaf (``unembed``, the experts)."""
+    import re
+
     from repro.models import sharding as j_sh
     from repro_torch.models import sharding as t_sh
 
+    shapes = {n: (16, 8, 4) if n.startswith("exp_") else (8, 4)
+              for n in LEAVES}
+    jparams = {n: np.zeros(s) for n, s in shapes.items()}
+    own = {(n, ndim): t_sh.spec_for(f"blocks.l0.ff.{n}", ndim, fsdp=fsdp)
+           for n in LEAVES for ndim in (1, 2, 3, 4)}
+    own_params = {ed: t_sh.param_specs(shapes, fsdp=fsdp, expert_data=ed)
+                  for ed in (False, True)}
+    for name in NAMED_RULE:
+        rule = dict(t_sh._RULES)[NAMED_RULE[name]]
+        assert t_sh._rule(name) == rule and re.search(NAMED_RULE[name], name)
+    monkeypatch.setattr(t_sh, "_rule", _first_match_rule)
     for name in LEAVES:
         for ndim in (1, 2, 3, 4):
             want = tuple(j_sh.spec_for(f"blocks/l0/ff/{name}", ndim,
                                        fsdp=fsdp))
             assert t_sh.spec_for(f"blocks.l0.ff.{name}", ndim,
                                  fsdp=fsdp) == want, (name, ndim)
-    shapes = {n: (16, 8, 4) if n.startswith("exp_") else (8, 4)
-              for n in LEAVES}
-    jparams = {n: np.zeros(s) for n, s in shapes.items()}
+            if name not in NAMED_RULE:
+                assert own[name, ndim] == want, (name, ndim)
     for ed in (False, True):
         want = j_sh.param_specs(jparams, fsdp=fsdp, expert_data=ed)
         got = t_sh.param_specs(shapes, fsdp=fsdp, expert_data=ed)
         assert {n: tuple(s) for n, s in want.items()} == got
+        assert {n: s for n, s in own_params[ed].items()
+                if n not in NAMED_RULE or (ed and n in t_sh._EP2D_RULES)} \
+            == {n: s for n, s in got.items()
+                if n not in NAMED_RULE or (ed and n in t_sh._EP2D_RULES)}
 
 
 def test_layout_choice_is_repros_rule():
@@ -391,8 +436,9 @@ class _Coords:
 
 def test_local_slice_tiles_as_jax_shards():
     """``local_slice``: each dim in equal contiguous blocks over its axes,
-    several axes outermost first (``jax.sharding``'s tiling); an axis
-    that does not divide its dim is dropped. ``batch_axes`` and
+    several axes outermost first (``jax.sharding``'s tiling), each block a
+    copy of its own; an axis that does not divide its dim is dropped.
+    ``batch_axes`` and
     ``fsdp_axis`` are ``repro``'s."""
     from repro_torch.models import sharding as t_sh
 
@@ -408,6 +454,10 @@ def test_local_slice_tiles_as_jax_shards():
         # 6 columns over a 4-way (data, model): dropped, replicated
         assert torch.equal(t_sh.local_slice(full, (None, ("data", "model")),
                                             mesh), full)
+        # a block is a copy: it keeps no view of the full leaf's storage
+        block = t_sh.local_slice(full, ("model", None), mesh)
+        assert block.untyped_storage().nbytes() == \
+            block.numel() * block.element_size()
     mesh = _Coords((2, 2), 0)
     assert t_sh.batch_axes(mesh) == ("data",) and t_sh.fsdp_axis(mesh) == \
         "data"
@@ -420,8 +470,10 @@ def test_cache_specs_are_the_ports_layout():
     conv channels head-aligned ("model*"), the SSM heads over
     ``model``."""
     from repro_torch.launch.steps import cache_pspec
+    from repro_torch.models import sharding as t_sh
     from repro_torch.models.arch import get_arch
 
+    assert cache_pspec is t_sh.cache_pspec
     mesh = _Coords((1, 4), 0)
     granite = get_arch("granite-8b").reduced()
     jamba = get_arch("jamba-1.5-large-398b").reduced()

@@ -90,7 +90,6 @@ def _train_steps(fields, params, mesh, n_steps):
     step = steps.make_train_step(
         cfg, shapes.InputShape("cli", "train", S, B),
         to.linear_warmup_cosine(LR, 1 if n_steps > 1 else 0, max(n_steps, 2)))
-    rows = model.shard.set_batch(B)
     stream = TokenStream(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0)
     names = [n for n, _ in model.named_parameters()]
     captured, real_step = [], opt.step
@@ -105,7 +104,7 @@ def _train_steps(fields, params, mesh, n_steps):
     metrics = []
     for i in range(n_steps):
         nb = stream.batch(i)
-        batch = {k: torch.from_numpy(v[rows]).to(
+        batch = {k: torch.from_numpy(v).to(
             torch.int64 if v.dtype == np.int32 else torch.float32)
             for k, v in nb.items()}
         metrics.append({k: float(v) for k, v in
