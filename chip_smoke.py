@@ -4402,10 +4402,24 @@ MESH_REDUCED = (("qwen2-moe", MOE_ARCH, {}, {}),
                 ("granite kv2", SERVE_ARCH, {"n_kv_heads": 2}, {}),
                 ("qwen2-moe ep2d cap 64", MOE_ARCH,
                  {"moe_capacity_factor": 64.0}, {"ep2d": True}))
-#: phase 18 (c)'s shape, where its tolerances were set
-MESH_REDUCED_BATCH, MESH_REDUCED_PROMPT, MESH_REDUCED_STEPS = \
-    MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_STEPS
-MESH_REDUCED_ATOL = {"jamba": 1e-3}
+#: (b): (batch, prompt, steps) of the reduced runs and the models each
+#: runs: phase 18 (c)'s shape, where the tolerances were set, and jamba
+#: at 4 x 64 x 8, where its card ranks read 1.014e-3 from the CPU ranks
+#: (PERF.md §6); each shape draws every model's prompts in turn
+MESH_REDUCED_SHAPES = (
+    ((MOE_CMP_BATCH, MOE_CMP_PROMPT, MOE_CMP_STEPS),
+     tuple(name for name, *_ in MESH_REDUCED)),
+    ((4, 64, 8), ("jamba",)))
+#: (b): card ranks against CPU ranks, max |logit difference| (1e-4 for
+#: the others). Jamba's is rounding, not a fault (``mesh_drift``, PERF.md
+#: §6): with its Mamba2 mixers in f64 the sharded first mixer equals
+#: the mesh-less one; in f32 a card rank's narrower GEMMs round otherwise
+#: than the whole ones, so the card ranks sit from the mesh-less card run
+#: about as far as that run sits from the CPU (4.6e-4 and 5.3e-4 at
+#: 4 x 64 x 8), and the two add. The bound is twice the largest mesh-less
+#: card - CPU reading of reduced jamba, 7.5e-4 (at 2 x 128 x 8; 5.3e-4
+#: at 4 x 64 x 8, 2.0e-4 at 2 x 40 x 8)
+MESH_REDUCED_ATOL = {"jamba": 2 * 7.5e-4}
 #: (c): reduced stablelm-3b, f32, two ranks
 MESH_TRAIN_SHAPES = ((2, 1), (1, 2))
 MESH_TRAIN = dict(batch=4, seq=128, steps=3, warmup=1, lr=1e-3)
@@ -4676,10 +4690,8 @@ def _mesh_serve_rank(rank, world, store, out_dir, dev, plan):
                 torch.cuda.max_memory_allocated() if on_card else 0,
                 record["excused"], stored)
             del model
-    gen = torch.Generator().manual_seed(7)
-    b, s, n = plan["reduced_shape"]
-    for name, cfg, layout in plan["reduced"]:
-        prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen).to(dev)
+    for name, cfg, layout, rshape, prompts in _reduced_runs(plan):
+        prompts = prompts.to(dev)
         # the same f32 weights on the card and the CPU: drawn on the CPU
         tree = interop.lm_params_to_numpy(Transformer(
             cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
@@ -4689,8 +4701,9 @@ def _mesh_serve_rank(rank, world, store, out_dir, dev, plan):
             mesh = make_host_mesh(*shape, device=dev)
             model = interop.lm_params_from_numpy(cfg, tree, device=dev,
                                                  mesh=mesh, **layout)
-            res[name, shape] = spy((name, shape), lambda: mesh_greedy(
-                model, prompts, {}, n))
+            res[name, shape, rshape] = spy(
+                (name, shape, rshape),
+                lambda: mesh_greedy(model, prompts, {}, rshape[2]))
             del model
     data = make_trial_mesh(world, device=dev)
     g = torch.from_numpy(plan["grads"][rank]).to(dev)
@@ -4737,18 +4750,33 @@ def _attention_on_operands(seen):
     return out
 
 
+def _reduced_runs(plan):
+    """[(name, cfg, layout, (batch, prompt, steps), prompts)] of the
+    reduced runs: each shape of ``plan["reduced_shapes"]`` draws every
+    model's prompts in turn from a generator seeded 7 (phase 18 (c)'s
+    draws at its shape) and runs the models it names."""
+    import torch
+
+    out = []
+    for shape, names in plan["reduced_shapes"]:
+        gen = torch.Generator().manual_seed(7)
+        for name, cfg, layout in plan["reduced"]:
+            prompts = torch.randint(0, cfg.vocab, shape[:2], generator=gen)
+            if name in names:
+                out.append((name, cfg, layout, shape, prompts))
+    return out
+
+
 def _reduced_alone(dev, plan):
-    """{name: max |logit| difference of the mesh-less card and CPU runs}
-    of the reduced models on the ranks' weights and prompts."""
+    """{(name, shape): max |logit| difference of the mesh-less card and
+    CPU runs} of the reduced runs on the ranks' weights and prompts."""
     import torch
     from repro_torch import interop
     from repro_torch.models.transformer import Transformer
 
-    gen = torch.Generator().manual_seed(7)
-    b, s, n = plan["reduced_shape"]
     out = {}
-    for name, cfg, _ in plan["reduced"]:
-        prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+    for name, cfg, _, shape, prompts in _reduced_runs(plan):
+        n = shape[2]
         cpu = Transformer(cfg, device="cpu",
                           generator=torch.Generator().manual_seed(0))
         card = interop.lm_params_from_numpy(
@@ -4756,7 +4784,7 @@ def _reduced_alone(dev, plan):
         lg_h, _, _ = mesh_greedy(cpu, prompts, {}, n)
         lg_c, _, _ = mesh_greedy(card, prompts.to(dev), {}, n,
                                  lg_h.argmax(-1).t()[:, :n].to(dev))
-        out[name] = float((lg_c - lg_h)[..., :cfg.vocab].abs().max())
+        out[name, shape] = float((lg_c - lg_h)[..., :cfg.vocab].abs().max())
     return out
 
 
@@ -4799,7 +4827,8 @@ def mesh_noise(shapes=MESH_NOISE_SHAPES, dev="cuda"):
     for shape in shapes:
         t0 = time.perf_counter()
         plan = {"shapes": MESH_SHAPES, "grads": _mesh_grads(),
-                "reduced_shape": shape, "reduced": reduced, "scout": None}
+                "reduced_shapes": ((shape, names),), "reduced": reduced,
+                "scout": None}
         gen = torch.Generator().manual_seed(7)
         b, s, n = shape
         alone = {}
@@ -4827,7 +4856,8 @@ def mesh_noise(shapes=MESH_NOISE_SHAPES, dev="cuda"):
         host, card = alone["jamba"]
         row = {"shape": shape, "mesh-less card - cpu": diff(card, host)}
         for mesh in MESH_SHAPES:
-            got = {w: r[0][0]["jamba", mesh] for w, r in ranks.items()}
+            got = {w: r[0][0]["jamba", mesh, shape]
+                   for w, r in ranks.items()}
             row[f"{mesh} card - cpu"] = diff(got["card"][0], got["cpu"][0])
             row[f"{mesh} ids equal"] = bool(torch.equal(got["card"][1],
                                                         got["cpu"][1]))
@@ -4838,6 +4868,225 @@ def mesh_noise(shapes=MESH_NOISE_SHAPES, dev="cuda"):
                     got["cpu"][0], host)
         row["s"] = time.perf_counter() - t0
         print(json.dumps(row), flush=True)
+
+
+class _F64Torch:
+    """``torch`` with ``float32`` read as ``float64``: the globals of
+    :func:`mamba_in_f64`'s copies of the Mamba2 code."""
+
+    def __getattr__(self, name):
+        import torch
+
+        return getattr(torch, "float64" if name == "float32" else name)
+
+
+def mamba_in_f64(model):
+    """Run ``model``'s Mamba2 mixers in f64: their weights cast, and their
+    methods (and the scan, the conv and the norm they call) rebound to
+    copies whose ``torch.float32`` is f64; a mixer takes its input in
+    f64 and returns its output in the input's dtype (its cache stays
+    f64). The other layers are unchanged."""
+    import types
+
+    import torch
+    from repro_torch.models import layers
+
+    g = dict(vars(layers), torch=_F64Torch())
+    for name in ("ssd_scan", "causal_conv", "rmsnorm", "_rmsnorm"):
+        fn = vars(layers)[name]
+        g[name] = types.FunctionType(fn.__code__, g, name, fn.__defaults__,
+                                     fn.__closure__)
+
+    def rebound(m, name):
+        fn = getattr(layers.Mamba2, name)
+        return types.MethodType(types.FunctionType(
+            fn.__code__, g, name, fn.__defaults__, fn.__closure__), m)
+
+    for blk in model.layers:
+        if blk.spec.mixer != "mamba":
+            continue
+        m = blk.mixer.to(torch.float64)
+        for name in ("_split", "_norm", "_out"):
+            setattr(m, name, rebound(m, name))
+        fwd, dec = rebound(m, "forward"), rebound(m, "decode")
+
+        def forward(x, fwd=fwd):
+            out, cache = fwd(x.to(torch.float64))
+            return out.to(x.dtype), cache
+
+        def decode(x, cache, dec=dec):
+            return dec(x.to(torch.float64), cache).to(x.dtype)
+
+        m.forward, m.decode = forward, decode
+    return model
+
+
+def block_outputs(model, prompts, forced, steps):
+    """A prefill of ``prompts`` and ``steps`` decode steps on ``forced``'s
+    tokens (B, steps): each layer's mixer output and block output at each
+    step ((steps + 1) x layers x 2 host tensors; a (1, M) mesh holds them
+    whole on every rank) and the logits (steps + 1, B, V), f32 on the
+    host."""
+    import torch
+
+    rows, step = [], {}
+
+    def keep(layer, kind, x):
+        step[layer, kind] = x.detach().float().cpu()
+
+    hooks = []
+    for i, blk in enumerate(model.layers):
+        for kind, mod in (("mixer", blk.mixer), ("block", blk)):
+            hooks.append(mod.register_forward_hook(
+                lambda m, a, out, i=i, kind=kind: keep(i, kind, out[0])))
+
+            def decode(*a, i=i, kind=kind, dec=mod.decode, **kw):
+                out = dec(*a, **kw)
+                keep(i, kind, out)
+                return out
+
+            mod.decode = decode
+
+    def end():
+        rows.append([(step[i, "mixer"], step[i, "block"])
+                     for i in range(len(model.layers))])
+        step.clear()
+
+    s = prompts.shape[1]
+    logits, cache = model.prefill(prompts, max_len=s + steps)
+    out = [logits[:, -1].float()]
+    end()
+    for i in range(steps):
+        logits, cache = model.decode_step(cache, forced[:, i:i + 1], s + i)
+        out.append(logits[:, -1].float())
+        end()
+    for h in hooks:
+        h.remove()
+    return rows, torch.stack(out).cpu()
+
+
+def _drift_rank(rank, world, store, out_dir, dev, plan):
+    """One rank of :func:`mesh_drift`: reduced jamba over a (1, world)
+    mesh on ``plan``'s weights and tokens, f32 and with its Mamba2 mixers
+    in f64; rank 0 writes both runs' block outputs."""
+    import pickle
+
+    import torch
+    from repro_torch import interop
+    from repro_torch.launch.mesh import init_rank, make_host_mesh
+
+    on_card = dev.startswith("cuda")
+    init_rank(rank, world, store, device=dev,
+              backend=WIRE_BACKEND if on_card else "gloo")
+    if not on_card:
+        torch.set_num_threads(1)
+    mesh = make_host_mesh(1, world, device=dev)
+    res = {}
+    with torch.no_grad():
+        for f64 in (False, True):
+            model = interop.lm_params_from_numpy(plan["cfg"], plan["tree"],
+                                                 device=dev, mesh=mesh)
+            if f64:
+                mamba_in_f64(model)
+            res[f64] = block_outputs(model, plan["prompts"].to(dev),
+                                     plan["forced"].to(dev), plan["steps"])
+            del model
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump((res if rank == 0 else {}, {}), f)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_drift(shape=(4, 64, 8), dev="cuda"):
+    """Where reduced jamba's drift over a (1, MESH_RANKS) mesh starts: at
+    ``shape`` (batch, prompt, steps; its prompts drawn as phase 20 (b)
+    draws them, after qwen2-moe's), each block's output at every step on
+    MESH_RANKS gloo ranks on the card and on the CPU and without a mesh
+    on each, all on the mesh-less CPU run's greedy tokens; then again
+    with the Mamba2 mixers in f64 (:func:`mamba_in_f64`), which tells
+    rounding (the drift shrinks with the mixers' precision) from a wrong
+    index or slice (it would not). Prints one JSON line per layer's mixer
+    output and per block output (the largest |value| of the mesh-less CPU
+    run, and the largest |difference| over steps: card ranks - mesh-less
+    card, CPU ranks - mesh-less CPU, mesh-less card - CPU, card ranks -
+    CPU ranks; f32 and f64 mixers), then the logits'. On a card:
+
+      python3 -c 'import chip_smoke as c; c.mesh_drift()'
+    """
+    import torch
+    from repro_torch import interop
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Transformer
+
+    if dev == "cuda":
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip(),
+              flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.build_all()
+    t0 = time.perf_counter()
+    b, s, n = shape
+    gen = torch.Generator().manual_seed(7)
+    torch.randint(0, _reduced_cfg(MOE_ARCH, {}).vocab, (b, s), generator=gen)
+    cfg = _reduced_cfg("jamba-1.5-large-398b", {})
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+    tree = interop.lm_params_to_numpy(Transformer(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(0)))
+    runs = {}
+    with torch.no_grad():
+        host = interop.lm_params_from_numpy(cfg, tree, device="cpu")
+        logits, cache = host.prefill(prompts, max_len=s + n)
+        tok = [logits[:, -1].argmax(-1, keepdim=True)]
+        for i in range(n - 1):
+            logits, cache = host.decode_step(cache, tok[-1], s + i)
+            tok.append(logits[:, -1].argmax(-1, keepdim=True))
+        forced = torch.cat(tok, 1)
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            for f64 in (False, True):
+                model = interop.lm_params_from_numpy(cfg, tree, device=d)
+                if f64:
+                    mamba_in_f64(model)
+                runs[where, "alone", f64] = block_outputs(
+                    model, prompts.to(d), forced.to(d), n)
+                del model
+    plan = {"cfg": cfg, "tree": tree, "prompts": prompts, "forced": forced,
+            "steps": n}
+    work = os.path.join(ROOT, "build", "chip_smoke_drift")
+    for where, d in (("card", "cuda:0" if dev == "cuda" else "cpu"),
+                     ("cpu", "cpu")):
+        res = _spawn_ranks(_drift_rank, MESH_RANKS,
+                           os.path.join(work, where), d, plan)[0][0]
+        for f64 in (False, True):
+            runs[where, "ranks", f64] = res[f64]
+
+    def diff(a, b, layer, kind):
+        return max(float((x[layer][kind] - y[layer][kind]).abs().max())
+                   for x, y in zip(a[0], b[0]))
+
+    pairs = (("card ranks - card", ("card", "ranks"), ("card", "alone")),
+             ("cpu ranks - cpu", ("cpu", "ranks"), ("cpu", "alone")),
+             ("card - cpu", ("card", "alone"), ("cpu", "alone")),
+             ("card ranks - cpu ranks", ("card", "ranks"), ("cpu", "ranks")))
+    for layer, spec in enumerate(cfg.pattern * cfg.n_rep):
+        for kind, what in enumerate((spec.mixer, f"block ({spec.ff})")):
+            ref = runs["cpu", "alone", False][0]
+            row = {"layer": layer, "out": what, "max |x|": max(
+                float(r[layer][kind].abs().max()) for r in ref)}
+            for f64 in (False, True):
+                tag = "f64 mamba " if f64 else ""
+                for name, a, c in pairs:
+                    row[tag + name] = diff(runs[(*a, f64)], runs[(*c, f64)],
+                                           layer, kind)
+            print(json.dumps(row), flush=True)
+    row = {"logits": shape}
+    for f64 in (False, True):
+        for name, a, c in pairs:
+            row[("f64 mamba " if f64 else "") + name] = float(
+                (runs[(*a, f64)][1] - runs[(*c, f64)][1])[..., :cfg.vocab]
+                .abs().max())
+    row["s"] = time.perf_counter() - t0
+    print(json.dumps(row), flush=True)
 
 
 def _mesh_grads():
@@ -4933,8 +5182,7 @@ def lm_mesh_ranks(dev, total):
     del model
     torch.cuda.empty_cache()
     plan = {"shapes": MESH_SHAPES, "grads": _mesh_grads(),
-            "reduced_shape": (MESH_REDUCED_BATCH, MESH_REDUCED_PROMPT,
-                              MESH_REDUCED_STEPS),
+            "reduced_shapes": MESH_REDUCED_SHAPES,
             "reduced": [(name, _reduced_cfg(arch, repl), layout)
                         for name, arch, repl, layout in MESH_REDUCED],
             "scout": (scout_cfg, b, s, n, ref_ids,
@@ -4965,7 +5213,8 @@ def lm_mesh_ranks(dev, total):
                         for k, (shape, err) in checked.items()))
     expect(rank_dev == "cpu" or {k for k in card[0][0]["attention"]} >= {
         ("scout", shape) for shape in MESH_SHAPES} | {
-        ("granite kv2", (1, 4))}, "phase 20 (b): a run's attention "
+        ("granite kv2", (1, 4), MESH_REDUCED_SHAPES[0][0])},
+        "phase 20 (b): a run's attention "
         "operands were not checked")
     for shape in MESH_SHAPES:
         lg, ids, drops, held, params, secs, peak, excused, stored = \
@@ -5031,10 +5280,11 @@ def lm_mesh_ranks(dev, total):
                    f"{err} > {atol}")
             expect(drops == hdrops, f"phase 20 (b) {key}: dropped card "
                    f"{drops} CPU {hdrops}")
-            log(f"phase 20 (b) reduced {key[0]} f32 over {key[1]}: card "
-                f"ranks == CPU ranks (ids, dropped {drops}), max |logit "
-                f"diff| {err:.3e} (tolerance {atol}; mesh-less card - CPU "
-                f"{alone[name]:.3e})")
+            log(f"phase 20 (b) reduced {key[0]} f32 over {key[1]} at "
+                f"batch x prompt x steps {key[2]}: card ranks == CPU ranks "
+                f"(ids, dropped {drops}), max |logit diff| {err:.3e} "
+                f"(tolerance {atol}; mesh-less card - CPU "
+                f"{alone[name, key[2]]:.3e})")
     grads = _mesh_grads()
     want = grads.mean(0)
     for r, (res, _) in enumerate(card):
@@ -5279,6 +5529,208 @@ def lm_mesh(dev, total):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the dry run
+# ---------------------------------------------------------------------------
+
+#: (a): the sweep's worker processes; the sweep needs only the host, so it
+#: starts after phase 2 and runs beside phases 3-20
+DRY_WORKERS = 2
+#: (b): phase 7's prefill of granite-8b in bf16 on a (1, 1) mesh
+DRY_PREFILL = ("prefill_2048", "prefill", SERVE_PROMPT, SERVE_BATCH)
+#: (b): the dry run's peak within this share of the card's peak over the
+#: prefill call
+DRY_PEAK_MARGIN = 0.10
+
+
+#: (a): the arch whose shapes are jobs of their own (its train step is
+#: the sweep's longest, ~70 s a mesh on the CPU)
+DRY_SPLIT = "jamba-1.5-large-398b"
+
+
+class DrySweep:
+    """Phase 21 (a): ``python -m repro_torch.launch.dryrun`` over every
+    arch x shape, both production meshes, one arch a job (DRY_SPLIT one
+    shape a job), in DRY_WORKERS subprocesses at a time (longest first),
+    each with the card hidden (``CUDA_VISIBLE_DEVICES=""``: its fake
+    process group never meets the script's NCCL groups, and it allocates
+    nothing on the card) and the card's memory passed as
+    ``--hbm-bytes``. Records go to ``build/dryrun_torch/``."""
+
+    def __init__(self, hbm_bytes: float):
+        import shutil
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.launch.shapes import SHAPES
+        from repro_torch.models.arch import list_archs
+
+        self.out = os.path.join(ROOT, "build", "dryrun_torch")
+        shutil.rmtree(self.out, ignore_errors=True)
+        self.hbm, self.procs, self.t0 = hbm_bytes, [], time.perf_counter()
+        jobs = [(DRY_SPLIT, n) for n in SHAPES] + [
+            (a, None) for a in list_archs() if a != DRY_SPLIT]
+        self.combos = len(list_archs()) * len(SHAPES) * 2
+        self.pool = ThreadPoolExecutor(DRY_WORKERS)
+        self.jobs = [(j, self.pool.submit(self._run, *j)) for j in jobs]
+
+    def _run(self, arch, shape):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, *(["--shape", shape] if shape else []), "--mesh", "both",
+             "--hbm-bytes", str(self.hbm), "--out", self.out], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        self.procs.append(proc)
+        out = proc.communicate()[0]
+        return proc.returncode, out, time.perf_counter() - t0
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    def finish(self):
+        """Wait for every job; log each record's row and those that do not
+        fit the card. Returns the records."""
+        from repro_torch.launch.dryrun import fmt_row
+
+        t_wait = time.perf_counter()
+        busy = 0.0
+        for (arch, shape), fut in self.jobs:
+            rc, out, secs = fut.result()
+            busy += secs
+            expect(rc == 0, f"phase 21 (a) dry run of {arch} {shape} "
+                   f"failed:\n{out[-3000:]}")
+        self.pool.shutdown()
+        recs = []
+        for name in sorted(os.listdir(self.out)):
+            with open(os.path.join(self.out, name)) as f:
+                recs.append(json.load(f))
+        expect(len(recs) == self.combos, f"phase 21 (a): {len(recs)} "
+               f"records for {self.combos} combinations")
+        for r in recs:
+            log("phase 21 (a) " + fmt_row(r))
+        over = [r["name"] for r in recs if not r["memory"]["fits"]]
+        log(f"phase 21 (a) {len(recs)} dry runs (every arch x shape x "
+            f"production mesh, rank 0) in {time.perf_counter() - self.t0:.1f}"
+            f" s from their start after phase 2 ({DRY_WORKERS} workers, "
+            f"{busy:.1f} s of jobs; phase 21 waited "
+            f"{time.perf_counter() - t_wait:.1f} s); {len(over)} do not fit "
+            f"{self.hbm / 2**30:.2f} GiB: {', '.join(over)}")
+        return recs
+
+
+_DRY_PREFILL = """
+import json
+from repro_torch.launch import dryrun
+from repro_torch.launch.shapes import InputShape
+from repro_torch.models.arch import get_arch
+with dryrun.on_mesh((1, 1), ("data", "model")) as mesh:
+    rec = dryrun.dry_run(get_arch({arch!r}), InputShape(*{shape!r}), mesh)
+print(json.dumps(rec, default=str))
+"""
+
+
+def dry_vs_card(dev, total):
+    """Phase 21 (b): granite-8b's bf16 prefill at phase 7's batch and prompt
+    on a (1, 1) mesh, dry-run (a subprocess with the card hidden) and run
+    once on the card over a one-rank NCCL mesh. The argument bytes equal
+    the bytes of the parameters and prompts allocated; the dry peak is
+    within DRY_PEAK_MARGIN of the card's peak over the call (the peak
+    reset just before it; allocations older than the model set aside);
+    the FLOPs counted on the card's tensors (``op_analysis.counting``: aten
+    and the kernels' formulas) equal the dry run's."""
+    import torch
+    from repro_torch.launch import op_analysis, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import random_prompts
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.transformer import Transformer
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRY_PREFILL.format(arch=SERVE_ARCH,
+                                                   shape=DRY_PREFILL)],
+        cwd=ROOT, env=env, capture_output=True, text=True)
+    expect(proc.returncode == 0, f"phase 21 (b) dry run failed:\n"
+           f"{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    t_dry = time.perf_counter() - t0
+    cfg, shape = get_arch(SERVE_ARCH), InputShape(*DRY_PREFILL)
+    mesh = make_host_mesh(1, 1, device=dev)
+    torch.cuda.empty_cache()
+    sync()
+    before = torch.cuda.memory_allocated()
+    model = Transformer(cfg, device=dev, dtype=torch.bfloat16, mesh=mesh,
+                        generator=torch.Generator(device=dev).manual_seed(0),
+                        **rec["meta"]["layout"])
+    batch = {"tokens": random_prompts(model, shape.global_batch,
+                                      shape.seq_len)}
+    sync()
+    allocated = torch.cuda.memory_allocated() - before
+    args = list(model.parameters()) + list(batch.values())
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    want = rec["memory"]["argument_bytes"]
+    expect(arg_bytes == want, f"phase 21 (b): the card's parameters and "
+           f"prompts are {arg_bytes} bytes, the dry run's arguments {want}")
+    # the caching allocator rounds each block up to 512 bytes
+    expect(0 <= allocated - arg_bytes <= 512 * len(args), f"phase 21 (b): "
+           f"{allocated} bytes allocated for {arg_bytes} of arguments")
+    step = steps.make_prefill_step(cfg, shape)
+    step(model, {"tokens": batch["tokens"][:, :64]})     # warm-up
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (out, _), secs = timed(lambda: counted(total, lambda: step(model, batch)))
+    peak = torch.cuda.max_memory_allocated() - (base - arg_bytes)
+    del out
+    predicted = rec["memory"]["peak_bytes"]
+    expect(abs(predicted - peak) <= DRY_PEAK_MARGIN * peak, f"phase 21 (b): "
+           f"the dry run's peak {predicted} is not within "
+           f"{DRY_PEAK_MARGIN:.0%} of the card's {peak}")
+    with op_analysis.counting(args) as count:
+        out = step(model, batch)
+    del out
+    cost = rec["cost"]
+    for what, got, dry in (("aten", count.dot_flops, cost["dot_flops"]),
+                           ("kernel", count.kernel_flops,
+                            cost["kernel_flops"]),
+                           ("total", count.flops, cost["flops_per_device"])):
+        expect(got == dry, f"phase 21 (b): {what} FLOPs on the card "
+               f"{got}, dry {dry}")
+    del model, batch, args
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"phase 21 (b) {SERVE_ARCH} bf16 prefill batch={shape.global_batch} "
+        f"prompt={shape.seq_len} on a (1, 1) mesh: argument bytes "
+        f"{arg_bytes} == dry ({allocated} allocated); peak over the call "
+        f"{peak} bytes, dry {predicted} ({(predicted - peak) / peak:+.4%}; "
+        f"margin {DRY_PEAK_MARGIN:.0%}); FLOPs on the card {count.flops:.6e} "
+        f"== dry (aten {count.dot_flops:.6e}, kernels "
+        f"{count.kernel_flops:.6e}); the card's count of the bytes the call "
+        f"made {count.peak_bytes}, dry "
+        f"{predicted - rec['memory']['argument_bytes']}; prefill {secs:.4f} s"
+        f"; dry run {t_dry:.1f} s (a subprocess)")
+
+
+def dry_run_phase(dev, total, sweep):
+    """Phase 21: (a) the sweep's records, (b) the dry run against the
+    card."""
+    t0 = time.perf_counter()
+    sweep.finish()
+    t = time.perf_counter()
+    dry_vs_card(dev, total)
+    log(f"phase 21 took {time.perf_counter() - t0:.1f} s ((b) "
+        f"{time.perf_counter() - t:.1f})")
+
+
 def main() -> int:
     import torch
 
@@ -5315,41 +5767,47 @@ def main() -> int:
         log(f"phase 2 {k}: {'; '.join(usage)}")
     log_tensor_core_use(out)
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    records = check_kernels("cuda", gen, MAIN_N, CUT_N, CHECK_N, D, reps=3)
-    fold = check_fold_kernels("cuda", gen, SERVE_SLOTS, SERVE_BLOCK_N,
-                              SERVE_D, reps=5)
-    for r in records:
-        if r["name"] in fold:
-            r["fold"] = fold[r["name"]]
-    total, main_edges = run_main_path("cuda", D, MAIN_N, CUT_N)
-    card_vs_cpu("cuda", 256, 1 << 14)
-    records += check_attention_kernels("cuda", gen, 5, SERVE_BATCH,
-                                       SERVE_PROMPT, SERVE_GEN)
-    for k, n in serve_lm("cuda", SERVE_BATCH, SERVE_PROMPT,
-                         SERVE_GEN).items():
-        total[k] += n
-    lm_card_vs_cpu("cuda")
-    t0 = time.perf_counter()
-    stream_at_width("cuda", D, CUT_N, STREAM_MACHINES, total)
-    work = os.path.join(ROOT, "build", "chip_smoke_serve")
-    serve_structures("cuda", SERVE_TENANTS, SERVE_MACHINES, SERVE_D,
-                     SERVE_BLOCK_N, SERVE_TICKS, work, total)
-    serve_correctness("cuda", work, total)
-    log(f"phases 9-11 took {time.perf_counter() - t0:.1f} s")
-    trial_plane("cuda", total, records, reps=3)
-    sparse_plane("cuda", total)
-    channel_plane("cuda", total, records, main_edges, reps=3)
-    wire_plane("cuda", total, main_edges)
-    train_plane("cuda", total, gen)
-    gram_autotune("cuda", total)
-    moe_mamba_serving("cuda", total)
-    stubs = stub_serving("cuda", total)
-    for r in records:
-        if r["name"] in stubs:
-            r["stubs"] = stubs[r["name"]]
-    lm_mesh("cuda", total)
+    # phase 21 (a) runs on the host beside phases 3-20
+    sweep = DrySweep(float(torch.cuda.get_device_properties(0).total_memory))
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        records = check_kernels("cuda", gen, MAIN_N, CUT_N, CHECK_N, D, reps=3)
+        fold = check_fold_kernels("cuda", gen, SERVE_SLOTS, SERVE_BLOCK_N,
+                                  SERVE_D, reps=5)
+        for r in records:
+            if r["name"] in fold:
+                r["fold"] = fold[r["name"]]
+        total, main_edges = run_main_path("cuda", D, MAIN_N, CUT_N)
+        card_vs_cpu("cuda", 256, 1 << 14)
+        records += check_attention_kernels("cuda", gen, 5, SERVE_BATCH,
+                                           SERVE_PROMPT, SERVE_GEN)
+        for k, n in serve_lm("cuda", SERVE_BATCH, SERVE_PROMPT,
+                             SERVE_GEN).items():
+            total[k] += n
+        lm_card_vs_cpu("cuda")
+        t0 = time.perf_counter()
+        stream_at_width("cuda", D, CUT_N, STREAM_MACHINES, total)
+        work = os.path.join(ROOT, "build", "chip_smoke_serve")
+        serve_structures("cuda", SERVE_TENANTS, SERVE_MACHINES, SERVE_D,
+                         SERVE_BLOCK_N, SERVE_TICKS, work, total)
+        serve_correctness("cuda", work, total)
+        log(f"phases 9-11 took {time.perf_counter() - t0:.1f} s")
+        trial_plane("cuda", total, records, reps=3)
+        sparse_plane("cuda", total)
+        channel_plane("cuda", total, records, main_edges, reps=3)
+        wire_plane("cuda", total, main_edges)
+        train_plane("cuda", total, gen)
+        gram_autotune("cuda", total)
+        moe_mamba_serving("cuda", total)
+        stubs = stub_serving("cuda", total)
+        for r in records:
+            if r["name"] in stubs:
+                r["stubs"] = stubs[r["name"]]
+        lm_mesh("cuda", total)
+        dry_run_phase("cuda", total, sweep)
+    finally:
+        sweep.stop()
     for r in records:
         r["launches"] = total[r["name"]]
         expect(r["launches"] > 0, f"the main path never launched "

@@ -20,5 +20,9 @@ class GGMConfig:
 
 
 FIG3 = GGMConfig("fig3", d=20, n=1000, tree="random")
+FIG7_STAR = GGMConfig("fig7-star", d=20, n=2000, tree="star",
+                      rho_min=0.5, rho_max=0.5)
+SKELETON = GGMConfig("skeleton", d=20, n=243586, tree="skeleton",
+                     rho_min=0.6, rho_max=0.95)
 # production size: 4096 machines, 2^20 samples each
 PRODUCTION = GGMConfig("ggm-production", d=4096, n=1 << 20, method="sign")

@@ -47,6 +47,14 @@ def star_tree(d: int, center: int = 0) -> list[tuple[int, int]]:
 
 # 20-joint Kinect-style human skeleton (MAD dataset layout), used for the
 # Figs. 10-11 reproduction. Node 0 is the hip-center root.
+SKELETON_JOINTS = [
+    "hip_center", "spine", "shoulder_center", "head",
+    "shoulder_l", "elbow_l", "wrist_l", "hand_l",
+    "shoulder_r", "elbow_r", "wrist_r", "hand_r",
+    "hip_l", "knee_l", "ankle_l", "foot_l",
+    "hip_r", "knee_r", "ankle_r", "foot_r",
+]
+
 SKELETON_EDGES = [
     (0, 1), (1, 2), (2, 3),
     (2, 4), (4, 5), (5, 6), (6, 7),

@@ -11,7 +11,8 @@ and stream: the counters that find each group's last block, in an int32
 buffer of their own (zeroed when it grows, and left at 0 by every launch),
 and the splits' partials in another; each grows when a shape needs more.
 It takes the plain version from ``ref`` for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises; a meta tensor takes the dry
+run's stand-in (``meta``) or raises.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import operator
 
 import torch
 
-from . import _build, ref
+from . import _build, meta, ref
 from ._build import check
 from .flash_prefill import HEAD_DIMS, check_operands
 
@@ -109,6 +110,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{splits}")
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, pos, window=window)
+    if q.device.type == "meta":
+        return meta.stand_in("decode_attention", torch.empty_like(q),
+                             decode_attention_cost(q, k, v, pos,
+                                                   window=window))
     if dh not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head size {dh} is not one of "
                          f"{HEAD_DIMS}")
@@ -130,10 +135,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             1.0 / math.sqrt(dh), forced, *args, stream),
             "decode_attention")
     decode_attention.launches += 1
+    if meta.observer is not None:
+        meta.observer("decode_attention",
+                      *decode_attention_cost(q, k, v, pos, window=window))
     return out
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_cost(q, k, v, pos: int, *, window: int | None = None
+                          ) -> tuple[int, int]:
+    """(FLOPs, bytes) of one :func:`decode_attention` call: 4 Dh FLOPs a
+    valid entry and query head, q and the valid K/V rows read once and
+    the output written once (the dry run's count of a kernel call)."""
+    b, hq, dh = q.shape
+    lo, hi = _range(operator.index(pos), k.shape[2], window)
+    rows = b * k.shape[1] * (hi - lo) * dh * k.element_size()
+    return 4 * b * hq * dh * (hi - lo), meta.nbytes(q, q) + 2 * rows
 
 
 def split_count(q: torch.Tensor, k: torch.Tensor, pos: int, *,

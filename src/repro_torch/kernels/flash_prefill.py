@@ -7,7 +7,8 @@ wrapper on every attention layer of ``Transformer.prefill`` and of the
 training ``Transformer.forward``. The kernel (``csrc/flash_prefill.cu``)
 keeps the online softmax in f32 and writes q's dtype. The wrapper takes
 the plain version from ``ref`` for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises; a meta tensor takes the dry run's
+stand-in (``meta``) or raises.
 
 When q, k or v needs a gradient the wrapper runs as a
 ``torch.autograd.Function``: the same forward on detached inputs, and
@@ -24,7 +25,7 @@ import math
 
 import torch
 
-from . import _build, ref
+from . import _build, meta, ref
 from ._build import check
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -46,7 +47,7 @@ def check_operands(what: str, q: torch.Tensor, k: torch.Tensor,
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, "
                              f"q is {q.dtype} on {q.device}")
-        if t.device.type not in ("cpu", "cuda"):
+        if t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"{what} runs on cpu or cuda, not {t.device}")
         if t.dim() != (q_dims if name == "q" else 4):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}")
@@ -171,12 +172,36 @@ def flash_prefill_backward(q, k, v, out, dout, *, causal: bool = True,
             dv.to(v.dtype))
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs :func:`flash_prefill` computes: key j
+    visible to query i as its mask says."""
+    i = torch.arange(sq, dtype=torch.int64)
+    hi = torch.clamp(i + 1, max=skv) if causal else torch.full_like(i, skv)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def flash_prefill_cost(q, k, v, causal: bool = True, window: int = 0
+                       ) -> tuple[int, int]:
+    """(FLOPs, bytes) of one :func:`flash_prefill` forward: 4 Dh FLOPs a
+    visible pair and query head (q.k and p.v), and q, k, v read once and
+    the output written once. The dry run counts a kernel call by it; torch's
+    FLOP counter does not see the kernel's launch."""
+    b, sq, hq, dh = q.shape
+    pairs = visible_pairs(sq, k.shape[1], causal, int(window))
+    return 4 * b * hq * dh * pairs, meta.nbytes(q, k, v, q)
+
+
 def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    """The kernel on a CUDA tensor, the plain version on a CPU one, the
+    dry run's stand-in on a meta one."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return meta.stand_in("flash_prefill", torch.empty_like(q),
+                             flash_prefill_cost(q, k, v, causal, window))
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_prefill: head size {dh} is not one of "
                          f"{HEAD_DIMS}")
@@ -196,6 +221,9 @@ def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
             torch.cuda.current_stream(q.device).cuda_stream),
             "flash_prefill")
     flash_prefill.launches += 1
+    if meta.observer is not None:
+        meta.observer("flash_prefill",
+                      *flash_prefill_cost(q, k, v, causal, window))
     return out
 
 

@@ -14,11 +14,17 @@ the batch: the loss is the rank's masked sum over the global count, the
 gradients of FSDP'd weights come reduce-scattered over ``data`` out of
 the backward, the others are summed over ``data`` (and ``pod``), and
 the global norm counts each element once. ``repro``'s ``build_program``
-and ``lower_program`` lower XLA programs, which the port does not have;
-:func:`inference_layout` is their inference choice of layout.
+and ``lower_program`` lower XLA programs, which the port does not have:
+:func:`plan_program` returns the decisions ``build_program`` makes (the
+batch axes, the window, the microbatches, the parameter layout, the
+optimizer's state, the batch and cache leaves) without building
+anything, and :func:`inference_layout` is its inference choice of
+layout for a model that both prefills and decodes. ``launch.dryrun``
+runs a plan on one rank of the production meshes.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable
 
@@ -232,6 +238,28 @@ def param_bytes(cfg: ArchConfig, dtype: torch.dtype) -> int:
 #: ``repro``'s inference budget, 12e9 bytes of a TPU v5e's 16 GiB, as a
 #: share of the card's memory
 BUDGET_SHARE = 12e9 / 16e9
+#: ``repro``'s inference budget in bytes (``build_program``'s), for
+#: comparisons with ``repro``
+REPRO_BUDGET = 12e9
+
+
+def _inference_choice(cfg: ArchConfig, mesh, dtype: torch.dtype,
+                      budget: float | None) -> tuple[bool, bool]:
+    """``repro``'s (infer_fsdp, ep2d) of ``build_program``: FSDP over
+    ``data`` when the per-rank weights under model-TP exceed ``budget``,
+    and the experts 2-D when so and the data axes divide d_ff (a MoE
+    model). The budget defaults to ``BUDGET_SHARE`` of the card's memory
+    (none on the CPU); ``repro``'s is ``REPRO_BUDGET``."""
+    if budget is None:
+        if mesh.device_type != "cuda":
+            budget = math.inf
+        else:
+            props = torch.cuda.get_device_properties(torch.cuda.current_device())
+            budget = BUDGET_SHARE * props.total_memory
+    per_rank = param_bytes(cfg, dtype) / axis_size(mesh, "model")
+    fsdp = per_rank > budget
+    dshards = axis_size(mesh, "data") * axis_size(mesh, "pod")
+    return fsdp, fsdp and cfg.moe_experts > 0 and cfg.d_ff % dshards == 0
 
 
 def inference_layout(cfg: ArchConfig, mesh, *, dtype: torch.dtype,
@@ -242,17 +270,118 @@ def inference_layout(cfg: ArchConfig, mesh, *, dtype: torch.dtype,
     a MoE model the experts 2-D instead (ep2d: experts over ``model``,
     d_ff over the data axes; its prefill gathers their d_ff blocks, as
     ``repro``'s FSDP prefill program does) and the rest model-TP alone.
-    Returns ``Transformer``'s {"fsdp", "ep2d"}. The budget defaults to
-    ``BUDGET_SHARE`` of the card's memory (none on the CPU); ``repro``'s
-    is 12e9."""
-    if budget is None:
-        if mesh.device_type != "cuda":
-            budget = math.inf
-        else:
-            props = torch.cuda.get_device_properties(torch.cuda.current_device())
-            budget = BUDGET_SHARE * props.total_memory
-    per_rank = param_bytes(cfg, dtype) / axis_size(mesh, "model")
-    fsdp = per_rank > budget
-    dshards = axis_size(mesh, "data") * axis_size(mesh, "pod")
-    ep2d = fsdp and cfg.moe_experts > 0 and cfg.d_ff % dshards == 0
+    Returns ``Transformer``'s {"fsdp", "ep2d"} (the budget as
+    :func:`_inference_choice` takes it)."""
+    fsdp, ep2d = _inference_choice(cfg, mesh, dtype, budget)
     return {"fsdp": fsdp and not ep2d, "ep2d": ep2d}
+
+
+# ---------------------------------------------------------------------------
+# Programs: what ``repro``'s build_program decides
+# ---------------------------------------------------------------------------
+
+def batch_specs(cfg: ArchConfig, shape: InputShape,
+                act_dtype: torch.dtype = torch.float32) -> dict:
+    """The global batch of a train or prefill program as meta tensors
+    (``repro``'s ``batch_specs``' ShapeDtypeStructs): 'tokens' (B, S_text)
+    and for training 'labels' (B, S_text) in int64, the port's index
+    dtype (``repro``: int32), and 'mask' f32; a vision model's
+    'modal_embeds' (B, P, D) and an encoder-decoder model's 'enc_embeds'
+    (B, frames, D) in ``act_dtype``."""
+    b, s = shape.global_batch, text_len(cfg, shape)
+
+    def leaf(*dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    out = {"tokens": leaf(b, s, dtype=torch.int64)}
+    if shape.kind == "train":
+        out["labels"] = leaf(b, s, dtype=torch.int64)
+        out["mask"] = leaf(b, s, dtype=torch.float32)
+    if modal_tokens(cfg):
+        out["modal_embeds"] = leaf(b, modal_tokens(cfg), cfg.d_model,
+                                   dtype=act_dtype)
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = leaf(b, encoder_frames(cfg, shape), cfg.d_model,
+                                 dtype=act_dtype)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramPlan:
+    """One (architecture x input shape) program on a mesh, as ``repro``'s
+    ``build_program`` decides it: ``batch_axes`` (``batch_axes_for``),
+    ``window``, ``microbatches`` (train; 0 otherwise), ``layout``
+    (``Transformer``'s {"fsdp", "ep2d"}), the parameters' and the AdamW
+    moments' dtypes (train; the step count is replicated), ``batch`` (the
+    global batch leaves, meta tensors; a decode step's 'token' (B, 1)),
+    ``cache`` (a decode program's leaves: (layer, name, global shape,
+    dtype, ``cache_pspec``)) and ``meta``, ``repro``'s record of it."""
+    name: str
+    kind: str
+    batch_axes: tuple | None
+    window: int
+    microbatches: int
+    layout: dict
+    param_dtype: torch.dtype
+    moments_dtype: torch.dtype | None
+    batch: dict
+    cache: tuple
+    meta: dict
+
+
+def cache_leaves(cfg: ArchConfig, shape: InputShape, mesh, batch_axes,
+                 dtype: torch.dtype) -> tuple:
+    """A decode program's cache (``repro``'s ``cache_spec_tree`` and
+    ``cache_shardings``): (layer, leaf, global shape, dtype, spec) of
+    ``Transformer.init_cache``'s leaves for the global batch at the
+    shape's length and window, with the encoder's memory of an
+    encoder-decoder model."""
+    from repro_torch.models.transformer import Transformer
+
+    model = Transformer(cfg, device="meta", dtype=dtype)
+    cache = model.init_cache(shape.global_batch, shape.seq_len,
+                             window=cfg.window_for(shape.name),
+                             memory_len=encoder_frames(cfg, shape))
+    return tuple((i, k, tuple(v.shape), v.dtype,
+                  cache_pspec(k, tuple(v.shape), cfg, mesh, batch_axes))
+                 for i, c in enumerate(cache) for k, v in c.items())
+
+
+def plan_program(cfg: ArchConfig, shape: InputShape, mesh, *,
+                 param_dtype: torch.dtype = torch.bfloat16,
+                 fsdp: bool = True, microbatches: int = 0,
+                 budget: float | None = None) -> ProgramPlan:
+    """``repro``'s ``build_program`` decisions for ``cfg`` at ``shape`` on
+    ``mesh``, nothing built. Train: FSDP over ``data`` when ``fsdp``,
+    AdamW with f32 moments beside each parameter, ``microbatches`` (0:
+    ``auto_microbatches``). Inference: ``_inference_choice`` at
+    ``budget`` (``REPRO_BUDGET`` where the plan is held to ``repro``'s):
+    a prefill FSDP'd when the weights are over it, a decode of an
+    over-size MoE model with the experts 2-D (ep2d)."""
+    batch = batch_axes_for(mesh, shape.global_batch)
+    window = cfg.window_for(shape.name)
+    meta = {"kind": shape.kind, "batch_axes": batch, "window": window}
+    common = dict(name=f"{cfg.name}:{shape.name}", kind=shape.kind,
+                  batch_axes=batch, window=window, param_dtype=param_dtype)
+    if shape.kind == "train":
+        mb = microbatches or auto_microbatches(cfg, shape, mesh)
+        return ProgramPlan(**common, microbatches=mb,
+                           layout={"fsdp": fsdp, "ep2d": False},
+                           moments_dtype=torch.float32,
+                           batch=batch_specs(cfg, shape), cache=(),
+                           meta={**meta, "microbatches": mb})
+    infer_fsdp, ep2d = _inference_choice(cfg, mesh, param_dtype, budget)
+    if shape.kind == "prefill":
+        return ProgramPlan(**common, microbatches=0,
+                           layout={"fsdp": infer_fsdp, "ep2d": False},
+                           moments_dtype=None, batch=batch_specs(cfg, shape),
+                           cache=(), meta=meta)
+    token = torch.empty((shape.global_batch, 1), dtype=torch.int64,
+                        device="meta")
+    return ProgramPlan(**common, microbatches=0,
+                       layout={"fsdp": infer_fsdp and not ep2d,
+                               "ep2d": ep2d},
+                       moments_dtype=None, batch={"token": token},
+                       cache=cache_leaves(cfg, shape, mesh, batch,
+                                          param_dtype),
+                       meta=meta)

@@ -580,9 +580,10 @@ class MoE(Sharded):
         part = self._experts(self._enter(xf), self._enter(gate), exp_ids,
                              lo, cap, gather=not ep2d)
         if ep2d:
+            # d_ff lies over ``data`` alone, the same slices in every pod:
+            # the sum is complete over model and data (``repro``'s psum
+            # also over pod counts each expert once a pod)
             part = sh.reduce(sh.reduce(part), sh.dgroup)
-            if sh.pgroup is not None:
-                part = sh.reduce(part, sh.pgroup)
         else:
             part = self._reduce(part)
         out = part.view(-1, s, d)

@@ -261,6 +261,19 @@ def _backend(group) -> str:
     return str(dist.get_backend(group))
 
 
+#: ``observer(op, result)`` for each collective below over more than one
+#: rank while set (``launch.op_analysis`` counts their bytes by it): op is
+#: "all-gather", "reduce-scatter" or "all-reduce", ``result`` the rank's
+#: result
+collective_observer = None
+
+
+def _observe(op: str, result: torch.Tensor) -> torch.Tensor:
+    if collective_observer is not None:
+        collective_observer(op, result)
+    return result
+
+
 def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order."""
     n = dist.get_world_size(group)
@@ -268,24 +281,25 @@ def all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
         return x
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    return _observe("all-gather", torch.cat(parts, dim=dim))
 
 
 def reduce_scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The sum over ``group`` of ``x``, this rank's block along ``dim``
-    (NCCL's reduce-scatter; an all-reduce and a slice on gloo)."""
+    (NCCL's reduce-scatter, as on the dry run's fake group, which stands
+    for NCCL ranks; an all-reduce and a slice on gloo)."""
     n = dist.get_world_size(group)
     if n == 1:
         return x
     r = dist.get_rank(group)
-    if "nccl" in _backend(group):
+    if any(b in _backend(group) for b in ("nccl", "fake")):
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
         dist.reduce_scatter_tensor(out, src, group=group)
-        return out.movedim(0, dim).contiguous()
+        return _observe("reduce-scatter", out.movedim(0, dim).contiguous())
     full = x.contiguous().clone()
     dist.all_reduce(full, group=group)
-    return full.chunk(n, dim)[r].contiguous()
+    return _observe("reduce-scatter", full.chunk(n, dim)[r].contiguous())
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -293,6 +307,7 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.contiguous().clone()
     if dist.get_world_size(group) > 1:
         dist.all_reduce(out, op=op, group=group)
+        _observe("all-reduce", out)
     return out
 
 

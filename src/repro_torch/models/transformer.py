@@ -162,7 +162,9 @@ class Transformer(layers.Sharded):
         super().__init__(shard_of(mesh, fsdp=fsdp, ep2d=ep2d))
         self.cfg = cfg
         dev = resolve_device(device)
-        if mesh is not None and mesh.device_type != dev.type:
+        # a model on the meta device holds no data: any mesh may hold it
+        # (the dry run's production meshes, ``launch.dryrun``)
+        if mesh is not None and dev.type not in (mesh.device_type, "meta"):
             raise ValueError(f"a {mesh.device_type} mesh cannot hold a "
                              f"model on {dev}")
         kw = dict(device=dev, dtype=dtype)
