@@ -615,10 +615,9 @@ def run_main_path(dev, d, main_n, cut_n):
     launch counts of these runs (counts reset before each, read after)
     and the PRODUCTION edge list."""
     import torch
+    from repro_torch import trace
     from repro_torch.configs import PRODUCTION
-    from repro_torch.core import estimators
-    from repro_torch.core.chow_liu import (adjacency_to_edges, boruvka_mst,
-                                           learn_structure)
+    from repro_torch.core.chow_liu import learn_structure
     from repro_torch.core.strategy import Strategy
     from repro_torch.core.trees import is_tree, tree_edit_distance
     from repro_torch.data import GGMDataset
@@ -636,28 +635,26 @@ def run_main_path(dev, d, main_n, cut_n):
     x, t_sample = timed(lambda: ds.sample(main_n, device=dev))
     s = Strategy(method=PRODUCTION.method)
     reset_launches()
-    est, t_total = timed(lambda: learn_structure(x, strategy=s))
+    # the entry's own spans give the breakdown (CUDA events)
+    with trace.recording() as spans:
+        est, t_total = timed(lambda: learn_structure(x, strategy=s))
     counts = launches()
     add(counts)
     expect(counts["sign_corr"] > 0, "the PRODUCTION run launched no "
            "sign_corr")
     expect(is_tree(d, est), "the PRODUCTION result is not a spanning tree")
     main_edges = est
-    # the same run stage by stage, for the breakdown
-    payload, t_enc = timed(lambda: estimators.strategy_payload(x, s))
     del x
-    gram, t_gram = timed(lambda: estimators.payload_gram(payload, s))
-    del payload
-    w, t_w = timed(lambda: estimators.weights_from_gram(gram, main_n, s))
-    adj, t_mst = timed(lambda: boruvka_mst(w))
-    expect(adjacency_to_edges(adj) == est,
-           "the staged PRODUCTION run disagrees with learn_structure")
     peak = torch.cuda.max_memory_allocated()
-    del gram, w, adj
+    stage = {r.name.removeprefix("repro_torch."): r.seconds for r in spans}
+    (root,) = [r for r in spans if r.parent is None]
     log(f"phase 4 PRODUCTION d={d} n={main_n} sign/int8/boruvka: "
         f"sample_s={t_sample:.4f} learn_structure_s={t_total:.4f} "
-        f"encode_s={t_enc:.4f} gram_s={t_gram:.4f} weights_s={t_w:.4f} "
-        f"mwst_s={t_mst:.4f} edit_distance={tree_edit_distance(est, truth)} "
+        + " ".join(f"{k}_s={stage[k]:.4f}" for k in (
+            "encode", "gram", "weights", "mst", "edges"))
+        + f" self_s={trace.self_s(root, spans):.4f} "
+        f"host_reads={root.counts.get('host_reads', 0)} "
+        f"edit_distance={tree_edit_distance(est, truth)} "
         f"peak_bytes={peak} launches={json.dumps(counts)}")
 
     torch.cuda.empty_cache()
@@ -1888,44 +1885,15 @@ def fig3_sweeps(dev, total):
                                f"n_buckets={buckets}")
 
 
-def _staged_sweep(plan, dev):
-    """run_trials' device path stage by stage, each stage synchronised:
-    (S, len(ns), 3) mean metrics and seconds by stage."""
-    import torch
-    from repro_torch.core import estimators, experiments, sampler
-    from repro_torch.core.gram import GramEngine
-
-    parents, rhos, adj_true, keys = experiments._plan_setup(
-        *experiments._setup_key(plan), str(torch.device(dev)))
-    engine = plan.budget_engine(GramEngine(), device=dev)
-    chunk = plan.metrics_chunk()
-    split = dict(sample=0.0, weights=0.0, boruvka=0.0, read_back=0.0)
-    sums = []
-    for n in plan.ns:
-        x, t = timed(lambda: sampler.sample_tree_ggm_rows_batch(
-            keys, plan.bucket_for(n), parents, rhos))
-        split["sample"] += t
-        w, t = timed(lambda: torch.stack([
-            estimators.strategy_weights_batch(x, s, n_valid=n, engine=engine)
-            for s in plan.strategies]))
-        split["weights"] += t
-        del x
-        s, t = timed(lambda: experiments._metric_sums(w, adj_true, chunk))
-        split["boruvka"] += t
-        sums.append(s)
-        del w
-    m, t = timed(lambda: (torch.stack(sums, dim=1) / plan.reps).cpu())
-    split["read_back"] = t
-    return m.numpy(), split
-
-
 def bigd_sweeps(dev, total):
     """Part 2: the sweep at d = 1024 (FIG3_STRATEGIES, then the packed
     wires over the same trials: 512 trials): cold and warm seconds and
     trials/s, the device's idle share, peak memory, the tiling chosen, a
-    stage split (held to run_trials' metrics), and the card's sampler
-    against the CPU's at a row block of the plan."""
+    stage split from run_trials' own spans (its results held to the cold
+    run's), and the card's sampler against the CPU's at a row block of
+    the plan."""
     import torch
+    from repro_torch import trace
     from repro_torch.core import FIG3_STRATEGIES, prng, sampler
     from repro_torch.core.experiments import (TrialPlan, clear_compile_caches,
                                               run_trials, trial_keys)
@@ -1972,20 +1940,21 @@ def bigd_sweeps(dev, total):
         log(f"phase 12 d=1024 error_rate={json.dumps(res.error_rate)} "
             f"edit_distance={json.dumps(res.edit_distance)}")
 
-    split = dict(sample=0.0, weights=0.0, boruvka=0.0, read_back=0.0)
-    for plan, (res, _) in zip(plans, cold):
-        (m, part), _ = counted(total, lambda: _staged_sweep(plan, dev))
-        for k, v in part.items():
-            split[k] += v
-        for i, s in enumerate(plan.strategies):
-            expect(list(map(float, m[i, :, 0])) == res.error_rate[s.label]
-                   and list(map(float, m[i, :, 1]))
-                   == res.edit_distance[s.label],
-                   f"the staged d=1024 sweep disagrees with run_trials "
-                   f"({s.label})")
-    log("phase 12 d=1024 stage split, s (both plans, each stage "
-        "synchronised): " + " ".join(f"{k}={v:.4f}" for k, v in
-                                     split.items()))
+    # the stage split from the entry's own spans (CUDA events)
+    split = dict.fromkeys(("sample", "stats", "mst", "readback"), 0.0)
+    reads = 0
+    for plan, (c, _) in zip(plans, cold):
+        with trace.recording() as spans:
+            traced, _ = counted(total, lambda: run_trials(plan, device=dev))
+        _same_results(traced, c, "d=1024 traced vs cold")
+        (root,) = [r for r in spans if r.parent is None]
+        reads += root.counts.get("host_reads", 0)
+        for r in spans:
+            if r.parent == root.id:
+                split[r.name.removeprefix("repro_torch.")] += r.seconds
+    log("phase 12 d=1024 stage split, s (both plans, the entry's spans): "
+        + " ".join(f"{k}={v:.4f}" for k, v in split.items())
+        + f" host_reads={reads}")
 
     # the sampler's last row block of the plan, on the card and the CPU
     plan = plans[0]

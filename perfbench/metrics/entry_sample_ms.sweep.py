@@ -1,0 +1,10 @@
+"""entry_sample_ms.sweep: the row-keyed sampler in the timed entry
+(``repro_torch.sample`` spans summed over a sweep's points), ms on
+their CUDA events (median over the profiled sweeps)."""
+from perfbench import spans
+
+
+def read(ctx):
+    t = spans.per_root(ctx, "trial",
+                       lambda g: spans.stage_s(g, "repro_torch.sample"))
+    return None if t is None else 1e3 * t

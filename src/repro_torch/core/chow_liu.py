@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch._device import as_tensor, resolve_device
 
 from . import estimators
@@ -37,6 +38,7 @@ def kruskal_forest(weights, min_weight: float) -> list[tuple[int, int]]:
     skipped.
     """
     if isinstance(weights, torch.Tensor):
+        trace.count("host_reads")
         weights = weights.detach().cpu().numpy()
     w = np.asarray(weights, dtype=np.float64)
     d = w.shape[0]
@@ -69,7 +71,8 @@ def kruskal_forest(weights, min_weight: float) -> list[tuple[int, int]]:
 
 def kruskal_mst(weights) -> list[tuple[int, int]]:
     """Max-weight spanning tree via Kruskal. ``weights``: symmetric (d, d)."""
-    return kruskal_forest(weights, min_weight=-np.inf)
+    with trace.span("repro_torch.mst", mst="kruskal"):
+        return kruskal_forest(weights, min_weight=-np.inf)
 
 
 # --------------------------------------------------------------------------
@@ -171,6 +174,7 @@ def _boruvka_slab(weights: torch.Tensor, early_exit: bool) -> torch.Tensor:
         if early_exit:
             present = torch.zeros((b, d), dtype=torch.int32, device=dev)
             present.scatter_(1, comp, 1)
+            trace.count("host_reads")
             if int(present.sum(dim=1).max()) <= 1:
                 break
     return sel.reshape(b, d, d).bool()
@@ -180,16 +184,19 @@ def boruvka_mst(weights, *, early_exit: bool = True) -> torch.Tensor:
     """Max-weight spanning tree of symmetric (d, d) weights (diagonal
     ignored) -> (d, d) bool adjacency on the weights' device."""
     weights = torch.as_tensor(weights)
-    return boruvka_mst_batch(weights.unsqueeze(0),
-                             early_exit=early_exit)[0]
+    with trace.span("repro_torch.mst", weights.device, mst="boruvka"):
+        return boruvka_mst_batch(weights.unsqueeze(0),
+                                 early_exit=early_exit)[0]
 
 
 def adjacency_to_edges(adj) -> list[tuple[int, int]]:
     """Explicit host step: symmetric bool adjacency -> canonical edge list."""
-    if isinstance(adj, torch.Tensor):
-        adj = adj.detach().cpu().numpy()
-    iu, ju = np.nonzero(np.triu(np.asarray(adj), k=1))
-    return [(int(a), int(b)) for a, b in zip(iu, ju)]
+    with trace.span("repro_torch.edges"):
+        if isinstance(adj, torch.Tensor):
+            trace.count("host_reads")
+            adj = adj.detach().cpu().numpy()
+        iu, ju = np.nonzero(np.triu(np.asarray(adj), k=1))
+        return [(int(a), int(b)) for a, b in zip(iu, ju)]
 
 
 # --------------------------------------------------------------------------
@@ -239,7 +246,9 @@ def learn_structure(
             rate=max(rate, 1) if method == "persymbol" else 1,
             mst=backend)
     x = as_tensor(x, resolve_device(device, x), torch.float32)
-    w = estimators.strategy_weights(x, strategy, engine=engine)
-    if strategy.mst == "boruvka":
-        return adjacency_to_edges(boruvka_mst(w))
-    return kruskal_mst(w)
+    with trace.span("repro_torch.learn_structure", x.device, n=x.shape[0],
+                    d=x.shape[1], strategy=strategy.label):
+        w = estimators.strategy_weights(x, strategy, engine=engine)
+        if strategy.mst == "boruvka":
+            return adjacency_to_edges(boruvka_mst(w))
+        return kruskal_mst(w)

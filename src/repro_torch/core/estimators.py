@@ -49,6 +49,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch._device import resolve_device
 
 from .glasso import nearest_correlation  # noqa: F401  (callers' import)
@@ -196,34 +197,36 @@ def weights_from_gram(gram: torch.Tensor, n, method, *,
     effective count is < 2. ``normalized=True`` declares that ``gram`` is
     already gram / max(n, 1).
     """
-    method = getattr(method, "method", method)
     gram = torch.as_tensor(gram)
-    n = _as_count(n, gram)
-    n_eff = None
-    if _dim(n) >= 2:
-        n_eff = n
-        n = torch.clamp(n_eff, min=1.0)
-    if method == "original":
-        w = mi_gaussian(gram if normalized else gram / n)
-    elif method == "sign":
-        # I(theta) = I(1 - theta): take theta from |gram| so that Grams of
-        # opposite sign give the same bits on every device. From theta
-        # and 1 - theta, h would round differently on each side, and how
-        # depends on the device's log2: the MWST's choice between two
-        # such exactly tied edges would then differ between the card and
-        # the CPU.
-        g = gram.abs()
-        w = mi_sign((0.5 + g / 2.0) if normalized
-                    else (0.5 + g / (2.0 * n)))
-    elif method == "persymbol":
-        rho_bar = gram if normalized else gram / n
-        r2 = torch.clamp(rho_squared_unbiased(rho_bar, n), 0.0, 1.0 - 1e-7)
-        w = -0.5 * torch.log1p(-r2)
-    else:
-        raise ValueError(f"unknown method {method!r}")
-    if n_eff is not None:
-        w = torch.where(n_eff >= 2.0, w, 0.0)
-    return w
+    with trace.span("repro_torch.weights", gram.device):
+        method = getattr(method, "method", method)
+        n = _as_count(n, gram)
+        n_eff = None
+        if _dim(n) >= 2:
+            n_eff = n
+            n = torch.clamp(n_eff, min=1.0)
+        if method == "original":
+            w = mi_gaussian(gram if normalized else gram / n)
+        elif method == "sign":
+            # I(theta) = I(1 - theta): take theta from |gram| so that
+            # Grams of opposite sign give the same bits on every device.
+            # From theta and 1 - theta, h would round differently on each
+            # side, and how depends on the device's log2: the MWST's
+            # choice between two such exactly tied edges would then
+            # differ between the card and the CPU.
+            g = gram.abs()
+            w = mi_sign((0.5 + g / 2.0) if normalized
+                        else (0.5 + g / (2.0 * n)))
+        elif method == "persymbol":
+            rho_bar = gram if normalized else gram / n
+            r2 = torch.clamp(rho_squared_unbiased(rho_bar, n), 0.0,
+                             1.0 - 1e-7)
+            w = -0.5 * torch.log1p(-r2)
+        else:
+            raise ValueError(f"unknown method {method!r}")
+        if n_eff is not None:
+            w = torch.where(n_eff >= 2.0, w, 0.0)
+        return w
 
 
 def corr_from_gram(gram: torch.Tensor, n, method) -> torch.Tensor:
@@ -313,33 +316,34 @@ def strategy_payload(x: torch.Tensor, strategy: Strategy, *, n_valid=None,
     ``n_valid``. ``flip`` — the (..., n, d) bool bit-flip mask — flips
     sign-method payloads' bits; per-symbol and float wires ignore it.
     """
-    n_pad = x.shape[-2]
-    mask = _payload_mask(n_pad, n_valid, n_rows, x.device)
+    with trace.span("repro_torch.encode", x.device, n=x.shape[-2]):
+        n_pad = x.shape[-2]
+        mask = _payload_mask(n_pad, n_valid, n_rows, x.device)
 
-    if strategy.method == "original":
-        return x if mask is None else torch.where(mask, x, 0.0)
-    if strategy.method == "sign":
-        if _packs(strategy, n_pad):
-            bits = sign_bits(x)
+        if strategy.method == "original":
+            return x if mask is None else torch.where(mask, x, 0.0)
+        if strategy.method == "sign":
+            if _packs(strategy, n_pad):
+                bits = sign_bits(x)
+                if flip is not None:
+                    bits ^= flip
+                if mask is not None:
+                    bits &= mask
+                return pack_codes(bits.transpose(-2, -1), 1)  # (., d, n/8)
+            u = sign_codes(x)
             if flip is not None:
-                bits ^= flip
+                u = torch.where(flip, -u, u)
+            return u if mask is None else u.masked_fill_(~mask, 0)
+        codes = PerSymbolQuantizer(strategy.rate).encode(x)
+        if _packs(strategy, n_pad):
+            # dense R-bit wire: pad symbols travel as code 0 (the center
+            # re-masks them from n_valid before contracting)
             if mask is not None:
-                bits &= mask
-            return pack_codes(bits.transpose(-2, -1), 1)  # (., d, n/8)
-        u = sign_codes(x)
-        if flip is not None:
-            u = torch.where(flip, -u, u)
-        return u if mask is None else u.masked_fill_(~mask, 0)
-    codes = PerSymbolQuantizer(strategy.rate).encode(x)
-    if _packs(strategy, n_pad):
-        # dense R-bit wire: pad symbols travel as code 0 (the center
-        # re-masks them from n_valid before contracting)
+                codes = codes.masked_fill_(~mask, 0)
+            return pack_codes(codes.transpose(-2, -1), strategy.rate)
         if mask is not None:
-            codes = codes.masked_fill_(~mask, 0)
-        return pack_codes(codes.transpose(-2, -1), strategy.rate)
-    if mask is not None:
-        codes = codes.masked_fill_(~mask, MASKED_CODE)
-    return codes
+            codes = codes.masked_fill_(~mask, MASKED_CODE)
+        return codes
 
 
 def payload_operand(payload: torch.Tensor, strategy: Strategy, *,
@@ -396,37 +400,39 @@ def payload_gram(payload: torch.Tensor, strategy: Strategy, *, n_valid=None,
     goes through :func:`payload_operand` (unpacked), and each Gram entry
     sums exactly its ``effective_counts(n_rows)`` surviving rows.
     """
-    eng = resolve_engine(engine)
-    batched = payload.ndim == 3
+    with trace.span("repro_torch.gram", payload.device):
+        eng = resolve_engine(engine)
+        batched = payload.ndim == 3
 
-    if (strategy.method == "sign" and payload.dtype == torch.uint8
-            and n_rows is None):
-        n_pad = payload.shape[-1] * 8
-        fn = eng.packed_sign_gram_batch if batched else eng.packed_sign_gram
+        if (strategy.method == "sign" and payload.dtype == torch.uint8
+                and n_rows is None):
+            n_pad = payload.shape[-1] * 8
+            fn = (eng.packed_sign_gram_batch if batched
+                  else eng.packed_sign_gram)
+            if payload_rows is not None:
+                gram = fn(payload_rows, n_pad, payload)
+            else:
+                gram = fn(payload, n_pad)
+            if n_valid is not None:
+                # pad bits are 0 in every row, so they xor away and only the
+                # integer-exact shift to the true count remains
+                gram = gram - (n_pad - torch.as_tensor(
+                    n_valid, dtype=torch.float32, device=gram.device))
+            return gram
+
+        u = payload_operand(payload, strategy, n_valid=n_valid, n_rows=n_rows)
+        rows = None
         if payload_rows is not None:
-            gram = fn(payload_rows, n_pad, payload)
-        else:
-            gram = fn(payload, n_pad)
-        if n_valid is not None:
-            # pad bits are 0 in every row, so they xor away and only the
-            # integer-exact shift to the true count remains
-            gram = gram - (n_pad - torch.as_tensor(
-                n_valid, dtype=torch.float32, device=gram.device))
-        return gram
-
-    u = payload_operand(payload, strategy, n_valid=n_valid, n_rows=n_rows)
-    rows = None
-    if payload_rows is not None:
-        rows = payload_operand(payload_rows, strategy, n_valid=n_valid,
-                               n_rows=n_rows_rows)
-    if strategy.method == "persymbol":
-        cb = PerSymbolQuantizer(strategy.rate).centroids_np
-        fn = eng.code_gram_batch if batched else eng.code_gram
-        if rows is not None:
-            return fn(rows, cb, u)
-        return fn(u, cb)
-    fn = eng.gram_batch if batched else eng.gram
-    return fn(u if rows is None else rows, u if rows is not None else None)
+            rows = payload_operand(payload_rows, strategy, n_valid=n_valid,
+                                   n_rows=n_rows_rows)
+        if strategy.method == "persymbol":
+            cb = PerSymbolQuantizer(strategy.rate).centroids_np
+            fn = eng.code_gram_batch if batched else eng.code_gram
+            if rows is not None:
+                return fn(rows, cb, u)
+            return fn(u, cb)
+        fn = eng.gram_batch if batched else eng.gram
+        return fn(u if rows is None else rows, u if rows is not None else None)
 
 
 # --------------------------------------------------------------------------
@@ -642,15 +648,18 @@ def _channel_stat(x, strategy, *, corr, n_valid=None, n_rows=None,
     the budget allocation at x's own sample count."""
     ch = strategy.channel
     if ch.kind == "mac":
-        return mac_weights_batch(x, strategy, n_valid=n_valid,
-                                 delivered=delivered, flip=flip,
-                                 engine=engine, corr=corr)
+        with trace.span("repro_torch.weights", x.device):
+            return mac_weights_batch(x, strategy, n_valid=n_valid,
+                                     delivered=delivered, flip=flip,
+                                     engine=engine, corr=corr)
     if ch.kind == "budget":
         if rates is None:
             raise ValueError("budget-channel strategies need the (d,) "
                              "per-feature rates operand")
-        return budget_weights_batch(x, strategy, rates, n_valid=n_valid,
-                                    n_rows=n_rows, engine=engine, corr=corr)
+        with trace.span("repro_torch.weights", x.device):
+            return budget_weights_batch(x, strategy, rates, n_valid=n_valid,
+                                        n_rows=n_rows, engine=engine,
+                                        corr=corr)
     return None
 
 

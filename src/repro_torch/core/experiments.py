@@ -85,6 +85,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.comm.collectives import all_gather, psum
 
@@ -566,17 +567,19 @@ def _stacked_stats(x, strategies, n_valid: int, engine, faults, fault_keys,
     plan the one fault realization of each trial masks every strategy's
     payload, and the return is ``(stats, telemetry sums)``."""
     reps, n_pad, d = x.shape
-    n_rows = flip = tele = None
-    if faults is not None:
-        n_rows, flip, tele = faults.draw_batch(fault_keys, n_pad, n_valid, d)
-    ops = _channel_operands(strategies, rates, faults, fault_keys, n_pad,
-                            n_valid)
-    out = torch.empty((len(strategies), reps, d, d), dtype=torch.float32,
-                      device=x.device)
-    for i, s in enumerate(strategies):
-        out[i] = estimate(x, s, n_valid=n_valid, n_rows=n_rows, flip=flip,
-                          engine=engine, **ops[i])
-    return out if faults is None else (out, tele.sum(dim=0))
+    with trace.span("repro_torch.stats", x.device, n_valid=n_valid):
+        n_rows = flip = tele = None
+        if faults is not None:
+            n_rows, flip, tele = faults.draw_batch(fault_keys, n_pad, n_valid,
+                                                   d)
+        ops = _channel_operands(strategies, rates, faults, fault_keys, n_pad,
+                                n_valid)
+        out = torch.empty((len(strategies), reps, d, d), dtype=torch.float32,
+                          device=x.device)
+        for i, s in enumerate(strategies):
+            out[i] = estimate(x, s, n_valid=n_valid, n_rows=n_rows,
+                              flip=flip, engine=engine, **ops[i])
+        return out if faults is None else (out, tele.sum(dim=0))
 
 
 def _stacked_weights(keys, parents, rhos, n_valid: int, strategies, n_pad,
@@ -586,7 +589,8 @@ def _stacked_weights(keys, parents, rhos, n_valid: int, strategies, n_pad,
     ``(weights, telemetry sums)``). ``rates`` is the point's
     :func:`_rates_operand` (needed when a strategy has a budget
     channel)."""
-    x = sampler.sample_tree_ggm_rows_batch(keys, n_pad, parents, rhos)
+    with trace.span("repro_torch.sample", keys.device, n_pad=n_pad):
+        x = sampler.sample_tree_ggm_rows_batch(keys, n_pad, parents, rhos)
     return _stacked_stats(x, strategies, n_valid, engine, faults,
                           fault_keys, rates,
                           estimators.strategy_weights_batch)
@@ -616,9 +620,10 @@ def _metric_sums(w: torch.Tensor, adj_true: torch.Tensor,
     the rep axis: one Boruvka solve of the flattened (S*r) stack with a
     fixed round count (no host sync), in ``chunk``-trial slabs."""
     S, r, d, _ = w.shape
-    est = boruvka_mst_batch(w.reshape(S * r, d, d), chunk,
-                            early_exit=False).reshape(S, r, d, d)
-    return structure_metric_channels(est, adj_true[None]).sum(dim=1)
+    with trace.span("repro_torch.mst", w.device, trials=S * r):
+        est = boruvka_mst_batch(w.reshape(S * r, d, d), chunk,
+                                early_exit=False).reshape(S, r, d, d)
+        return structure_metric_channels(est, adj_true[None]).sum(dim=1)
 
 
 # --------------------------------------------------------------------------
@@ -632,7 +637,8 @@ def _stacked_corr(keys, chols, n_valid: int, strategies, n_pad, engine,
     strategy's (reps, d, d) correlation statistic, stacked as (S, reps,
     d, d) (with a fault plan: ``(corr, telemetry sums)``; channel
     operands as there)."""
-    x = sampler.sample_ggm_rows_batch(keys, n_pad, chols)
+    with trace.span("repro_torch.sample", keys.device, n_pad=n_pad):
+        x = sampler.sample_ggm_rows_batch(keys, n_pad, chols)
     return _stacked_stats(x, strategies, n_valid, engine, faults,
                           fault_keys, rates, estimators.strategy_corr_batch)
 
@@ -1287,7 +1293,9 @@ def _host_kruskal_trials(plan: TrialPlan, engine: GramEngine,
     flat = [stacked.flatten()]
     if faults is not None:  # the telemetry rides the same read
         flat.append(torch.stack(fsums).flatten())
-    host = torch.cat(flat).cpu().numpy()
+    with trace.span("repro_torch.readback"):
+        trace.count("host_reads")
+        host = torch.cat(flat).cpu().numpy()
     syncs = 1
     host_w = host[:stacked.numel()].reshape(stacked.shape)
     host_f = (host[stacked.numel():].reshape(len(plan.ns), -1)
@@ -1351,6 +1359,15 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
     runs the masked-Gram path and reports the realized telemetry on
     ``TrialResult.faults``; a zero-fault plan is bit-identical to none.
     """
+    dev = resolve_device(device)
+    with trace.span("repro_torch.run_trials", dev, trials=plan.trials,
+                    d=plan.d):
+        return _run_trials(plan, engine, mesh, data_axis, model_axis, mst,
+                           dev)
+
+
+def _run_trials(plan: TrialPlan, engine, mesh, data_axis: str,
+                model_axis: str, mst: str, dev) -> TrialResult:
     labels = [s.label for s in plan.strategies]
     if len(set(labels)) != len(labels):
         raise ValueError(f"duplicate strategy labels: {labels}")
@@ -1366,7 +1383,6 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
             raise ValueError(
                 "mst='host_kruskal' is a tree-plane escape hatch; sparse "
                 "plans solve glasso, not an MWST")
-    dev = resolve_device(device)
     engine = plan.budget_engine(resolve_engine(engine), device=dev)
     if engine.autotune:
         # resolve every (bucket, path) point before the sweeps, as repro
@@ -1458,8 +1474,10 @@ def run_trials(plan: TrialPlan, *, engine: GramEngine | None = None,
     # result reads.
     if faults is not None:
         parts.append(torch.stack(fault_sums))
-    host = torch.cat([p.flatten().to(torch.float32) for p in parts]) \
-        .cpu().numpy()
+    with trace.span("repro_torch.readback"):
+        trace.count("host_reads")
+        host = torch.cat([p.flatten().to(torch.float32) for p in parts]) \
+            .cpu().numpy()
     syncs = 1
     seconds = time.perf_counter() - t0
     arrays, at = [], 0
