@@ -190,13 +190,48 @@ def boruvka_mst(weights, *, early_exit: bool = True) -> torch.Tensor:
 
 
 def adjacency_to_edges(adj) -> list[tuple[int, int]]:
-    """Explicit host step: symmetric bool adjacency -> canonical edge list."""
+    """Symmetric bool adjacency -> canonical edge list: the upper
+    triangle's nonzeros in row-major order. A CUDA adjacency is reduced
+    on the card and only its index pairs cross to the host
+    (:func:`edges_on_device`); a host adjacency goes through numpy."""
     with trace.span("repro_torch.edges"):
+        if isinstance(adj, torch.Tensor) and adj.is_cuda:
+            return edges_on_device(adj)
         if isinstance(adj, torch.Tensor):
             trace.count("host_reads")
+            trace.count("edges_read_bytes", adj.numel() * adj.element_size())
             adj = adj.detach().cpu().numpy()
         iu, ju = np.nonzero(np.triu(np.asarray(adj), k=1))
         return [(int(a), int(b)) for a, b in zip(iu, ju)]
+
+
+def edges_on_device(adj: torch.Tensor) -> list[tuple[int, int]]:
+    """:func:`adjacency_to_edges` on the adjacency's device: the same
+    list, with the (d, d) adjacency never read.
+
+    One read brings the first d index pairs (``nonzero_static``,
+    row-major, padded with -1, no synchronisation before the read). A
+    forest, the Boruvka's output, has at most d - 1 edges, so that read
+    holds all of them; a filled last row marks a graph with more, whose
+    count and pairs ``nonzero`` then reads.
+    """
+    d = adj.shape[-1]
+    upper = torch.triu(adj.detach(), 1)
+    pairs = _read_pairs(torch.nonzero_static(upper, size=d, fill_value=-1))
+    n = int((pairs[:, 0] >= 0).sum())
+    if n == d:
+        trace.count("host_reads")  # nonzero's own read of the count
+        pairs = _read_pairs(torch.nonzero(upper))
+        n = pairs.shape[0]
+    return list(zip(*pairs[:n].T.tolist()))
+
+
+def _read_pairs(pairs: torch.Tensor) -> torch.Tensor:
+    """Device (m, 2) indices -> host int32 (indices below d fit)."""
+    pairs = pairs.to(torch.int32)
+    trace.count("host_reads")
+    trace.count("edges_read_bytes", pairs.numel() * pairs.element_size())
+    return pairs.cpu()
 
 
 # --------------------------------------------------------------------------

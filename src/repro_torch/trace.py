@@ -22,7 +22,7 @@ timeline. Records go to a bounded ring (:func:`records`).
 :func:`count` counters are always on (a Python int add). ``host_reads``
 counts the program's explicit reads of a device tensor into a host value
 (``.cpu()``, ``int(t)``): one a Boruvka round with early exit, one for a
-tree's adjacency, one a sweep's read-back.
+tree's edge indices, one a sweep's read-back.
 
 The state is the module's, as the kernel wrappers' ``launches`` are: the
 spans sit deep in the stage functions, and every caller gets them

@@ -18,6 +18,7 @@ from repro.core import estimators as j_est
 from repro.core import trees as j_trees
 from repro.core.strategy import Strategy as JStrategy
 from repro.data.ggm import GGMDataset as JDataset
+from repro_torch import trace
 from repro_torch.core import chow_liu as t_cl
 from repro_torch.core import estimators as t_est
 from repro_torch.core import trees as t_trees
@@ -69,6 +70,46 @@ def test_boruvka_batch_and_small_d():
         np.testing.assert_array_equal(
             t_cl.boruvka_mst(torch.from_numpy(w)).numpy(),
             np.asarray(j_cl.boruvka_mst(jnp.asarray(w))))
+
+
+def _edges_case(case):
+    """(adjacency, reads): a Boruvka tree, a forest of fewer than d - 1
+    edges, a graph of more, or no edge; a graph takes a count read and a
+    read of its pairs after the first."""
+    kind, d = case
+    w = _weights(d, d=d, ties=False)
+    if kind == "tree":
+        return t_cl.boruvka_mst(torch.from_numpy(w)), 1
+    adj = torch.zeros(d, d, dtype=torch.bool)
+    if kind == "forest":
+        for j, k in t_cl.kruskal_forest(w, 0.85):
+            adj[j, k] = adj[k, j] = True
+        assert 0 < int(adj.sum()) // 2 < d - 1
+    if kind == "graph":
+        adj = torch.from_numpy(w > 0.5).fill_diagonal_(False)
+        assert int(adj.sum()) // 2 > d - 1
+    return adj, 1 + 2 * (kind == "graph")
+
+
+@pytest.mark.parametrize("case", [("tree", d) for d in (1, 2, 3, 17, 257)]
+                         + [("forest", 40), ("graph", 40), ("empty", 9)],
+                         ids=lambda c: f"{c[0]}-{c[1]}")
+def test_edges_on_device_equal_the_numpy_path(case):
+    """The device extraction (here on CPU tensors) and the port's numpy
+    path give the reference's list element for element, as Python ints,
+    the extraction from one read of d int32 index pairs for a forest; a
+    graph reads its count and pairs after."""
+    adj, reads = _edges_case(case)
+    d = adj.shape[-1]
+    want = j_cl.adjacency_to_edges(adj.numpy())
+    assert t_cl.adjacency_to_edges(adj.numpy()) == want
+    before = trace.counts()
+    got = t_cl.edges_on_device(adj)
+    delta = {k: v - before.get(k, 0) for k, v in trace.counts().items()}
+    assert got == want
+    assert all(type(v) is int for e in got for v in e)
+    assert delta["host_reads"] == reads
+    assert delta["edges_read_bytes"] == 4 * 2 * (d + (reads > 1) * len(want))
 
 
 LEARN = (

@@ -1138,3 +1138,44 @@ class _FakeMesh:
 
     def get_group(self, name):
         return None
+
+
+@pytest.mark.cuda
+def test_cuda_tree_edges_read_back_as_index_pairs(cuda):
+    """At d = 4096 a Boruvka tree's edge list is found on the card: the
+    numpy path's list on the same adjacency, from one read of at most
+    64 KiB inside the ``repro_torch.edges`` span, and one synchronising
+    operation there (``set_sync_debug_mode``). A graph of more than
+    d - 1 edges reads its count and pairs after and still gives the
+    numpy list."""
+    import warnings
+
+    from repro_torch import trace
+    from repro_torch.core import chow_liu
+
+    d = 4096
+    w = torch.rand(d, d, device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(3))
+    adj = chow_liu.boruvka_mst(w + w.T)
+    want = chow_liu.adjacency_to_edges(adj.cpu())
+    assert len(want) == d - 1
+    torch.cuda.synchronize()
+    with trace.recording() as recs, warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = chow_liu.adjacency_to_edges(adj)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert got == want
+    (span,) = [r for r in recs if r.name == "repro_torch.edges"]
+    assert span.counts["host_reads"] == 1
+    assert span.counts["edges_read_bytes"] <= 65536
+    assert sum("called a synchronizing" in str(x.message) for x in ws) == 1
+    g = torch.rand(300, 300, device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(4)) > 0.5
+    g = (g | g.T).fill_diagonal_(False)
+    before = trace.counts()["host_reads"]
+    assert chow_liu.adjacency_to_edges(g) == chow_liu.adjacency_to_edges(
+        g.cpu().numpy())
+    assert trace.counts()["host_reads"] - before == 3
