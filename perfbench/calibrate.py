@@ -28,8 +28,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--out", default=None)
     ap.add_argument("--fault", default=None,
-                    help="plant a fault of perfbench/faults.py in the "
-                         "program first")
+                    help="plant a fault of the cell's kind in the program "
+                         "first (perfbench/faults.py)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from perfbench import run as runner
@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     if args.fault:
         from perfbench import faults
 
-        faults.plant(args.fault)
+        faults.plant(args.fault, args.workload)
     lim = harness.limits(args.workload)
     rows = []
     plan = [("program", s) for s in args.seeds.split(",") if s] + \
@@ -60,6 +60,7 @@ def main(argv=None) -> int:
                "metrics": {k: v["value"] for k, v in out["metrics"].items()},
                "memory_peak_bytes": out["device"]["memory_peak_bytes"],
                "check_s": out["_check_s"],
+               "setup_phases": out["_setup_phases"],
                "calls_s": out["_calls_s"],
                "seconds": time.perf_counter() - t0}
         rows.append(row)

@@ -7,12 +7,33 @@ the fault readings that limits are checked against (``calibrate.py
 * ``alter`` — an answer altered where it is produced: a tree's last edge
   moved, each sweep trial's first edge moved, the sweep's edit distances
   off by one.
+
+A traffic kind that breaks its own way names its faults in its module's
+``FAULTS`` ({name: a function of no arguments giving the triples}); the
+tree and sweep kinds, which have none, share the ones here.
 """
 from __future__ import annotations
 
+import importlib
 
-def patches(name: str) -> list[tuple[object, str, object]]:
-    """(module, attribute, replacement) triples planting fault ``name``."""
+
+def patches(name: str, cell: str) -> list[tuple[object, str, object]]:
+    """(module, attribute, replacement) triples planting fault ``name``
+    under cell ``cell``'s traffic kind."""
+    from . import harness
+
+    kind = harness.traffic(harness.cell(harness.benchmark(), cell)
+                           ["traffic"])["kind"]
+    own = getattr(importlib.import_module(f"perfbench.kinds.{kind}"),
+                  "FAULTS", None)
+    if own is None:
+        return _graph_patches(name)
+    if name not in own:
+        raise ValueError(f"unknown fault {name!r} of kind {kind!r}")
+    return own[name]()
+
+
+def _graph_patches(name: str) -> list[tuple[object, str, object]]:
     from repro_torch.core import chow_liu, estimators, experiments
 
     if name == "halve":
@@ -64,7 +85,8 @@ def patches(name: str) -> list[tuple[object, str, object]]:
     raise ValueError(f"unknown fault {name!r}")
 
 
-def plant(name: str) -> None:
-    """Plant fault ``name`` for the rest of the process."""
-    for mod, attr, fn in patches(name):
+def plant(name: str, cell: str) -> None:
+    """Plant fault ``name`` under cell ``cell`` for the rest of the
+    process."""
+    for mod, attr, fn in patches(name, cell):
         setattr(mod, attr, fn)

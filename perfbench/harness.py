@@ -124,7 +124,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
     ``program`` (the port) or ``control`` (the reference one precision
     below, for setting limits); ``overrides`` ({"config": {...},
     "traffic": {...}}) and ``lim`` shrink a rehearsal on the CPU."""
-    t0 = time.perf_counter() if t0 is None else t0
+    entry = time.perf_counter()
+    t0 = entry if t0 is None else t0
     overrides = overrides or {}
     bench = bench or benchmark()
     w = cell(bench, name)
@@ -134,6 +135,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
     wl = kind.Workload(cfg, tr, seed, device, system)
     on_card = torch.device(device).type == "cuda"
     dev_name = torch.cuda.get_device_name(device) if on_card else "cpu"
+    phases = {"start_and_imports": entry - t0,
+              "device_init": time.perf_counter() - entry}
     wl.setup()
     trace.sync(device)
     ctx = Context(unit=wl.unit, device=str(device), device_name=dev_name,
@@ -180,6 +183,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
         if on_card:
             ctx.profile = trace.profile(
                 lambda: [call() for _ in range(n_prof)])
+            ctx.profile["calls"] = n_prof
         ctx.units = sum(wl.units(a) for a in answers)
         peak = max(peak, _peak(device))
 
@@ -214,6 +218,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
         dev["window_s"] = ctx.profile["window_s"]
         out["breakdown"] = {"device_ops": ctx.profile["device_ops"],
                             "idle_gaps": ctx.profile["idle_gaps"]}
+    out["_setup_phases"] = {**phases, **getattr(wl, "setup_phases", {})}
     out["checks"] = checks
     out["_numbers"] = numbers
     out["_check_s"] = check_s

@@ -6,9 +6,10 @@ Prints, as the last line of standard output, one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
 with ``--trace 1`` its per-layer ones), ``device`` and, traced,
 ``breakdown``; last, ``checks``: each number the check compared beside its
-limit, which also end standard error. Exits non-zero, printing no result,
-without a card, when the program cannot be imported, or when JAX or the
-JAX package was loaded.
+limit, which also end standard error; before them standard error gives
+the set-up's phases (seconds each) and the window's call times. Exits
+non-zero, printing no result, without a card, when the program cannot be
+imported, or when JAX or the JAX package was loaded.
 """
 from __future__ import annotations
 
@@ -65,6 +66,9 @@ def main(argv=None) -> int:
                            bool(args.trace), device="cuda", t0=T0,
                            bench=bench)
     out.pop("_numbers", None)
+    phases = out.pop("_setup_phases")
+    print("perfbench: set-up " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in phases.items()), file=sys.stderr)
     calls = sorted(out.pop("_calls_s"))
     print(f"perfbench: {len(calls)} calls of {calls[0]:.4f} / "
           f"{calls[len(calls) // 2]:.4f} / {calls[-1]:.4f} s (least / "

@@ -64,7 +64,11 @@ def test_entry_keys():
         assert c["file"].startswith("perfbench/")
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1
+        assert w["chips"] in (1, 4)
+    # a cell on four chips only where one card cannot show what it
+    # measures: at most a quarter of the cells (one always may)
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
     for m in BENCH["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
                                           "source"}
@@ -131,6 +135,35 @@ def test_gram_and_encode_counts():
     assert roofline.share(1, 1, 1.0, "cpu") is None
 
 
+def test_lm_prefill_counts():
+    # one layer's causal attention at B 8, S 2048, 32 heads of 128:
+    # q.k and p.v (2 Dh operations each) over S(S+1)/2 pairs a head
+    assert roofline.causal_attention_ops(8, 2048, 32, 128) == \
+        4 * 8 * 32 * 128 * (2048 * 2049 // 2)
+    assert roofline.causal_attention_ops(8, 2048, 32, 128) == \
+        pytest.approx(2.750e11, rel=1e-3)
+    from perfbench.kinds import prefill
+
+    cfg = harness.config(BENCH, harness.cell(BENCH, "granite-8b-prefill"))
+    wl = prefill.Workload(cfg, harness.traffic("prefill-40x3968"), 7, "cpu")
+    c = wl.counts()
+    # q, k, v, o and the SwiGLU's three products a layer over all 158,720
+    # tokens; the LM head over each row's last position
+    b, s = 40, 3968
+    per_layer = 4096 * (4096 + 2 * 1024) + 4096 * 4096 + 3 * 4096 * 14336
+    assert c["gemm"][0] == 2 * b * s * 36 * per_layer + 2 * b * 4096 * 49152
+    assert c["attention"][0] == 36 * roofline.causal_attention_ops(
+        b, s, 32, 128)
+    assert c["whole"][0] == c["gemm"][0] + c["attention"][0]
+    assert c["whole"][0] == pytest.approx(2.678e15, rel=1e-3)
+    assert wl.units(None) == b * s
+    assert wl.positions.tolist() == list(range(0, s, 128)) + [s - 1]
+    # at the bf16 peak a prefill cannot take less than ~2.71 s
+    floor = roofline.floor_s(c["whole"][0], 0, "NVIDIA H100 80GB HBM3",
+                             roofline.BF16_PEAKS)
+    assert floor == pytest.approx(2.7069, rel=1e-3)
+
+
 def test_sweep_and_tree_mfu_counts():
     from perfbench.kinds import sweep, tree
 
@@ -173,7 +206,11 @@ def test_a_run_loads_no_jax_nor_the_jax_package():
         "harness.run_cell('production-sign', 5, 0.05, False, device='cpu',"
         " overrides={'config': {'d': 16, 'n': 512}})\n"
         "harness.run_cell('fig3-d1024-sweep', 5, 0.05, False, device='cpu',"
-        " overrides={'config': {'d': 8, 'ns': [32], 'reps': 2}})")
+        " overrides={'config': {'d': 8, 'ns': [32], 'reps': 2}})\n"
+        "harness.run_cell('granite-8b-prefill', 5, 0.05, False,"
+        " device='cpu', overrides={'config': {'n_layers': 1, 'd_model': 64,"
+        " 'n_heads': 2, 'n_kv_heads': 1, 'head_dim': 32, 'd_ff': 128,"
+        " 'vocab': 256}, 'traffic': {'batch': 1, 'prompt_len': 16}})")
     assert "repro_torch" in tops
     assert not tops & {"jax", "jaxlib", "flax", "repro"}
     assert harness.forbidden_modules(["repro_torch.core", "numpy"]) == []

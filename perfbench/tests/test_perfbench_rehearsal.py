@@ -21,7 +21,13 @@ from perfbench import faults, harness  # noqa: E402
 TINY = {"production-sign": {"config": {"d": 48, "n": 4096}},
         "production-r4": {"config": {"d": 48, "n": 4096}},
         "fig3-d1024-sweep": {"config": {"d": 16, "ns": [64, 256],
-                                        "reps": 4}}}
+                                        "reps": 4}},
+        "granite-8b-prefill": {"config": {"n_layers": 4, "d_model": 256,
+                                          "n_heads": 4, "n_kv_heads": 2,
+                                          "head_dim": 64, "d_ff": 512,
+                                          "vocab": 1024},
+                               "traffic": {"batch": 2, "prompt_len": 256,
+                                           "check_every": 64}}}
 CELLS = list(TINY)
 SEED = 2 ** 31 + 977
 
@@ -49,9 +55,19 @@ def test_control_reads_not_correct(cell):
 @pytest.mark.parametrize("fault", ["halve", "alter"])
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_program_reads_not_correct(cell, fault, monkeypatch):
-    for mod, attr, fn in faults.patches(fault):
+    for mod, attr, fn in faults.patches(fault, cell):
         monkeypatch.setattr(mod, attr, fn)
     out = rehearse(cell)
+    assert not out["correct"], (fault, out["checks"])
+
+
+@pytest.mark.parametrize("fault", ["stale", "drop_attn", "skip_rope"])
+def test_a_broken_prefill_reads_not_correct(fault, monkeypatch):
+    """The LM cell's own faults: its middle layer's cache left unwritten,
+    its attention output dropped, its RoPE skipped."""
+    for mod, attr, fn in faults.patches(fault, "granite-8b-prefill"):
+        monkeypatch.setattr(mod, attr, fn)
+    out = rehearse("granite-8b-prefill")
     assert not out["correct"], (fault, out["checks"])
 
 

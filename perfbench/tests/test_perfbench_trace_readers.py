@@ -86,7 +86,9 @@ def _read(name, ctx):
 
 def test_new_metrics_are_appended_with_their_cells():
     per = {m["name"]: m for m in BENCH["per_layer"]}
-    assert [m["name"] for m in BENCH["per_layer"]][-len(NEW):] == NEW
+    names = [m["name"] for m in BENCH["per_layer"]]
+    first = names.index(NEW[0])
+    assert names[first:first + len(NEW)] == NEW
     for name in NEW:
         cells = per[name]["workloads"]
         sweep = name.endswith(".sweep")

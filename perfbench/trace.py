@@ -96,10 +96,12 @@ def _on_host(e) -> bool:
 
 def profile(fn) -> dict:
     """Run ``fn()`` under ``torch.profiler`` on the card: {"busy_s",
-    "window_s", "device_ops", "idle_gaps"}. ``busy_s`` is the union of the
-    device's operations inside the window; an idle gap is named after the
-    innermost host operation running at its middle, or ``(host: no
-    operation)`` where the host ran Python or NumPy outside any."""
+    "window_s", "device_ops", "idle_gaps", "ops"}. ``busy_s`` is the union
+    of the device's operations inside the window; ``device_ops`` the ten
+    that took most time, ``ops`` every one's total seconds by its full
+    name; an idle gap is named after the innermost host operation running
+    at its middle, or ``(host: no operation)`` where the host ran Python or
+    NumPy outside any."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from torch.profiler import record_function
 
@@ -144,4 +146,5 @@ def profile(fn) -> dict:
     idle = sorted(gaps.items(), key=lambda kv: -kv[1])[:10]
     return {"busy_s": busy_us / 1e6, "window_s": (w1 - w0) / 1e6,
             "device_ops": [[k[:160], v / 1e6] for k, v in device_ops],
-            "idle_gaps": [[k[:160], v / 1e6] for k, v in idle]}
+            "idle_gaps": [[k[:160], v / 1e6] for k, v in idle],
+            "ops": {k: v / 1e6 for k, v in by_op.items()}}
