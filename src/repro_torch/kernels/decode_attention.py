@@ -86,7 +86,8 @@ def _launch_args(lib, q: torch.Tensor, hkv: int, s_len: int, splits: int,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: int, *, window: int | None = None,
-                     splits: int | None = None) -> torch.Tensor:
+                     splits: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
     """Attention of one query token per head over a KV cache.
 
     q: (B, Hq, Dh); k, v: (B, Hkv, S, Dh) with Hkv | Hq; f32 or bf16, each
@@ -95,7 +96,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``i >= pos - window``. Returns (B, Hq, Dh) in q's dtype; with no valid
     entry it is 0. ``splits`` forces the kernel's split count (tests;
     splits may then hold no entry); by default it fills one wave of the
-    card. On the CPU it has no effect.
+    card. On the CPU it has no effect. The softmax is of q.k times
+    ``scale`` (default 1/sqrt(Dh)).
     """
     check_operands("decode_attention", q, k, v, 3)
     b, hq, dh = q.shape
@@ -109,7 +111,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: splits must be >= 1, got "
                          f"{splits}")
     if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, pos, window=window)
+        return ref.decode_attention_ref(q, k, v, pos, window=window,
+                                        scale=scale)
     if q.device.type == "meta":
         return meta.stand_in("decode_attention", torch.empty_like(q),
                              decode_attention_cost(q, k, v, pos,
@@ -132,7 +135,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            1.0 / math.sqrt(dh), forced, *args, stream),
+            1.0 / math.sqrt(dh) if scale is None else float(scale), forced,
+            *args, stream),
             "decode_attention")
     decode_attention.launches += 1
     if meta.observer is not None:

@@ -72,14 +72,16 @@ def largest_divisor(n: int, cap: int) -> int:
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
+                  causal: bool = True, window: int = 0,
+                  scale: float | None = None) -> torch.Tensor:
     """GQA attention of every query row over the keys it sees.
 
     q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh) with Hkv | Hq; f32 or bf16,
     each with a unit-stride last axis and any other strides. Key j is
     visible to query i when ``i >= j`` (``causal``) and ``j > i - window``
-    (``window > 0``). Returns (B, Sq, Hq, Dh) in q's dtype; a row that
-    sees no key is 0. Differentiable in q, k and v.
+    (``window > 0``). The softmax is of q.k times ``scale`` (default
+    1/sqrt(Dh)). Returns (B, Sq, Hq, Dh) in q's dtype; a row that sees no
+    key is 0. Differentiable in q, k and v.
     """
     check_operands("flash_prefill", q, k, v, 4)
     hq, hkv = q.shape[2], k.shape[2]
@@ -89,8 +91,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window = int(window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashPrefill.apply(q, k, v, bool(causal), window)
-    return _forward(q, k, v, bool(causal), window)
+        return _FlashPrefill.apply(q, k, v, bool(causal), window, scale)
+    return _forward(q, k, v, bool(causal), window, scale)
 
 
 class _FlashPrefill(torch.autograd.Function):
@@ -98,10 +100,10 @@ class _FlashPrefill(torch.autograd.Function):
     PyTorch gradient of the same attention."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        out = _forward(q, k, v, causal, window)
+    def forward(ctx, q, k, v, causal: bool, window: int, scale):
+        out = _forward(q, k, v, causal, window, scale)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
@@ -109,8 +111,9 @@ class _FlashPrefill(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         dq, dk, dv = flash_prefill_backward(q, k, v, out, dout,
                                             causal=ctx.causal,
-                                            window=ctx.window)
-        return dq, dk, dv, None, None
+                                            window=ctx.window,
+                                            scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 #: query rows a backward chunk holds (``repro``'s ``_flash_attn`` q_chunk)
@@ -118,7 +121,7 @@ Q_CHUNK = 1024
 
 
 def flash_prefill_backward(q, k, v, out, dout, *, causal: bool = True,
-                           window: int = 0):
+                           window: int = 0, scale: float | None = None):
     """(dq, dk, dv) of :func:`flash_prefill` given its output ``out`` and
     the output's cotangent ``dout``, in the inputs' dtypes.
 
@@ -126,14 +129,14 @@ def flash_prefill_backward(q, k, v, out, dout, *, causal: bool = True,
     in f32: recompute the scores of the keys the chunk can see under the
     same mask and their softmax P (a key outside that range has P = 0
     exactly), D = rowsum(dO * O), dV += P^T dO, dS = P * (dO V^T - D),
-    dQ = dS K / sqrt(Dh), dK += dS^T Q / sqrt(Dh), each summed over the
-    GQA group into its KV head. The peak is O(B * Hq * chunk * Skv).
+    dQ = dS K / sqrt(Dh), dK += dS^T Q / sqrt(Dh) (times ``scale`` where
+    one is given, as the scores), each summed over the GQA group into its
+    KV head. The peak is O(B * Hq * chunk * Skv).
     """
     f32 = torch.float32
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    root = math.sqrt(dh)
     qg = q.reshape(b, sq, hkv, g, dh)
     og = out.reshape(b, sq, hkv, g, dh)
     dog = dout.reshape(b, sq, hkv, g, dh)
@@ -157,7 +160,7 @@ def flash_prefill_backward(q, k, v, out, dout, *, causal: bool = True,
             valid &= qpos >= kpos
         if window:
             valid &= kpos > qpos - window
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kc) / root
+        s = ref.scaled(torch.einsum("bqhgd,bkhd->bhgqk", qi, kc), dh, scale)
         p = torch.softmax(s.masked_fill_(~valid, -1e30), dim=-1)
         del s
         p.mul_(valid.any(-1, keepdim=True))
@@ -166,8 +169,10 @@ def flash_prefill_backward(q, k, v, out, dout, *, causal: bool = True,
         ds = torch.einsum("bqhgd,bkhd->bhgqk", doi, vc)
         ds.sub_(dsum[..., None]).mul_(p)
         del p
-        dq[:, i0:i1] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kc) / root
-        dk[:, lo:hi] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qi) / root
+        dq[:, i0:i1] = ref.scaled(torch.einsum("bhgqk,bkhd->bqhgd", ds, kc),
+                                  dh, scale)
+        dk[:, lo:hi] += ref.scaled(torch.einsum("bhgqk,bqhgd->bkhd", ds, qi),
+                                   dh, scale)
     return (dq.reshape(b, sq, hq, dh).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
@@ -192,13 +197,15 @@ def flash_prefill_cost(q, k, v, causal: bool = True, window: int = 0
     return 4 * b * hq * dh * pairs, meta.nbytes(q, k, v, q)
 
 
-def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, window: int, scale: float | None = None
+             ) -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU one, the
     dry run's stand-in on a meta one."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if q.device.type == "cpu":
-        return ref.flash_prefill_ref(q, k, v, causal=causal, window=window)
+        return ref.flash_prefill_ref(q, k, v, causal=causal, window=window,
+                                     scale=scale)
     if q.device.type == "meta":
         return meta.stand_in("flash_prefill", torch.empty_like(q),
                              flash_prefill_cost(q, k, v, causal, window))
@@ -217,7 +224,8 @@ def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            int(bool(causal)), window, 1.0 / math.sqrt(dh),
+            int(bool(causal)), window,
+            1.0 / math.sqrt(dh) if scale is None else float(scale),
             torch.cuda.current_stream(q.device).cuda_stream),
             "flash_prefill")
     flash_prefill.launches += 1

@@ -205,10 +205,19 @@ def _masked_softmax_pv(s: torch.Tensor, valid: torch.Tensor,
     return torch.einsum(eq, p, v.to(torch.float32))
 
 
+def scaled(s: torch.Tensor, dh: int, scale: float | None) -> torch.Tensor:
+    """Scores ``s`` times the softmax scale: ``scale``, or 1/sqrt(Dh)
+    (divided by sqrt(Dh), as before the scale was a parameter) when it is
+    None."""
+    return s / math.sqrt(dh) if scale is None else s * scale
+
+
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, window: int = 0) -> torch.Tensor:
+                      causal: bool = True, window: int = 0,
+                      scale: float | None = None) -> torch.Tensor:
     """Naive masked softmax attention over the full sequence (GQA), math
-    in f32, output in q's dtype.
+    in f32, output in q's dtype; scores times ``scale`` (default
+    1/sqrt(Dh)).
 
     q: (B, Sq, Hq, Dh); k, v: (B, Skv, Hkv, Dh), Hkv | Hq. Key k is
     visible to query i when ``i >= k`` (causal) and ``k > i - window``
@@ -217,8 +226,8 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, dh).to(torch.float32)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
-    s = s / math.sqrt(dh)
+    s = scaled(torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)),
+               dh, scale)
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -231,18 +240,19 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         pos: int, *, window: int | None = None
-                         ) -> torch.Tensor:
+                         pos: int, *, window: int | None = None,
+                         scale: float | None = None) -> torch.Tensor:
     """Naive masked softmax attention for one query token per head, math
-    in f32, output in q's dtype.
+    in f32, output in q's dtype; scores times ``scale`` (default
+    1/sqrt(Dh)).
 
     q: (B, Hq, Dh); k, v: (B, Hkv, S, Dh). Cache entry i is valid when
     ``i < pos`` and, with a window, ``i >= pos - window``."""
     b, hq, dh = q.shape
     hkv, s_len = k.shape[1], k.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, dh).to(torch.float32)
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.to(torch.float32))
-    s = s / math.sqrt(dh)
+    s = scaled(torch.einsum("bhgd,bhsd->bhgs", qg, k.to(torch.float32)),
+               dh, scale)
     idx = torch.arange(s_len, device=q.device)
     valid = idx < pos
     if window is not None:

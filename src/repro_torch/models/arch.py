@@ -1,6 +1,9 @@
 """Architecture configuration and registry.
 
-A copy of ``repro.models.arch``: every architecture is a frozen
+A copy of ``repro.models.arch``, with fields of the port's own (NoPE
+attention, the attention scale, the muP multipliers, the dropless MoE)
+whose defaults leave ``repro``'s architectures as they are: every
+architecture is a frozen
 ``ArchConfig``; configs live in ``repro_torch.configs.<id>`` and register
 themselves here. Layer stacks are described as a repeated *superblock* —
 a short pattern of sublayers repeated ``n_rep`` times. The port runs every
@@ -48,6 +51,7 @@ class ArchConfig:
     moe_top_k: int = 0
     moe_shared_ff: int = 0        # d_ff of the always-on shared expert(s)
     moe_capacity_factor: float = 1.25
+    moe_dropless: bool = False    # every assignment computed, no capacity
 
     # SSM (mamba2 / jamba mamba layers)
     ssm_state: int = 0
@@ -59,6 +63,8 @@ class ArchConfig:
     sliding_window: int = 0       # 0 = full attention
     long_context_window: int = 8192  # window applied for the long_500k shape
     rope_theta: float = 1e6
+    positional: Literal["rope", "nope"] = "rope"  # "nope": no RoPE
+    attention_multiplier: float = 0.0  # the softmax scale; 0 -> 1/sqrt(Dh)
 
     # encoder-decoder (audio)
     encoder_layers: int = 0
@@ -70,6 +76,14 @@ class ArchConfig:
 
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+
+    # muP multipliers (Granite 4.0): the embeddings times
+    # ``embedding_multiplier``, each sublayer's output times
+    # ``residual_multiplier`` before its residual add, the logits over
+    # ``logits_scaling``; 1 leaves the path as it is
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     def __post_init__(self):
         assert self.n_layers % len(self.pattern) == 0, (

@@ -29,6 +29,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.kernels import decode_attention, flash_prefill
 from repro_torch.kernels.flash_prefill import largest_divisor
 
@@ -211,15 +212,20 @@ def kv_heads_kept(h: int, hkv: int, m: int) -> torch.Tensor:
 
 
 class Attention(Sharded):
-    """GQA attention with RoPE, or cross-attention over an encoder's
-    memory without it; ``cfg.n_kv_heads`` divides ``cfg.n_heads``. On a
-    mesh whose model axis divides the heads, a rank holds ``h_loc`` Q
-    heads and the ``hkv_loc`` K/V heads they read (``kv_heads_kept``),
-    and ``wo``'s product is all-reduced over ``model``."""
+    """GQA attention with RoPE (none under ``cfg.positional == "nope"``),
+    or cross-attention over an encoder's memory without it;
+    ``cfg.n_kv_heads`` divides ``cfg.n_heads``. The softmax scale is
+    ``cfg.attention_multiplier``, or 1/sqrt(Dh) where it is 0 (``scale``
+    None: the kernels' own default). On a mesh whose model axis divides
+    the heads, a rank holds ``h_loc`` Q heads and the ``hkv_loc`` K/V
+    heads they read (``kv_heads_kept``), and ``wo``'s product is
+    all-reduced over ``model``."""
 
     def __init__(self, cfg, *, device, dtype, generator=None, shard=None):
         super().__init__(shard)
         self.cfg = cfg
+        self.rope = cfg.positional == "rope"
+        self.scale = cfg.attention_multiplier or None
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         self.tp = self._tp(h)
         self.h_loc, self.hkv_loc = h // self.tp, hkv
@@ -261,14 +267,15 @@ class Attention(Sharded):
         src = x if memory is None else self._enter(memory)
         q = (x @ self.w("wq")).view(b, s, h, hd)
         k, v = self.kv(src)
-        if memory is None:
+        if memory is not None:
+            causal, window = False, 0
+        elif self.rope:
             if positions is None:
                 positions = torch.arange(s, device=x.device)[None, :]
             q = rope(q, positions, self.cfg.rope_theta)
             k = rope(k, positions, self.cfg.rope_theta)
-        else:
-            causal, window = False, 0
-        out = flash_prefill(q, k, v, causal=causal, window=window)
+        out = flash_prefill(q, k, v, causal=causal, window=window,
+                            scale=self.scale)
         out = out.reshape(b, s, h * hd).to(x.dtype) @ self.w("wo")
         return self._reduce(out), (k, v)
 
@@ -284,15 +291,17 @@ class Attention(Sharded):
         h, hd = self.h_loc, self.cfg.hd
         q = (x @ self.w("wq")).view(b, 1, h, hd)
         k_new, v_new = self.kv(x)
-        positions = torch.arange(pos, pos + 1, device=x.device)[None, :]
-        q = rope(q, positions, self.cfg.rope_theta)
-        k_new = rope(k_new, positions, self.cfg.rope_theta)
+        if self.rope:
+            positions = torch.arange(pos, pos + 1, device=x.device)[None, :]
+            q = rope(q, positions, self.cfg.rope_theta)
+            k_new = rope(k_new, positions, self.cfg.rope_theta)
         sbuf = cache["k"].shape[1]
         slot = pos % sbuf if window else min(pos, sbuf - 1)
         cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
         o = decode_attention(q.view(b, h, hd), cache["k"].transpose(1, 2),
-                             cache["v"].transpose(1, 2), min(pos + 1, sbuf))
+                             cache["v"].transpose(1, 2), min(pos + 1, sbuf),
+                             scale=self.scale)
         return self._reduce(o.reshape(b, 1, h * hd).to(x.dtype)
                             @ self.w("wo"))
 
@@ -305,7 +314,7 @@ class Attention(Sharded):
         h, hd = self.h_loc, self.cfg.hd
         q = (x @ self.w("wq")).view(b, h, hd)
         o = decode_attention(q, xk.transpose(1, 2), xv.transpose(1, 2),
-                             xk.shape[1])
+                             xk.shape[1], scale=self.scale)
         return self._reduce(o.reshape(b, 1, h * hd).to(x.dtype)
                             @ self.w("wo"))
 
@@ -388,6 +397,11 @@ class MoE(Sharded):
     the order of ``repro``'s slot-order scatter-add, computed without
     atomics, so it is the same on every run and device.
 
+    With ``cfg.moe_dropless`` (``dropless``) nothing is dropped: every
+    assignment is computed (``_dropless``: rows sorted by expert, grouped
+    GEMMs), combined in the same order. One device only: the mesh
+    branches keep the capacity.
+
     On a mesh, ``repro``'s rule picks the branch: when the model axis
     divides the experts (a (1, 1) mesh included) the layer is expert
     parallel (``_moe_expert_parallel``): each rank routes its data
@@ -405,6 +419,10 @@ class MoE(Sharded):
     def __init__(self, cfg, *, device, dtype, generator=None, shard=None):
         super().__init__(shard)
         self.cfg = cfg
+        self.dropless = cfg.moe_dropless
+        if self.dropless and shard is not None:
+            raise NotImplementedError(f"{cfg.name}: the dropless MoE runs "
+                                      f"on one device; it has no mesh path")
         d, f, e = cfg.d_model, cfg.d_ff, cfg.padded_experts
         self.use_ep = shard is not None and e % shard.msize == 0
         self.tp = shard.msize if self.use_ep else 1
@@ -448,7 +466,8 @@ class MoE(Sharded):
     def dropped(self, x: torch.Tensor, decode: bool = False, batch=None
                 ) -> torch.Tensor:
         """How many of the token-expert assignments of x (B, S, D) the
-        capacity drops (a 0-d tensor on x's device): on a mesh, the
+        capacity drops (a 0-d tensor on x's device; a dropless layer
+        reads what its capacity path would drop): on a mesh, the
         count over the whole mesh under the branch ``forward`` takes
         (every rank calls it with ``forward``'s ``batch`` and gets the
         total)."""
@@ -489,6 +508,7 @@ class MoE(Sharded):
         False (ep2d: the rank's d_ff slice, a partial sum)."""
         t, d = xf.shape
         e_loc = self.exp_wgate.shape[0]
+        trace.count("moe_rows", e_loc * cap)
         slot, counts = moe_slots(exp_ids - lo, e_loc, cap)
         n_slots = e_loc * cap
         tok = torch.arange(slot.numel(), device=xf.device) // gate.shape[1]
@@ -508,10 +528,46 @@ class MoE(Sharded):
         _, by_expert = torch.sort(exp_ids, dim=-1)
         slot = slot.view(t, -1).gather(1, by_expert)
         gate = gate.gather(1, by_expert).to(xf.dtype)
-        out = out_buf[slot[:, 0]] * gate[:, :1]
-        for j in range(1, slot.shape[1]):
-            out = out + out_buf[slot[:, j]] * gate[:, j:j + 1]
+        return self._combine(out_buf, slot, gate)
+
+    @staticmethod
+    def _combine(rows, where, gate) -> torch.Tensor:
+        """Each token's k expert outputs ``rows[where[:, j]]`` scaled by
+        ``gate[:, j]`` (both (T, k), in ascending expert order) and added
+        in that order."""
+        out = rows.index_select(0, where[:, 0]) * gate[:, :1]
+        for j in range(1, where.shape[1]):
+            out = out + rows.index_select(0, where[:, j]) * gate[:, j:j + 1]
         return out
+
+    def _dropless(self, xf, gate, exp_ids) -> torch.Tensor:
+        """(T, D) output of the experts for every one of the T * k
+        assignments, none dropped: the assignments sorted by expert (each
+        token's in ascending expert order, a stable sort, so tokens keep
+        their order within an expert), their rows gathered, SwiGLU through
+        ``torch._grouped_mm`` over the experts held (rows [ends[e - 1],
+        ends[e]) through expert e's weights; ``ends`` counted and left on
+        the device), then ``_combine``. No host read."""
+        t, k = exp_ids.shape
+        trace.count("moe_rows", t * k)
+        ids, by_expert = torch.sort(exp_ids, dim=-1)
+        gate = gate.gather(1, by_expert).to(xf.dtype)
+        flat = ids.reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        ends = torch.zeros(self.exp_wgate.shape[0], dtype=torch.int32,
+                           device=xf.device)
+        ends = ends.scatter_add_(0, flat, torch.ones_like(
+            flat, dtype=torch.int32)).cumsum(0, dtype=torch.int32)
+        rows = xf.index_select(0, order // k)
+        hidden = nn.functional.silu(torch._grouped_mm(
+            rows, self.w("exp_wgate"), offs=ends)) \
+            * torch._grouped_mm(rows, self.w("exp_wi"), offs=ends)
+        del rows
+        out_rows = torch._grouped_mm(hidden, self.w("exp_w_down"), offs=ends)
+        del hidden
+        where = torch.empty_like(order).scatter_(
+            0, order, torch.arange(t * k, device=xf.device))
+        return self._combine(out_rows, where.view(t, k), gate)
 
     @staticmethod
     def _aux(probs, exp_ids, e: int) -> torch.Tensor:
@@ -527,6 +583,10 @@ class MoE(Sharded):
         f32). ``decode``: a decode step (a 2-D model takes ep2d);
         ``batch``: on a mesh, how the global batch lies on it (x holds
         the rank's rows of it)."""
+        with trace.span("repro_torch.moe", x.device):
+            return self._forward(x, decode, batch)
+
+    def _forward(self, x, decode, batch):
         b, s, d = x.shape
         e = self.cfg.padded_experts
         branch = self._branch(decode)
@@ -538,8 +598,13 @@ class MoE(Sharded):
             xf = x.reshape(t, d)
             gate, exp_ids, probs = self.route(xf)
             aux = self._aux(probs, exp_ids, e)
-            cap = moe_capacity(self.cfg, t, e)
-            out = self._experts(xf, gate, exp_ids, 0, cap).view(b, s, d)
+            with trace.span("repro_torch.experts"):
+                if self.dropless:
+                    out = self._dropless(xf, gate, exp_ids)
+                else:
+                    out = self._experts(xf, gate, exp_ids, 0,
+                                        moe_capacity(self.cfg, t, e))
+            out = out.view(b, s, d)
         else:
             out, aux = self._moe_gathered(x, branch == "ep2d", batch)
         if self.shared is not None:
@@ -607,37 +672,65 @@ def causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 def ssd_scan(xh, dt, a_log, bmat, cmat, chunk: int):
     """Chunked SSD (state-space duality, arXiv:2405.21060 §6), ``repro``'s
     ``_ssd_scan``: xh (B, S, H, P) f32, dt (B, S, H) after softplus, B/C
-    (B, S, N) f32. A loop over chunks of ``largest_divisor(S, chunk)``
-    carries the (B, H, P, N) f32 state; each chunk adds the masked
-    "attention" form inside it and the carried state's term. The decay
-    mask is applied to the exponent (-inf before exp), so a masked slot
-    is exp(-inf) = 0 and its gradient 0, never inf * 0. The decays'
-    prefix sums and their differences are taken in f64 (``repro``: f32),
-    since exp(cum_i - cum_j) subtracts sums of up to thousands from one
-    another and an f32 ulp of such a sum is ~1e-4 of a decay.
-    Returns (y (B, S, H, P), final state (B, H, P, N))."""
+    (B, S, N) f32, in chunks of ``largest_divisor(S, chunk)``. Each chunk
+    adds the masked "attention" form inside it and the term of the
+    (B, H, P, N) f32 state it starts with. The chunks go ``ssd_group``
+    at a time: their inner forms and their own states' parts batched,
+    then the carried state stepped through them one by one (a multiply
+    and an add a chunk, ``repro``'s order), then their carried terms
+    batched. The decay mask is applied to the exponent (-inf before exp),
+    so a masked slot is exp(-inf) = 0 and its gradient 0, never inf * 0.
+    The decays' prefix sums and their differences are taken in f64
+    (``repro``: f32), since exp(cum_i - cum_j) subtracts sums of up to
+    thousands from one another and an f32 ulp of such a sum is ~1e-4 of a
+    decay. Returns (y (B, S, H, P), final state (B, H, P, N)). Counts its
+    chunks (``ssd_chunks``) under the span ``repro_torch.ssd``."""
+    with trace.span("repro_torch.ssd", xh.device):
+        return _ssd_scan(xh, dt, a_log, bmat, cmat, chunk)
+
+
+def ssd_group(b: int, l: int, h: int, budget_bytes: int = 2**30) -> int:
+    """Chunks of length l one batched step of :func:`ssd_scan` takes: as
+    many as keep its (B, G, l, l, H) f64 decay differences under
+    ``budget_bytes``, at least 1."""
+    return max(1, budget_bytes // (b * l * l * h * 8))
+
+
+def _ssd_scan(xh, dt, a_log, bmat, cmat, chunk: int):
     b, s, h, p = xh.shape
+    n = bmat.shape[-1]
     l = largest_divisor(s, chunk)
+    nc = s // l
+    trace.count("ssd_chunks", nc)
     keep = torch.ones((l, l), dtype=torch.bool, device=xh.device).tril()
     a = -torch.exp(a_log)
-    state = xh.new_zeros((b, h, p, bmat.shape[-1]))
+    xs, dts = xh.view(b, nc, l, h, p), dt.view(b, nc, l, h)
+    bs, cs = bmat.view(b, nc, l, n), cmat.view(b, nc, l, n)
+    state = xh.new_zeros((b, h, p, n))
     ys = []
-    for c0 in range(0, s, l):
-        xc, dtc, bc, cc = (v[:, c0:c0 + l] for v in (xh, dt, bmat, cmat))
-        cum = torch.cumsum(a * dtc, dim=1, dtype=torch.float64)  # (B, l, H)
-        scores = cc @ bc.transpose(1, 2)                      # (B, i, j)
-        diff = (cum[:, :, None, :] - cum[:, None, :, :]).float()  # B,i,j,H
-        decay = torch.exp(diff.masked_fill(~keep[None, :, :, None],
+    g = ssd_group(b, l, h)
+    for c0 in range(0, nc, g):
+        xc, dtc, bc, cc = (v[:, c0:c0 + g] for v in (xs, dts, bs, cs))
+        cum = torch.cumsum(a * dtc, dim=2, dtype=torch.float64)  # B,G,l,H
+        scores = cc @ bc.transpose(-1, -2)                      # B,G,i,j
+        diff = (cum[:, :, :, None] - cum[:, :, None]).float()   # B,G,i,j,H
+        decay = torch.exp(diff.masked_fill(~keep[:, :, None],
                                            float("-inf")))
-        w = scores[..., None] * decay * dtc[:, None]
-        y_intra = torch.einsum("bijh,bjhp->bihp", w, xc)
-        y_inter = torch.einsum("bin,bhpn->bihp", cc, state) \
+        w = scores[..., None] * decay * dtc[:, :, None]
+        y_intra = torch.einsum("bgijh,bgjhp->bgihp", w, xc)
+        seg = (torch.exp((cum[:, :, -1:] - cum).float())
+               * dtc)[..., None] * xc
+        own = torch.einsum("bgjn,bgjhp->bghpn", bc, seg)
+        last = torch.exp(cum[:, :, -1].float())[..., None, None]
+        starts = []
+        for k in range(own.shape[1]):
+            starts.append(state)
+            state = state * last[:, k] + own[:, k]
+        y_inter = torch.einsum("bgin,bghpn->bgihp", cc,
+                               torch.stack(starts, 1)) \
             * torch.exp(cum.float())[..., None]
-        seg = (torch.exp((cum[:, -1:] - cum).float()) * dtc)[..., None] * xc
-        state = state * torch.exp(cum[:, -1].float())[:, :, None, None] \
-            + torch.einsum("bjn,bjhp->bhpn", bc, seg)
         ys.append(y_intra + y_inter)
-    return torch.cat(ys, dim=1), state
+    return torch.cat(ys, dim=1).view(b, s, h, p), state
 
 
 def ssd_chunk(b: int, s: int, h: int, budget_bytes: int = 4 * 2**30) -> int:
@@ -741,7 +834,12 @@ class Mamba2(Sharded):
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """x (B, S, D) -> (out (B, S, D), cache {'conv', 'ssm'}): the
         last W - 1 pre-conv inputs, zero-padded on the left when S < W - 1,
-        and the final SSM state (the rank's channels and heads)."""
+        and the final SSM state (the rank's channels and heads); under the
+        span ``repro_torch.mamba``."""
+        with trace.span("repro_torch.mamba", x.device):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
         cfg = self.cfg
         b, s, _ = x.shape
         di, n, nh, hp = self.di_loc, cfg.ssm_state, self.nh_loc, \

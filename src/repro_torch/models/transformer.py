@@ -44,6 +44,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch._device import resolve_device
 from repro_torch.kernels.flash_prefill import largest_divisor
 
@@ -59,12 +60,15 @@ class Block(nn.Module):
     """One sublayer of kind ``spec``: x + mixer(norm(x)) with an attention
     or Mamba2 mixer; with ``spec.cross_attn``, x + cross(cross_norm(x))
     over the encoder's memory (skipped without one); then x + ff(norm(x))
-    with an MLP or an MoE, or no feed-forward (and no ``ff_norm``)."""
+    with an MLP or an MoE, or no feed-forward (and no ``ff_norm``). Each
+    sublayer's output is multiplied by ``residual`` (the config's
+    ``residual_multiplier``) before its add, where that is not 1."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, device, dtype,
                  generator=None, shard=None):
         super().__init__()
         self.spec = spec
+        self.residual = cfg.residual_multiplier
         kw = dict(device=device, dtype=dtype)
         mk = dict(kw, generator=generator, shard=shard)
         self.mixer_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, **kw)
@@ -87,8 +91,13 @@ class Block(nn.Module):
         h = self.ff_norm(x)
         if self.spec.ff == "moe":
             out, aux = self.ff(h, decode=decode, batch=batch)
-            return x + out, aux
-        return x + self.ff(h), None
+            return self.add(x, out), aux
+        return self.add(x, self.ff(h)), None
+
+    def add(self, x, h):
+        """The residual add x + h, h times ``residual`` where that is not
+        1."""
+        return x + h if self.residual == 1 else x + h * self.residual
 
     def forward(self, x, *, window: int, positions, memory=None,
                 batch=None):
@@ -103,10 +112,10 @@ class Block(nn.Module):
             cache = {"k": k, "v": v}
         else:
             h, cache = self.mixer(h)
-        x = x + h
+        x = self.add(x, h)
         if self.spec.cross_attn and memory is not None:
             h, (xk, xv) = self.cross(self.cross_norm(x), memory=memory)
-            x = x + h
+            x = self.add(x, h)
             cache = {**cache, "xk": xk, "xv": xv}
         x, aux = self.feed_forward(x, batch=batch)
         return x, aux, cache
@@ -126,10 +135,10 @@ class Block(nn.Module):
             h = self.mixer.decode(h, cache, pos, window=window)
         else:
             h = self.mixer.decode(h, cache)
-        x = x + h
+        x = self.add(x, h)
         if self.spec.cross_attn and "xk" in cache:
-            x = x + self.cross.decode_cross(self.cross_norm(x), cache["xk"],
-                                            cache["xv"])
+            x = self.add(x, self.cross.decode_cross(
+                self.cross_norm(x), cache["xk"], cache["xv"]))
         return self.feed_forward(x, decode=True, batch=batch)[0]
 
 
@@ -250,17 +259,25 @@ class Transformer(layers.Sharded):
             else self.w("unembed")
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings; vocab-parallel on a mesh: the rank looks up
-        the ids in its rows, the rest are 0, and an all-reduce over
-        ``model`` completes them."""
-        emb = self.w("embed")
+        """Token embeddings, times ``cfg.embedding_multiplier`` where that
+        is not 1; vocab-parallel on a mesh: the rank looks up the ids in
+        its rows, the rest are 0, and an all-reduce over ``model``
+        completes them."""
+        emb, mult = self.w("embed"), self.cfg.embedding_multiplier
         if self.tp == 1:
-            return nn.functional.embedding(tokens, emb)
-        lo, rows = self.shard.mrank * emb.shape[0], emb.shape[0]
-        local = tokens - lo
-        ok = (local >= 0) & (local < rows)
-        x = nn.functional.embedding(local.clamp(0, rows - 1), emb)
-        return self.shard.reduce(torch.where(ok[..., None], x, 0))
+            x = nn.functional.embedding(tokens, emb)
+        else:
+            lo, rows = self.shard.mrank * emb.shape[0], emb.shape[0]
+            local = tokens - lo
+            ok = (local >= 0) & (local < rows)
+            x = nn.functional.embedding(local.clamp(0, rows - 1), emb)
+            x = self.shard.reduce(torch.where(ok[..., None], x, 0))
+        return x if mult == 1 else x * mult
+
+    def _scale_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """``logits`` over ``cfg.logits_scaling`` where that is not 1."""
+        div = self.cfg.logits_scaling
+        return logits if div == 1 else logits / div
 
     def _mask_pad_logits(self, logits: torch.Tensor, lo: int = 0
                          ) -> torch.Tensor:
@@ -273,10 +290,11 @@ class Transformer(layers.Sharded):
         return logits.masked_fill(pad, VOCAB_PAD_NEG)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """hidden (..., D) -> logits (..., padded_vocab), padding ids at
-        -1e30 so softmax and argmax never see them (on a mesh, the ranks'
-        vocabulary blocks all-gathered over ``model``)."""
-        logits = hidden @ self._unembedding()
+        """hidden (..., D) -> logits (..., padded_vocab) over
+        ``cfg.logits_scaling``, padding ids at -1e30 so softmax and argmax
+        never see them (on a mesh, the ranks' vocabulary blocks
+        all-gathered over ``model``)."""
+        logits = self._scale_logits(hidden @ self._unembedding())
         if self.tp > 1:
             logits = self.shard.model_cat(logits, -1)
         return self._mask_pad_logits(logits)
@@ -364,14 +382,15 @@ class Transformer(layers.Sharded):
         (the max, the sum of exponentials and the target's logit
         all-reduced over ``model``)."""
         if self.tp == 1:
-            logits = self._mask_pad_logits((h @ unemb).to(torch.float32))
+            logits = self._mask_pad_logits(
+                self._scale_logits(h @ unemb).to(torch.float32))
             lse = torch.logsumexp(logits, dim=-1)
             correct = logits.gather(-1, t[..., None])[..., 0]
             return ((lse - correct) * m).sum(), m.sum()
         sh, rows = self.shard, unemb.shape[1]
         lo = sh.mrank * rows
         logits = self._mask_pad_logits(
-            (sh.enter(h) @ unemb).to(torch.float32), lo)
+            self._scale_logits(sh.enter(h) @ unemb).to(torch.float32), lo)
         mx = all_reduce(logits.detach().amax(-1, keepdim=True), sh.mgroup,
                         torch.distributed.ReduceOp.MAX)
         lse = mx[..., 0] + sh.reduce((logits - mx).exp().sum(-1)).log()
@@ -507,8 +526,14 @@ class Transformer(layers.Sharded):
         ``repro``'s ``prefill_cross_cache_from``).
 
         On a mesh the inputs are the global batch; the logits and the
-        cache are the rank's rows.
+        cache are the rank's rows. The call is the root span
+        ``repro_torch.prefill``.
         """
+        with trace.span("repro_torch.prefill", self.device):
+            return self._prefill(tokens, modal_embeds, enc_embeds, window,
+                                 max_len)
+
+    def _prefill(self, tokens, modal_embeds, enc_embeds, window, max_len):
         x, positions, memory, batch = self._inputs(tokens, modal_embeds,
                                                    enc_embeds)
         b, s = x.shape[:2]

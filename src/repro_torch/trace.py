@@ -2,8 +2,9 @@
 
 A span names one stage of a call (``repro_torch.encode``, ``.gram``,
 ``.weights``, ``.mst``, ``.edges``; ``.sample``, ``.stats``,
-``.readback``) under its root call (``repro_torch.learn_structure``,
-``repro_torch.run_trials``). Each record holds its name, its id, its
+``.readback``; the LM plane's ``.mamba``, ``.ssd``, ``.moe``,
+``.experts``) under its root call (``repro_torch.learn_structure``,
+``repro_torch.run_trials``, ``repro_torch.prefill``). Each record holds its name, its id, its
 parent's and its root's ids, the host clock's start and end
 (``time.perf_counter_ns``), its attributes and the deltas of the
 counters over its interval (:func:`count`'s and the kernel wrappers'
@@ -22,7 +23,9 @@ timeline. Records go to a bounded ring (:func:`records`).
 :func:`count` counters are always on (a Python int add). ``host_reads``
 counts the program's explicit reads of a device tensor into a host value
 (``.cpu()``, ``int(t)``): one a Boruvka round with early exit, one for a
-tree's edge indices, one a sweep's read-back.
+tree's edge indices, one a sweep's read-back. ``moe_rows`` counts the
+token-expert rows an MoE layer computes and ``ssd_chunks`` the chunks a
+Mamba2 scan takes, both known on the host.
 
 The state is the module's, as the kernel wrappers' ``launches`` are: the
 spans sit deep in the stage functions, and every caller gets them

@@ -948,6 +948,78 @@ def test_cuda_moe_and_mamba_decode_step_without_host_sync(cuda, name):
 
 
 @pytest.mark.cuda
+def test_cuda_granite4h_prefill_without_host_sync(cuda):
+    """A prefill of reduced granite-4.0-h-small (the dropless MoE's sort,
+    counts and grouped GEMMs, the Mamba2 mixers, NoPE attention) and a
+    decode step run with ``set_sync_debug_mode("error")``: no
+    device-to-host sync, and ``host_reads`` does not move."""
+    from repro_torch import trace
+    from repro_torch.launch.serve import build
+
+    model = build("granite-4.0-h-small", reduced=True, device=cuda,
+                  dtype=torch.bfloat16)
+    tokens = torch.randint(0, model.cfg.vocab, (2, 64), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    logits, cache = model.prefill(tokens, max_len=72)   # warm
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    model.decode_step(cache, tok, 64)
+    torch.cuda.synchronize()
+    reads = trace.counts().get("host_reads", 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.prefill(tokens, max_len=72)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        logits, cache = model.decode_step(cache, tok, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert trace.counts().get("host_reads", 0) == reads
+    assert torch.isfinite(logits[..., :model.cfg.vocab]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_granite4h_matches_cpu(cuda):
+    """Reduced granite-4.0-h-small in f32, the same weights on the card
+    and the CPU: the prefill's logits and caches and 4 decode steps'
+    logits agree within 1e-3 of their RMS (the widest |difference| of
+    the logits, the RMS of the difference of a cache leaf: f32 GEMM and
+    scan rounding through 18 Mamba2 layers, as reduced jamba's 12 sit
+    ~3e-4 from ``repro``'s; the card's grouped GEMMs and flash_prefill
+    against the CPU's)."""
+    import copy
+
+    from repro_torch.models.arch import get_arch
+    from repro_torch.models.transformer import Transformer
+
+    cfg = get_arch("granite-4.0-h-small").reduced()
+    cpu = Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 300),
+                           generator=torch.Generator().manual_seed(1))
+
+    gaps = {}
+
+    def close(what, got, want, widest=True):
+        want = want.float()
+        diff = got.cpu().float() - want
+        gap = diff.abs().max() if widest else diff.square().mean().sqrt()
+        gaps[what] = float(gap / want.square().mean().sqrt())
+
+    lc, cc = cpu.prefill(tokens, max_len=304)
+    lg, cg = card.prefill(tokens.to(cuda), max_len=304)
+    close("prefill", lg, lc)
+    for i, (a, b) in enumerate(zip(cg, cc)):
+        for k in b:
+            close(f"layer {i} {k}", a[k], b[k], widest=False)
+    for i in range(4):
+        tok = lc[:, -1].argmax(-1, keepdim=True)
+        lc, cc = cpu.decode_step(cc, tok, 300 + i)
+        lg, cg = card.decode_step(cg, tok.to(cuda), 300 + i)
+        close(f"decode {i}", lg, lc)
+    assert max(gaps.values()) <= 1e-3, gaps
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_attention_routes_of_the_encoder_and_cross_layers(cuda, dtype):
     """The routes the encoder-decoder and vision-prefixed models add, each

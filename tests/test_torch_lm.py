@@ -261,15 +261,29 @@ def test_init_draws_repros_distributions():
                                   "seamless-m4t-large-v2",
                                   "llama4-scout-17b-a16e"])
 def test_dense_configs_are_copies(name):
-    assert dataclasses.asdict(t_arch.get_arch(name)) == dataclasses.asdict(
-        j_get_arch(name))
-    assert dataclasses.asdict(t_arch.get_arch(name).reduced()) == \
-        dataclasses.asdict(j_get_arch(name).reduced())
+    """Every field ``repro``'s ArchConfig has is ``repro``'s, full and
+    reduced; the port's own fields (NoPE, the attention scale, the muP
+    multipliers, the dropless MoE) hold their neutral defaults."""
+    for t, j in ((t_arch.get_arch(name), j_get_arch(name)),
+                 (t_arch.get_arch(name).reduced(),
+                  j_get_arch(name).reduced())):
+        tf, jf = dataclasses.asdict(t), dataclasses.asdict(j)
+        assert {k: tf[k] for k in jf} == jf
+        assert {k: tf[k] for k in set(tf) - set(jf)} == PORT_ONLY_FIELDS
+
+
+#: the port's ArchConfig fields ``repro``'s lacks, at their neutral values
+PORT_ONLY_FIELDS = {"positional": "rope", "attention_multiplier": 0.0,
+                    "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+                    "logits_scaling": 1.0, "moe_dropless": False}
 
 
 def test_every_registered_arch_is_ported():
-    assert t_arch.list_archs() == j_list_archs()
-    assert len(t_arch.list_archs()) == 10
+    """Every ``repro`` architecture is in the port; the port's own are
+    exactly granite-4.0-h-small."""
+    ported, jax = set(t_arch.list_archs()), set(j_list_archs())
+    assert jax <= ported
+    assert ported - jax == {"granite-4.0-h-small"}
 
 
 @pytest.mark.parametrize("name,p", [("llava-next-mistral-7b", 8),
