@@ -19,8 +19,9 @@ d = 1024 with its throughput and a tick's time split (phase 10), and its
 crash recovery, card-vs-CPU and per-symbol checks (phase 11); the three
 Gram kernels are also held and timed on the server's batched grids
 (phase 3). Last, the trial plane (phase 12): the four kernels held and
-timed at its batched shapes, the paper's Fig. 3 sweep (d = 20, 720
-trials) on the card and the CPU with one device->host copy a sweep,
+timed at its batched shapes, the row-normals kernel held and timed at
+the sweep's block (120 x 136 x 1024), the paper's Fig. 3 sweep (d = 20,
+720 trials) on the card and the CPU with one device->host copy a sweep,
 sweeps at d = 1024 with their time split, and the fault plane (a
 zero-fault plan bit-identical to none, a mixed plan's telemetry card
 against CPU). Then the sparse plane (phase 13): the kernels held at its
@@ -1894,9 +1895,10 @@ def bigd_sweeps(dev, total):
     the plan."""
     import torch
     from repro_torch import trace
-    from repro_torch.core import FIG3_STRATEGIES, prng, sampler
+    from repro_torch.core import FIG3_STRATEGIES, prng
     from repro_torch.core.experiments import (TrialPlan, clear_compile_caches,
                                               run_trials, trial_keys)
+    from repro_torch.kernels import row_normals
 
     plans = [TrialPlan(strategies=s, **TRIALS_BIGD)
              for s in (FIG3_STRATEGIES, _packed_strategies())]
@@ -1911,7 +1913,7 @@ def bigd_sweeps(dev, total):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     for k in ("sign_corr", "sign_corr_packed", "code_corr",
-              "quantize_fused"):
+              "quantize_fused", "row_normals"):
         expect(launches[k] > 0, f"the d=1024 sweeps launched no {k}")
     torch.cuda.reset_peak_memory_stats()
     warm = [counted(total, lambda: run_trials(plan, device=dev))[0] for plan in plans]
@@ -1967,7 +1969,7 @@ def bigd_sweeps(dev, total):
                             torch.arange(r0, n, device=keys.device))
         out[where] = (prng.uniform(rows, (plan.d,),
                                    minval=prng._NORMAL_LO).cpu(),
-                      sampler._row_normals(keys, r0, n, plan.d).cpu())
+                      row_normals(keys, r0, n, plan.d).cpu())
     (uc, zc), (uh, zh) = out[dev], out["cpu"]
     expect(torch.equal(uc, uh), "card and CPU uniforms differ")
     rel = float(((zc - zh).abs() / zh.abs().clamp_min(1e-30)).max())
@@ -2037,15 +2039,69 @@ def fault_sweeps(dev, total):
         f"; faults={json.dumps(card.faults)}")
 
 
+#: the sweep's block of row-keyed normals (fig3-d1024-sweep: 120 trials x
+#: 136 rows x d = 1024, 2^24 // (120 x 1024) rows a block), at the rows of
+#: its 60th block at n = 8192
+ROW_NORMALS_BLOCK = (120, 136, 1024)
+ROW_NORMALS_R0 = 136 * 59
+#: uint32 operations a normal takes in the kernel: threefry's 2 key adds,
+#: 20 rounds of add, rotate and xor, 5 injections of 2 adds, the xor of
+#: its words, the uniform's shift and or
+ROW_NORMAL_INT_OPS = 2 + 20 * 3 + 5 * 2 + 1 + 2
+#: 32-bit integer operations a second: 132 SMs x 64 lanes x 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def check_row_normals(dev, reps):
+    """Phase 12 (row normals): the kernel against its plain version at
+    the sweep's block shape with the innovation scale, bit for bit, both
+    timed, with torch.randn (Philox, another generator) as the library's
+    yardstick; returns the kernel's record."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels import ref, row_normals
+
+    t, rows, d = ROW_NORMALS_BLOCK
+    r0, r1 = ROW_NORMALS_R0, ROW_NORMALS_R0 + rows
+    keys = prng.fold_in(prng.key(2 ** 32 - 1, device=dev),
+                        torch.arange(t, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    scale = torch.rand((t, d), generator=gen, device=dev) + 0.4
+    got = row_normals(keys, r0, r1, d, scale)
+    want = ref.row_normals_ref(keys, r0, r1, d, scale)
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    err = float((got - want).abs().max())
+    expect(differ == 0, f"row_normals at t={t} rows={rows} d={d}: {differ} "
+           f"of {got.numel()} normals differ from the plain version, by up "
+           f"to {err}")
+    del got, want
+    n = t * rows * d
+    rec = make_record(
+        "phase 12", "row_normals", "row_normals.cu",
+        "none (port-only: repro has no Pallas sampler)",
+        f"t={t} rows={rows} d={d} (rows {r0}..{r1}) scaled",
+        event_ms(lambda: row_normals(keys, r0, r1, d, scale), reps),
+        event_ms(lambda: ref.row_normals_ref(keys, r0, r1, d, scale), reps),
+        event_ms(lambda: torch.randn((t, rows, d), device=dev), reps),
+        4 * n + keys.numel() * 8 + scale.numel() * 4,
+        ROW_NORMAL_INT_OPS * n, INT32_OPS_PER_S, err)
+    log(f"phase 12 row_normals: kernel == plain version bit for bit at "
+        f"t={t} rows={rows} d={d}; {rec['plain_ms'] / rec['ms']:.1f}x the "
+        f"plain version")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def trial_plane(dev, total, records, reps):
     """Phase 12: the trial plane on the card: its kernels at its shapes,
     then parts 1-3 above. Adds each kernel's trial record to
-    ``records``."""
+    ``records``, and the row-normals kernel's own record."""
     t0 = time.perf_counter()
     trial = check_trial_kernels(dev, reps)
     for r in records:
         if r["name"] in trial:
             r["trial"] = trial[r["name"]]
+    records.append(check_row_normals(dev, reps))
     fig3_sweeps(dev, total)
     bigd_sweeps(dev, total)
     fault_sweeps(dev, total)
@@ -5530,15 +5586,18 @@ class DrySweep:
         import shutil
         from concurrent.futures import ThreadPoolExecutor
 
+        from repro_torch.launch.dryrun import not_planned
         from repro_torch.launch.shapes import SHAPES
-        from repro_torch.models.arch import list_archs
+        from repro_torch.models.arch import get_arch, list_archs
 
         self.out = os.path.join(ROOT, "build", "dryrun_torch")
         shutil.rmtree(self.out, ignore_errors=True)
         self.hbm, self.procs, self.t0 = hbm_bytes, [], time.perf_counter()
         jobs = [(DRY_SPLIT, n) for n in SHAPES] + [
             (a, None) for a in list_archs() if a != DRY_SPLIT]
-        self.combos = len(list_archs()) * len(SHAPES) * 2
+        # an arch the dry run names as not planned writes no record
+        planned = [a for a in list_archs() if not not_planned(get_arch(a))]
+        self.combos = len(planned) * len(SHAPES) * 2
         self.pool = ThreadPoolExecutor(DRY_WORKERS)
         self.jobs = [(j, self.pool.submit(self._run, *j)) for j in jobs]
 

@@ -17,7 +17,9 @@ The trial plane's row-keyed samplers (``sample_tree_ggm_rows[_batch]``,
 ``sample_ggm_rows[_batch]``) draw row i of trial k from
 ``fold_in(keys[k], i)`` with the port's threefry (``core.prng``), so
 they draw ``repro``'s normals (within 2 f32 ulps) and the first m rows
-of an (n, d) draw are bit-equal to the (m, d) draw.
+of an (n, d) draw are bit-equal to the (m, d) draw. On a card one
+kernel draws each block of them (``kernels.row_normals``), bit for bit
+the plain ``prng`` composition the CPU runs.
 
 Rows are drawn in blocks so the samples are the only full-size buffer.
 The mixing product runs in full f32: no TF32 on the card, which must
@@ -28,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch._device import resolve_device
 
 from . import prng, trees
@@ -35,8 +38,8 @@ from . import prng, trees
 #: rows drawn per block of driving normals
 _ROW_BLOCK = 1 << 16
 #: elements (trials x rows x d) of one block of row-keyed normals: the
-#: threefry words are int64, so a block's transients are a few of these
-#: times 8 bytes
+#: plain version's threefry words are int64, so its transients are a few
+#: of these times 8 bytes; the kernel's are the block's f32 normals
 _ROW_KEYED_BLOCK = 1 << 24
 
 
@@ -153,19 +156,12 @@ def sample_ggm(generator, n: int, corr, *, device=None) -> torch.Tensor:
 # Row-keyed, bucket-stable samplers (the trial plane's data)
 # --------------------------------------------------------------------------
 
-def _row_normals(keys: torch.Tensor, r0: int, r1: int, d: int):
-    """(t, 2) trial keys -> (t, r1 - r0, d) standard normals, row i of
-    trial k from ``fold_in(keys[k], i)``: ``repro.core.sampler.
-    _row_normals`` rows r0..r1."""
-    rows = torch.arange(r0, r1, device=keys.device)
-    row_keys = prng.fold_in(keys[:, None, :], rows[None, :])
-    return prng.normal(row_keys, (d,))
-
-
 def _mixed_rows(keys: torch.Tensor, n: int, mix_t: torch.Tensor,
                 scale: torch.Tensor | None = None) -> torch.Tensor:
     """x[k] = (scale[k] * z[k]) @ mix_t[k] with z the row-keyed normals of
-    ``keys``, drawn and mixed in row blocks: (t, n, d) f32."""
+    ``keys`` (row i of trial k from ``fold_in(keys[k], i)``: ``repro.core.
+    sampler._row_normals``), drawn and mixed in row blocks: (t, n, d)
+    f32."""
     t, d = keys.shape[0], mix_t.shape[-1]
     x = torch.empty((t, n, d), dtype=torch.float32, device=keys.device)
     step = max(1, _ROW_KEYED_BLOCK // max(1, t * d))
@@ -174,9 +170,7 @@ def _mixed_rows(keys: torch.Tensor, n: int, mix_t: torch.Tensor,
     try:
         for r0 in range(0, n, step):
             r1 = min(n, r0 + step)
-            z = _row_normals(keys, r0, r1, d)
-            if scale is not None:
-                z.mul_(scale[:, None, :])
+            z = kernels.row_normals(keys, r0, r1, d, scale)
             x[:, r0:r1] = torch.matmul(z, mix_t)
     finally:
         torch.set_float32_matmul_precision(precision)

@@ -6,6 +6,7 @@
 * quantize_fused   — R-bit encode (+ optional decode and dense pack)
 * flash_prefill    — full-sequence GQA flash attention (LM prefill)
 * decode_attention — one-token GQA flash-decode against a KV cache
+* row_normals      — the trial plane's row-keyed threefry normals
 
 Each kernel's plain PyTorch version lives in ``ref``; the wrappers use it
 for CPU tensors only. Sources are in ``csrc/`` and build at first use
@@ -14,6 +15,7 @@ for CPU tensors only. Sources are in ``csrc/`` and build at first use
 from .decode_attention import decode_attention  # noqa: F401
 from .flash_prefill import flash_prefill  # noqa: F401
 from .quantize import quantize_fused  # noqa: F401
+from .row_normals import row_normals  # noqa: F401
 from .sign_corr import code_corr, sign_corr, sign_corr_packed  # noqa: F401
 
 #: every kernel wrapper, by name (each carries a ``launches`` count)
@@ -24,6 +26,7 @@ WRAPPERS = {
     "quantize_fused": quantize_fused,
     "flash_prefill": flash_prefill,
     "decode_attention": decode_attention,
+    "row_normals": row_normals,
 }
 
 

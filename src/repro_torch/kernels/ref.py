@@ -1,15 +1,16 @@
-"""Plain PyTorch versions of the port's six kernels.
+"""Plain PyTorch versions of the port's seven kernels.
 
 Each computes the same function as its CUDA kernel; the tiling is the
 kernel's own. The wrappers in ``sign_corr.py``, ``quantize.py``,
-``flash_prefill.py`` and ``decode_attention.py`` take these for CPU
-tensors (the tests run them here), and ``chip_smoke.py`` holds every
-kernel against its plain version on the card. ``unpack_signs_s8``
-models the tensor-core ``sign_corr_packed``'s unpack, ``tf32_split`` and
-``code_corr_tf32_ref`` the tensor-core ``code_corr``'s arithmetic, for
-the tests; no wrapper calls them. Nor does any wrapper call
-``decode_split_ranges`` and ``decode_attention_split_ref``, which model
-the split-KV ``decode_attention`` for the tests.
+``flash_prefill.py``, ``decode_attention.py`` and ``row_normals.py``
+take these for CPU tensors (the tests run them here), and
+``chip_smoke.py`` holds every kernel against its plain version on the
+card. ``unpack_signs_s8`` models the tensor-core ``sign_corr_packed``'s
+unpack, ``tf32_split`` and ``code_corr_tf32_ref`` the tensor-core
+``code_corr``'s arithmetic, for the tests; no wrapper calls them. Nor
+does any wrapper call ``decode_split_ranges`` and
+``decode_attention_split_ref``, which model the split-KV
+``decode_attention`` for the tests.
 """
 from __future__ import annotations
 
@@ -82,6 +83,20 @@ def unpack_signs_s8(packed: torch.Tensor, n: int) -> torch.Tensor:
     shifts = 8 * torch.arange(4, device=packed.device)
     b = (w >> shifts & 0xFF).to(torch.uint8)
     return b.reshape(*p.shape[:-1], p.shape[-1] * 8).view(torch.int8)
+
+
+def row_normals_ref(keys: torch.Tensor, r0: int, r1: int, d: int,
+                    scale: torch.Tensor | None = None) -> torch.Tensor:
+    """``core.prng``'s normals of rows r0..r1 of each (t, 2) trial key
+    (row i from ``fold_in(keys[k], r0 + i)``), times ``scale[:, None, :]``
+    when given: (t, r1 - r0, d) f32."""
+    from repro_torch.core import prng
+
+    rows = torch.arange(r0, r1, device=keys.device)
+    z = prng.normal(prng.fold_in(keys[:, None, :], rows[None, :]), (d,))
+    if scale is not None:
+        z.mul_(scale[:, None, :])
+    return z
 
 
 def decode_codes(codes: torch.Tensor, centroids: torch.Tensor

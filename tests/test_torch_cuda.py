@@ -522,12 +522,73 @@ def test_cuda_trial_plane_matches_cpu(cuda):
     after = kernels.launches()
     assert all(after[k] > before[k] for k in
                ("sign_corr", "sign_corr_packed", "code_corr",
-                "quantize_fused"))
+                "quantize_fused", "row_normals"))
     plan = TrialPlan(d=20, ns=(100,), reps=6, strategies=FIG3_STRATEGIES)
     zero = dataclasses.replace(plan, faults=FaultPlan(machines=4, retries=1))
     a, b = run_trials(plan, device=cuda), run_trials(zero, device=cuda)
     for f in ("error_rate", "edit_distance", "edge_f1"):
         assert getattr(a, f) == getattr(b, f), f
+
+
+def _row_keys(seed, t, device):
+    from repro_torch.core import prng
+
+    return prng.fold_in(prng.key(seed, device=device),
+                        torch.arange(t, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 2 ** 32 - 1])
+def test_cuda_row_normals_match_plain_version(cuda, seed):
+    """The row-normals kernel against its plain version on the card, bit
+    for bit: d = 20, 1023 and 1024 at t = 1 and 3, with and without a
+    scale, rows off 0; a row count across 2^32, which the counter wraps;
+    widths under a vector (d = 1, 3) and the sweep's block (120 trials x
+    136 rows x 1024)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed % 997)
+    cases = [(t, 3, 9, d, scaled) for d in (20, 1023, 1024) for t in (1, 3)
+             for scaled in (False, True)]
+    cases += [(2, 2 ** 32 - 3, 2 ** 32 + 2, 37, True), (5, 1, 40, 1, False),
+              (4, 7, 20, 3, True), (120, 136 * 59, 136 * 60, 1024, True)]
+    before = kernels.launches()["row_normals"]
+    for t, r0, r1, d, scaled in cases:
+        keys = _row_keys(seed, t, cuda)
+        scale = (torch.rand((t, d), generator=gen, device=cuda) + 0.4
+                 if scaled else None)
+        got = kernels.row_normals(keys, r0, r1, d, scale)
+        want = ref.row_normals_ref(keys, r0, r1, d, scale)
+        assert got.shape == want.shape == (t, r1 - r0, d)
+        diff = got.view(torch.int32) != want.view(torch.int32)
+        assert not bool(diff.any()), (
+            f"t={t} rows {r0}..{r1} d={d} scale={scaled}: "
+            f"{int(diff.sum())} of {diff.numel()} normals differ, by up to "
+            f"{float((got - want).abs().max())}")
+    assert kernels.launches()["row_normals"] == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_through_row_normals_equals_the_plain_path(cuda,
+                                                               monkeypatch):
+    """A d = 1024 sweep draws its samples through the kernel, one launch a
+    row block, and its metric sums equal those of the same sweep with the
+    plain version patched in, bit for bit."""
+    from repro_torch.core import FIG3_STRATEGIES, sampler
+    from repro_torch.core.experiments import TrialPlan, run_trials
+
+    plan = TrialPlan(d=1024, ns=(2048,), reps=16, strategies=FIG3_STRATEGIES)
+    rows = max(1, sampler._ROW_KEYED_BLOCK // (plan.reps * plan.d))
+    blocks = -(-plan.bucket_for(2048) // rows)
+    assert blocks == 2
+    kernels.reset_launches()
+    got = run_trials(plan, device=cuda)
+    assert kernels.launches()["row_normals"] == blocks
+    monkeypatch.setattr(kernels, "row_normals",
+                        lambda keys, r0, r1, d, scale=None:
+                        ref.row_normals_ref(keys, r0, r1, d, scale))
+    want = run_trials(plan, device=cuda)
+    for f in ("error_rate", "edit_distance", "edge_f1", "precision",
+              "recall"):
+        assert getattr(got, f) == getattr(want, f), f
 
 
 def _sparse_strategies(methods):
